@@ -1,0 +1,244 @@
+"""Event-driven fleet simulator on the persistent state (port of
+``repro.core.simulator``: ``WorkloadSpec``, ``SimMetrics`` and
+``SoASimulator.run``'s event loop).
+
+Arrivals (Poisson), truncated-exponential lifetimes, the normal/preemptible
+mix, voluntary departures, scheduler-driven preemptions, host failure / heal
+and straggler injection, all drawn from ``np.random.default_rng(seed)`` in
+the same order as the JAX simulator, so the two event streams are identical.
+Runs of consecutive arrivals go through one ``SoAFleet.schedule_batch``.
+
+Not ported yet: the python ``Simulator``, ``run_trace``, the streaming
+admission loop and the storm / churn-regime injectors (see ``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import itertools
+import time as _time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .cost import CostFunction
+from .soa_fleet import SoAFleet
+from .types import Request, Resources
+
+
+@dataclasses.dataclass(order=True)
+class _Event:
+    time: float
+    seq: int
+    # arrival | departure | fail_host | heal_host
+    kind: str = dataclasses.field(compare=False)
+    payload: object = dataclasses.field(compare=False, default=None)
+
+
+@dataclasses.dataclass
+class WorkloadSpec:
+    """Synthetic workload mirroring §4.4 plus knobs for scale studies."""
+
+    arrival_rate_per_s: float = 1 / 60.0
+    lifetime_min_s: float = 600.0        # 10 min
+    lifetime_max_s: float = 18000.0      # 300 min
+    lifetime_mean_s: float = 5400.0
+    preemptible_fraction: float = 0.5
+    flavors: Sequence[Tuple[str, Resources]] = ()
+    flavor_probs: Optional[Sequence[float]] = None
+
+
+@dataclasses.dataclass
+class SimMetrics:
+    t: List[float] = dataclasses.field(default_factory=list)
+    utilization: List[float] = dataclasses.field(default_factory=list)
+    utilization_normal: List[float] = dataclasses.field(default_factory=list)
+    sched_latency_s: List[float] = dataclasses.field(default_factory=list)
+    failures_normal: int = 0
+    failures_preemptible: int = 0
+    placed_normal: int = 0
+    placed_preemptible: int = 0
+    preemptions: int = 0
+    storms: int = 0
+    storm_kills: int = 0
+    relocation_passes: int = 0
+    relocations: int = 0
+    relocation_failed: int = 0
+    relocation_lost: int = 0
+
+    def summary(self) -> Dict[str, float]:
+        return {
+            "mean_utilization": float(np.mean(self.utilization)) if self.utilization else 0.0,
+            "mean_utilization_normal": float(np.mean(self.utilization_normal)) if self.utilization_normal else 0.0,
+            "p50_sched_latency_us": float(np.percentile(self.sched_latency_s, 50) * 1e6) if self.sched_latency_s else 0.0,
+            "p99_sched_latency_us": float(np.percentile(self.sched_latency_s, 99) * 1e6) if self.sched_latency_s else 0.0,
+            "failures_normal": float(self.failures_normal),
+            "failures_preemptible": float(self.failures_preemptible),
+            "placed_normal": float(self.placed_normal),
+            "placed_preemptible": float(self.placed_preemptible),
+            "preemptions": float(self.preemptions),
+            "storms": float(self.storms),
+            "storm_kills": float(self.storm_kills),
+            "relocation_passes": float(self.relocation_passes),
+            "relocations": float(self.relocations),
+            "relocation_failed": float(self.relocation_failed),
+            "relocation_lost": float(self.relocation_lost),
+        }
+
+
+class SoASimulator:
+    """Event loop on the incremental fleet state: each event is an O(K·D)
+    in-place transition, and runs of consecutive arrivals are decided in one
+    ``schedule_batch`` so consecutive decisions see each other's placements.
+
+    ``device`` (``None`` = the card) is where the fleet state lives when
+    ``hosts`` is a host list; a ready ``SoAFleet`` keeps its own device.
+
+    Deltas from the JAX package's python ``Simulator`` (the same as the JAX
+    ``SoASimulator``'s): lifetimes are drawn at arrival time, and with
+    ``stop_on_normal_failure`` the loop stops at the end of the batch.
+    """
+
+    def __init__(
+        self,
+        hosts,
+        workload: WorkloadSpec,
+        seed: int = 0,
+        cost_fn: Optional[CostFunction] = None,
+        k_slots: int = 8,
+        batch_max: int = 64,
+        policy=None,
+        device=None,
+    ):
+        self.fleet = (
+            hosts if isinstance(hosts, SoAFleet)
+            else SoAFleet(hosts, cost_fn=cost_fn, k_slots=k_slots,
+                          policy=policy, device=device)
+        )
+        self.workload = workload
+        self.batch_max = batch_max
+        self.rng = np.random.default_rng(seed)
+        self.metrics = SimMetrics()
+        self._heap: List[_Event] = []
+        self._seq = itertools.count()
+        self._req_ids = itertools.count()
+        self.now = 0.0
+        #: buffered (arrival_time, request, lifetime) awaiting one flush
+        self._pending: List[Tuple[float, Request, float]] = []
+        self._min_dep = float("inf")
+
+    # -- event helpers (the JAX simulator's draws, in its order) --------------
+    def _push(self, t: float, kind: str, payload=None) -> None:
+        heapq.heappush(self._heap, _Event(t, next(self._seq), kind, payload))
+
+    def _draw_lifetime(self) -> float:
+        w = self.workload
+        for _ in range(64):
+            x = self.rng.exponential(w.lifetime_mean_s)
+            if w.lifetime_min_s <= x <= w.lifetime_max_s:
+                return x
+        return float(np.clip(x, w.lifetime_min_s, w.lifetime_max_s))
+
+    def _draw_request(self) -> Request:
+        w = self.workload
+        names = [f[0] for f in w.flavors]
+        idx = self.rng.choice(len(names), p=w.flavor_probs)
+        _, res = w.flavors[idx]
+        preempt = bool(self.rng.random() < w.preemptible_fraction)
+        return Request(id=f"r{next(self._req_ids)}", resources=res, preemptible=preempt)
+
+    # -- main loop --------------------------------------------------------------
+    def run(
+        self,
+        duration_s: float,
+        stop_on_normal_failure: bool = False,
+        sample_every_s: float = 300.0,
+    ) -> SimMetrics:
+        self._push(self.rng.exponential(1.0 / self.workload.arrival_rate_per_s), "arrival")
+        next_sample = 0.0
+        while self._heap:
+            ev = heapq.heappop(self._heap)
+            # The buffer must drain before anything that observes or mutates
+            # fleet state out of arrival order: a departure/failure event, a
+            # departure generated by a buffered arrival (min_dep), a sample
+            # point, end-of-run, or a full batch.
+            if self._pending and (
+                ev.kind != "arrival"
+                or ev.time > duration_s
+                or ev.time >= self._min_dep
+                or ev.time >= next_sample
+                or len(self._pending) >= self.batch_max
+            ):
+                heapq.heappush(self._heap, _Event(ev.time, ev.seq, ev.kind, ev.payload))
+                failed_normal = self._flush()
+                if failed_normal and stop_on_normal_failure:
+                    break
+                continue
+            if ev.time > duration_s:
+                break
+            self.now = ev.time
+            if self.now >= next_sample:
+                self._sample()
+                next_sample = self.now + sample_every_s
+            if ev.kind == "arrival":
+                req = self._draw_request()
+                lifetime = self._draw_lifetime()
+                self._pending.append((self.now, req, lifetime))
+                self._min_dep = min(self._min_dep, self.now + lifetime)
+                self._push(
+                    self.now + self.rng.exponential(1.0 / self.workload.arrival_rate_per_s),
+                    "arrival",
+                )
+            elif ev.kind == "departure":
+                self.fleet.depart(ev.payload, now=self.now)
+            elif ev.kind == "fail_host":
+                self.fleet.fail_host(ev.payload, now=self.now)
+            elif ev.kind == "heal_host":
+                self.fleet.heal_host(ev.payload)
+        if self._pending:
+            self._flush()
+        self._sample()
+        return self.metrics
+
+    def _flush(self) -> bool:
+        """Decide the buffered arrivals in one batch.  Returns True when a
+        normal request failed (the paper's stop signal)."""
+        items = [(req, t, 1.0) for t, req, _ in self._pending]
+        t0 = _time.perf_counter()
+        outcomes = self.fleet.schedule_batch(items)
+        per_req = (_time.perf_counter() - t0) / len(items)
+        failed_normal = False
+        for (t, req, lifetime), out in zip(self._pending, outcomes):
+            self.metrics.sched_latency_s.append(per_req)
+            self.metrics.preemptions += len(out.victims)
+            if not out.ok:
+                if req.preemptible:
+                    self.metrics.failures_preemptible += 1
+                else:
+                    self.metrics.failures_normal += 1
+                    failed_normal = True
+                continue
+            if req.preemptible:
+                self.metrics.placed_preemptible += 1
+            else:
+                self.metrics.placed_normal += 1
+            self._push(t + lifetime, "departure", out.instance.id)
+        self._pending.clear()
+        self._min_dep = float("inf")
+        return failed_normal
+
+    # -- fault injection ----------------------------------------------------------
+    def inject_host_failure(self, host_name: str, at_s: float, heal_after_s: float = 0.0):
+        self._push(at_s, "fail_host", host_name)
+        if heal_after_s:
+            self._push(at_s + heal_after_s, "heal_host", host_name)
+
+    def inject_stragglers(self, fraction: float, slow_factor: float = 3.0):
+        n = max(1, int(self.fleet.n_hosts * fraction))
+        for h in self.rng.choice(self.fleet.n_hosts, size=n, replace=False):
+            self.fleet.set_slow(self.fleet.names[int(h)], slow_factor)
+
+    def _sample(self) -> None:
+        self.metrics.t.append(self.now)
+        self.metrics.utilization.append(self.fleet.utilization())
+        self.metrics.utilization_normal.append(self.fleet.utilization_normal())

@@ -1,0 +1,114 @@
+"""Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface (device pointers, sizes, the
+stream) and is compiled on first use into ``build/<name>-<hash>.so`` next to
+this module, the hash covering the source and the flags, so an edited source
+rebuilds and an unchanged one loads at once.  Nothing here runs at import
+time: the CPU tests import every module on machines without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+
+#: Hopper only: ``sm_90a`` keeps wgmma/setmaxnreg available to later kernels.
+#: ``--fmad=false`` stops nvcc contracting a*b+c, so every fused multiply-add
+#: is an explicit ``__fmaf_rn`` placed where the plain version fuses.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
+)
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler, from ``PATH`` or the toolkit's usual home."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME/bin and /usr/local/cuda/bin): "
+        "the repro_torch CUDA kernels are built from source at first use and "
+        "need the CUDA toolkit; CPU tensors use the plain PyTorch versions"
+    )
+
+
+def _library_path(name: str) -> str:
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _compile_cmd(name: str, out: str) -> List[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, f"{name}.cu")]
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named source that has no up-to-date library, one
+    ``nvcc`` process per source, all started together.  Returns the library
+    paths; raises with the compiler's output if any build fails."""
+    names = list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = {n: _library_path(n) for n in names}
+    procs = []
+    for n in names:
+        if os.path.exists(paths[n]):
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            _compile_cmd(n, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT
+        )
+        procs.append((n, tmp, proc))
+    failed = []
+    for n, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{n}.cu:\n{out.decode(errors='replace')}")
+        else:
+            os.replace(tmp, paths[n])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build([name])[name])
+        _LOADED[name] = lib
+    return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """The C launch entry ``symbol`` of ``csrc/<name>.cu``, typed once
+    (``argtypes``, returning ``cudaError_t`` as int) and cached."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch entry."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")

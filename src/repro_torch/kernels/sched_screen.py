@@ -1,0 +1,334 @@
+"""Stage-1 screen: CUDA kernels and plain PyTorch versions.
+
+Port of ``repro.kernels.sched_screen`` (the Pallas TPU kernels ``_kernel``,
+``_consts_kernel`` and ``_topm_kernel``).  ``sched_screen_consts`` folds the
+10 normalization constants over the fleet; ``sched_screen_topm`` scores
+``omega_ub`` against given constants and keeps the top ``m_keep`` hosts,
+ties at the lowest index; ``sched_screen`` runs the two in a row and returns
+``(top_scores, top_idx, consts)`` with the contract of the JAX function
+(callers pass ``m_keep = M + 1`` and read entry M as the admissibility
+witness).  The kernels are in ``csrc/sched_screen.cu``.
+
+The plain versions are the JAX package's jnp screen (``_stage1_rows`` +
+``consts_of`` + ``base_from_consts`` + ``omega_of``) with the top-M taken by
+a stable descending sort (``torch.topk`` does not keep ``lax.top_k``'s tie
+order).  CPU tensors run them; CUDA tensors launch the kernels or raise.
+
+The request fields ``req_preemptible``, ``req_domain`` and ``exclude_zone``
+are python scalars (a CUDA kernel takes them as launch arguments).
+"""
+from __future__ import annotations
+
+import ctypes
+import struct
+from typing import Sequence, Tuple
+
+import torch
+
+from ..core.screen_math import (
+    NEG_INF,
+    POS_INF,
+    ScreenConsts,
+    base_terms,
+    consts_of,
+    inv_span,
+    omega_of,
+    stage1_rows,
+)
+from . import _build
+
+#: launches, counted where each happens; ``sched_screen`` counts both of the
+#: launches it makes (two per call).
+LAUNCHES = {"sched_screen_consts": 0, "sched_screen_topm": 0, "sched_screen": 0}
+
+MAX_K = 12
+MAX_D = 8
+#: hosts per block of the top-M kernel, and the most a block can keep.
+TOPM_BLOCK = 1024
+#: the merge sorts every block's top in one block's shared memory.
+MERGE_SMEM_BYTES = 232_448
+
+
+class _ScreenArgs(ctypes.Structure):
+    """Mirror of ``struct ScreenArgs`` in csrc/sched_screen.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "free_f", "free_n", "sched", "domain", "slow", "inst_res", "inst_cost",
+        "inst_valid", "req", "churn", "host_zone")] + [
+        (name, ctypes.c_int) for name in (
+            "n", "k", "d", "pre", "rdom", "excl", "require_free_slot",
+            "has_thr")] + [
+        (name, ctypes.c_float) for name in (
+            "thr", "m_over", "m_term", "m_pack", "m_strag", "m_churn")]
+
+
+def _enc(x: float) -> int:
+    """Order-preserving uint32 encoding of an f32 (the kernel's enc_f), as a
+    signed int32 for ``fill_``."""
+    b = struct.unpack("<I", struct.pack("<f", x))[0]
+    e = (~b & 0xFFFFFFFF) if b & 0x80000000 else (b | 0x80000000)
+    return e - (1 << 32) if e >= (1 << 31) else e
+
+
+_ENC_POS, _ENC_NEG = _enc(POS_INF), _enc(NEG_INF)
+
+
+def _m_churn(mult: Sequence[float]) -> float:
+    return mult[4] if len(mult) > 4 else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _stage1(fleet, req_preemptible, req_domain, require_free_slot, churn,
+            churn_threshold, host_zone, exclude_zone):
+    return stage1_rows(
+        *fleet, bool(req_preemptible), int(req_domain), require_free_slot,
+        churn=churn, churn_threshold=churn_threshold,
+        host_zone=host_zone, exclude_zone=exclude_zone,
+    )
+
+
+def sched_screen_consts_plain(
+    free_f, free_n, schedulable, domain, slow, inst_res, inst_cost, inst_valid,
+    req_res, req_preemptible, req_domain, weigher_multipliers,
+    require_free_slot: bool, churn=None, churn_threshold=None,
+    host_zone=None, exclude_zone=None,
+) -> torch.Tensor:
+    """The packed (10,) ``ScreenConsts`` of the jnp screen."""
+    fleet = (free_f, free_n, schedulable, domain, slow, inst_res, inst_cost,
+             inst_valid, req_res)
+    valid, lb, ub, raw = _stage1(fleet, req_preemptible, req_domain,
+                                 require_free_slot, churn, churn_threshold,
+                                 host_zone, exclude_zone)
+    return consts_of(tuple(weigher_multipliers), valid, lb, ub, *raw).pack()
+
+
+def sched_screen_topm_plain(
+    free_f, free_n, schedulable, domain, slow, inst_res, inst_cost, inst_valid,
+    req_res, req_preemptible, req_domain, consts, weigher_multipliers,
+    require_free_slot: bool, m_keep: int, churn=None, churn_threshold=None,
+    host_zone=None, exclude_zone=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``omega_ub`` against ``consts`` → the ``m_keep`` best, descending,
+    ties at the lowest host index."""
+    mult = tuple(weigher_multipliers)
+    fleet = (free_f, free_n, schedulable, domain, slow, inst_res, inst_cost,
+             inst_valid, req_res)
+    valid, lb, ub, raw = _stage1(fleet, req_preemptible, req_domain,
+                                 require_free_slot, churn, churn_threshold,
+                                 host_zone, exclude_zone)
+    c = ScreenConsts.unpack(consts)
+    base, pending = base_terms(mult, raw[0], raw[1], raw[2], c,
+                               raw[3] if len(raw) > 3 else None)
+    ispan = inv_span(c.c_lo, c.c_hi)
+    opt = lb if mult[1] >= 0 else ub
+    omega = omega_of(opt, base, valid, c, ispan, mult[1], pending=pending)
+    order = torch.sort(omega, descending=True, stable=True).indices[:m_keep]
+    return omega[order], order.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+
+def _screen_args(free_f, free_n, schedulable, domain, slow, inst_res,
+                 inst_cost, inst_valid, req_res, req_preemptible, req_domain,
+                 weigher_multipliers, require_free_slot, churn,
+                 churn_threshold, host_zone, exclude_zone) -> _ScreenArgs:
+    """Validate the fleet tensors for the kernels and pack the launch
+    arguments.  Raises on anything the kernels do not take."""
+    if inst_res.dim() != 3:
+        raise ValueError("sched_screen: inst_res must be (N, K, D)")
+    n, k, d = inst_res.shape
+    if not 1 <= k <= MAX_K or not 1 <= d <= MAX_D or n < 1:
+        raise ValueError(f"sched_screen: kernel takes N >= 1, K <= {MAX_K}, "
+                         f"D <= {MAX_D}; got N={n}, K={k}, D={d}")
+    f32, i32, flag = (torch.float32,), (torch.int32,), (torch.bool, torch.uint8)
+    spec = [("free_f", free_f, (n, d), f32), ("free_n", free_n, (n, d), f32),
+            ("schedulable", schedulable, (n,), flag), ("domain", domain, (n,), i32),
+            ("slow", slow, (n,), f32), ("inst_res", inst_res, (n, k, d), f32),
+            ("inst_cost", inst_cost, (n, k), f32),
+            ("inst_valid", inst_valid, (n, k), flag), ("req_res", req_res, (d,), f32)]
+    if churn is not None:
+        spec.append(("churn", churn, (n,), f32))
+    if host_zone is not None:
+        spec.append(("host_zone", host_zone, (n,), i32))
+    for name, t, shape, dtypes in spec:
+        if t.device != free_f.device:
+            raise ValueError(f"sched_screen: {name} on {t.device}, "
+                             f"free_f on {free_f.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"sched_screen: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"sched_screen: {name} must be {dtypes}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"sched_screen: {name} must be contiguous")
+    mult = tuple(float(m) for m in weigher_multipliers)
+    if len(mult) not in (4, 5):
+        raise ValueError("sched_screen: weigher_multipliers needs 4 or 5 entries")
+    zone_on = host_zone is not None and exclude_zone is not None
+    return _ScreenArgs(
+        free_f.data_ptr(), free_n.data_ptr(), schedulable.data_ptr(),
+        domain.data_ptr(), slow.data_ptr(), inst_res.data_ptr(),
+        inst_cost.data_ptr(), inst_valid.data_ptr(), req_res.data_ptr(),
+        churn.data_ptr() if churn is not None else None,
+        host_zone.data_ptr() if zone_on else None,
+        n, k, d, int(bool(req_preemptible)), int(req_domain),
+        int(exclude_zone) if zone_on else -1, int(bool(require_free_slot)),
+        int(churn_threshold is not None),
+        float(churn_threshold) if churn_threshold is not None else 0.0,
+        mult[0], mult[1], mult[2], mult[3], _m_churn(mult),
+    )
+
+
+def _count(counts: Sequence[str]) -> None:
+    for name in counts:
+        LAUNCHES[name] += 1
+
+
+def _consts_cuda(args: _ScreenArgs, device, counts: Sequence[str]) -> torch.Tensor:
+    """Launch the constants pass; adds one to each of ``counts``."""
+    fn = _build.entry("sched_screen", "sched_screen_consts_launch",
+                      [_ScreenArgs, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    enc = torch.empty((10,), dtype=torch.int32, device=device)
+    enc[0::2].fill_(_ENC_POS)
+    enc[1::2].fill_(_ENC_NEG)
+    consts = torch.empty((10,), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(fn(args, enc.data_ptr(), consts.data_ptr(), stream),
+                     "sched_screen_consts")
+    _count(counts)
+    return consts
+
+
+def _merge_size(n: int, m_keep: int) -> int:
+    """Keys the merge sorts (padded to a power of two); raises when one
+    block's shared memory cannot hold them."""
+    if not 1 <= m_keep <= min(n, TOPM_BLOCK):
+        raise ValueError(f"sched_screen: m_keep={m_keep} out of range for "
+                         f"{n} hosts (kernel keeps at most {TOPM_BLOCK})")
+    cand = -(-n // TOPM_BLOCK) * m_keep
+    pad = 1
+    while pad < cand:
+        pad *= 2
+    if pad * 8 > MERGE_SMEM_BYTES:
+        raise ValueError(
+            f"sched_screen: the merge of {cand} candidates ({pad} padded keys, "
+            f"{pad * 8} bytes) exceeds one block's {MERGE_SMEM_BYTES} bytes of "
+            "shared memory; use fewer hosts or a smaller m_keep"
+        )
+    return pad
+
+
+def _topm_cuda(args: _ScreenArgs, consts, m_keep: int, device,
+               counts: Sequence[str]):
+    """Launch the top-M pass (block sorts, then the merge); adds one to each
+    of ``counts``."""
+    if tuple(consts.shape) != (10,) or consts.dtype != torch.float32 \
+            or consts.device != device or not consts.is_contiguous():
+        raise ValueError("sched_screen_topm: consts must be a contiguous "
+                         f"(10,) float32 tensor on {device}")
+    n_pad = _merge_size(args.n, m_keep)
+    fn = _build.entry("sched_screen", "sched_screen_topm_launch",
+                      [_ScreenArgs, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    blocks = -(-args.n // TOPM_BLOCK)
+    scratch = torch.empty((blocks * m_keep,), dtype=torch.int64, device=device)
+    scores = torch.empty((m_keep,), dtype=torch.float32, device=device)
+    idx = torch.empty((m_keep,), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(fn(args, consts.data_ptr(), m_keep, scratch.data_ptr(),
+                        n_pad, scores.data_ptr(), idx.data_ptr(), stream),
+                     "sched_screen_topm")
+    _count(counts)
+    return scores, idx
+
+
+# ---------------------------------------------------------------------------
+# Public entries (the device picks the version)
+# ---------------------------------------------------------------------------
+
+
+def _device_of(free_f: torch.Tensor) -> str:
+    if free_f.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sched_screen: unsupported device {free_f.device}")
+    return free_f.device.type
+
+
+def sched_screen_consts(
+    free_f, free_n, schedulable, domain, slow, inst_res, inst_cost, inst_valid,
+    req_res, req_preemptible, req_domain, weigher_multipliers,
+    require_free_slot: bool, churn=None, churn_threshold=None,
+    host_zone=None, exclude_zone=None,
+) -> torch.Tensor:
+    """Fold only the 10 normalization constants; returns them packed (10,)."""
+    fleet = (free_f, free_n, schedulable, domain, slow, inst_res, inst_cost,
+             inst_valid, req_res, req_preemptible, req_domain,
+             weigher_multipliers, require_free_slot)
+    extra = dict(churn=churn, churn_threshold=churn_threshold,
+                 host_zone=host_zone, exclude_zone=exclude_zone)
+    if _device_of(free_f) == "cpu":
+        return sched_screen_consts_plain(*fleet, **extra)
+    return _consts_cuda(_screen_args(*fleet, **extra), free_f.device,
+                        ("sched_screen_consts",))
+
+
+def _check_m_keep(m_keep: int, n: int) -> None:
+    if not 1 <= m_keep <= n:
+        raise ValueError(f"m_keep={m_keep} out of range for {n} hosts")
+
+
+def sched_screen_topm(
+    free_f, free_n, schedulable, domain, slow, inst_res, inst_cost, inst_valid,
+    req_res, req_preemptible, req_domain, consts, weigher_multipliers,
+    require_free_slot: bool, m_keep: int, churn=None, churn_threshold=None,
+    host_zone=None, exclude_zone=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Score ``omega_ub`` against ``consts`` and return the top ``m_keep``
+    ``(scores, host indices)``."""
+    head = (free_f, free_n, schedulable, domain, slow, inst_res, inst_cost,
+            inst_valid, req_res, req_preemptible, req_domain)
+    extra = dict(churn=churn, churn_threshold=churn_threshold,
+                 host_zone=host_zone, exclude_zone=exclude_zone)
+    if _device_of(free_f) == "cpu":
+        _check_m_keep(m_keep, free_f.shape[0])
+        return sched_screen_topm_plain(*head, consts, weigher_multipliers,
+                                       require_free_slot, m_keep, **extra)
+    args = _screen_args(*head, weigher_multipliers, require_free_slot, **extra)
+    return _topm_cuda(args, consts, m_keep, free_f.device, ("sched_screen_topm",))
+
+
+def sched_screen(
+    free_f, free_n, schedulable, domain, slow, inst_res, inst_cost, inst_valid,
+    req_res, req_preemptible, req_domain, weigher_multipliers,
+    require_free_slot: bool, m_keep: int, churn=None, churn_threshold=None,
+    host_zone=None, exclude_zone=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage-1 screen: ``(top_scores (m_keep,), top_idx (m_keep,), consts
+    (10,))`` — the constants pass, then the top-M pass against them.
+
+    On the card that is two launches (the launch arguments are packed once),
+    each counted under its own kernel's name and under ``sched_screen``."""
+    fleet = (free_f, free_n, schedulable, domain, slow, inst_res, inst_cost,
+             inst_valid, req_res, req_preemptible, req_domain,
+             weigher_multipliers, require_free_slot)
+    extra = dict(churn=churn, churn_threshold=churn_threshold,
+                 host_zone=host_zone, exclude_zone=exclude_zone)
+    if _device_of(free_f) == "cpu":
+        _check_m_keep(m_keep, free_f.shape[0])
+        consts = sched_screen_consts_plain(*fleet, **extra)
+        scores, idx = sched_screen_topm_plain(
+            *fleet[:11], consts, *fleet[11:], m_keep, **extra)
+        return scores, idx, consts
+    args = _screen_args(*fleet, **extra)
+    consts = _consts_cuda(args, free_f.device, ("sched_screen_consts", "sched_screen"))
+    scores, idx = _topm_cuda(args, consts, m_keep, free_f.device,
+                             ("sched_screen_topm", "sched_screen"))
+    return scores, idx, consts

@@ -1,0 +1,111 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU (a CUDA
+kernel has no CPU mode); the CPU tests hold the plain versions against the
+JAX package.  This file imports neither JAX nor the JAX package, so it runs
+on a machine that has only PyTorch and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import fleets
+from repro_torch.core.policy import SchedulerPolicy
+from repro_torch.core.soa_fleet import SoAFleet
+from repro_torch.core.torch_scheduler import fleet_slot_costs
+from repro_torch.core.types import Request
+
+pytestmark = pytest.mark.cuda
+CHURN_MULT = (1.0, 1.0, 0.5, 0.25, 2.0)
+
+
+@pytest.fixture
+def cuda_device():
+    """Decided here, never at import, so every worker collects the same
+    tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _rand_fleet(rng, n, k, device):
+    a = [rng.integers(0, 9, (n, 3)), rng.integers(2, 12, (n, 3)), rng.random(n) < 0.9,
+         rng.integers(0, 3, n), rng.integers(1, 5, n), rng.integers(0, 5, (n, k, 3)),
+         rng.integers(0, 60, (n, k)) * 60, rng.random((n, k)) < 0.7]
+    dt = [np.float32, np.float32, bool, np.int32, np.float32, np.float32, np.float32, bool]
+    return [torch.from_numpy(x.astype(t)).to(device) for x, t in zip(a, dt)]
+
+
+def _eq(got, want):
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("k,n", [(8, 65536), (12, 64), (3, 1000)])
+def test_sched_weigh_matches_plain(cuda_device, k, n):
+    rng = np.random.default_rng(k + n)
+    f = _rand_fleet(rng, n, k, cuda_device)
+    req = torch.tensor([5.0, 4.0, 6.0], device=cuda_device)
+    args = (f[0], f[5], f[6], f[7], req)
+    kernels.reset_launch_counts()
+    got = kernels.sched_weigh(*args)
+    assert kernels.launch_counts()["sched_weigh"] == 1
+    for g, w in zip(got, kernels.sched_weigh_plain(*args)):
+        _eq(g, w)
+
+
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("churn_zone", [False, True])
+def test_sched_screen_matches_plain(cuda_device, pre, churn_zone):
+    rng = np.random.default_rng(11)
+    n = 65536
+    f = _rand_fleet(rng, n, 8, cuda_device)
+    req = torch.tensor([5.0, 4.0, 6.0], device=cuda_device)
+    mult = CHURN_MULT if churn_zone else (1.0, 1.0, 0.0, 0.0)
+    kw = {}
+    if churn_zone:
+        kw = dict(
+            churn=torch.from_numpy((rng.integers(0, 8, n) / 8.0).astype(np.float32)).to(cuda_device),
+            churn_threshold=0.5,
+            host_zone=torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)).to(cuda_device),
+            exclude_zone=2,
+        )
+    head = (*f, req, pre, -1)
+    kernels.reset_launch_counts()
+    got = kernels.sched_screen(*head, mult, True, 65, **kw)
+    counts = kernels.launch_counts()
+    assert (counts["sched_screen_consts"], counts["sched_screen_topm"],
+            counts["sched_screen"]) == (1, 1, 2)
+    consts = kernels.sched_screen_consts_plain(*head, mult, True, **kw)
+    scores, idx = kernels.sched_screen_topm_plain(*head, consts, mult, True, 65, **kw)
+    _eq(got[2], consts)
+    _eq(got[0], scores)
+    _eq(got[1], idx)
+
+
+def test_decisions_match_cpu(cuda_device):
+    """The same 200 decisions on a 4,096-host saturated fleet, on the card
+    (kernels) and on the CPU (plain versions): identical outcomes and state."""
+    hosts = fleets.saturated_fleet(4096, seed=2)
+    rng = np.random.default_rng(3)
+    sizes = list(fleets.SIZES.values())
+    items = [(Request(id=f"r{i}", resources=sizes[int(rng.integers(0, 3))],
+                      preemptible=bool(rng.random() < 0.5)),
+              fleets.NOW + 7.3 * i, 1.0) for i in range(200)]
+    gpu = SoAFleet(hosts, device=cuda_device)
+    cpu = SoAFleet(fleets.saturated_fleet(4096, seed=2), device="cpu")
+    kernels.reset_launch_counts()
+    out_g = [o for b in range(0, 200, 40) for o in gpu.schedule_batch(items[b:b + 40])]
+    counts = kernels.launch_counts()
+    assert counts["sched_screen_consts"] == counts["sched_screen_topm"] == 200
+    assert counts["sched_screen"] == 400 and counts["sched_weigh"] >= 200
+    out_c = [o for b in range(0, 200, 40) for o in cpu.schedule_batch(items[b:b + 40])]
+    assert [(o.host, len(o.victims)) for o in out_g] == [(o.host, len(o.victims)) for o in out_c]
+    for name in ("free_f", "free_n", "inst_valid", "inst_start", "zone_term", "zone_up"):
+        _eq(getattr(gpu.state, name), getattr(cpu.state, name))
+    costs = fleet_slot_costs(gpu.state, fleets.NOW + 0.3, SchedulerPolicy())
+    _eq(costs, fleet_slot_costs(cpu.state, fleets.NOW + 0.3, SchedulerPolicy()))
