@@ -1,0 +1,9 @@
+"""yi-9b [arXiv:2403.04652] — llama-arch GQA."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-9b", family="dense",
+    n_layers=48, d_model=4096, n_heads=32, n_kv_heads=4,
+    d_ff=11008, vocab_size=64000,
+    mlp_type="swiglu",
+)

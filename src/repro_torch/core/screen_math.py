@@ -19,6 +19,7 @@ every site against the jitted reference on non-integer inputs.
 from __future__ import annotations
 
 import functools
+import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -230,21 +231,39 @@ def inv_span(c_lo: torch.Tensor, c_hi: torch.Tensor) -> torch.Tensor:
     return torch.where(good, 1.0 / torch.where(good, span, 1.0), 0.0)
 
 
-def _base_chain(multipliers, norms):
+def _is_pow2(m: float) -> bool:
+    """``m`` is a positive power of two other than 1 (an exact product)."""
+    mant, _ = math.frexp(m)
+    return m > 0.0 and m != 1.0 and mant == 0.5
+
+
+def _base_chain(multipliers, norms, m_term=0.0):
     """Sum the enabled weigher terms ``m * norm`` in the fixed order (over,
     pack, straggler, churn), rounding where jitted XLA rounds.
 
-    Measured on the reference (tests/test_torch_screen_math.py): a
-    multiplier of 1 or -1 is no product; only the chain's first add is
-    contracted — around the first term's product, unless that term is the
-    overcommit term (a select of two values, whose product XLA hoists out
-    of the fma), else around the second term's product, unless the chain
-    has three or more terms and starts with an overcommit product; every
-    later add rounds on its own.
+    Measured on the reference (tests/test_torch_screen_math.py, reading the
+    optimized HLO and the LLVM IR of the jitted pipeline): a multiplier of 1
+    or -1 is no product, and the overcommit term (a 0/1 select) is never
+    fused around.  At most the chain's first add is contracted:
 
-    Returns ``(base, pending)``: ``pending`` is the unrounded product
-    ``(m, norm)`` when ``base`` is a single product term, which the
-    termination-cost add then fuses (see :func:`omega_of`)."""
+    * two terms: around the first term's product (unless it is the
+      overcommit term), else around the second term's;
+    * three terms: around the first term's product (unless it is the
+      overcommit term), else around the second term's product only when
+      the first or the third multiplier is exactly 1;
+    * four terms: nowhere.
+
+    Every later add rounds on its own.  When every term shares one positive
+    power-of-two multiplier, XLA factors it out of the sum (exact, so base
+    is unchanged), and the termination-cost add then fuses that product
+    instead of its own, except for a termination multiplier of -1, or a
+    positive one other than 1 on a two-term chain.  A shared negative power
+    of two does the same only on a three-term chain with a negative
+    termination multiplier other than -1.
+
+    Returns ``(base, pending)``: ``pending`` is an unrounded product
+    ``(m, x)`` equal to ``base`` that the termination-cost add fuses (see
+    :func:`omega_of`), or None."""
     terms = [(i, m, x) for i, (m, x) in enumerate(zip(multipliers, norms))
              if m and x is not None]
     if not terms:
@@ -258,16 +277,21 @@ def _base_chain(multipliers, norms):
     if len(terms) == 1:
         return base, ((m0, x0) if m0 not in (1.0, -1.0) else None)
     _, m1, x1 = terms[1]
-    p0 = m0 not in (1.0, -1.0)
+    p0 = m0 not in (1.0, -1.0) and i0 != 0
     p1 = m1 not in (1.0, -1.0)
-    if p0 and i0 != 0:
+    if p0:
         base = fma(m0, x0, value(m1, x1))
-    elif p1 and not (p0 and len(terms) >= 3):
+    elif p1 and (len(terms) == 2 or (len(terms) == 3 and 1.0 in (m0, terms[2][1]))):
         base = fma(m1, x1, base)
     else:
         base = base + value(m1, x1)
     for _, m, x in terms[2:]:
         base = base + value(m, x)
+    if len({m for _, m, _ in terms}) == 1 and (
+            (_is_pow2(m0) and not (m_term == -1.0 or (
+                len(terms) == 2 and m_term > 0.0 and m_term != 1.0)))
+            or (_is_pow2(-m0) and len(terms) == 3 and m_term < 0.0 and m_term != -1.0)):
+        return base, (1.0, base)
     return base, None
 
 
@@ -298,7 +322,7 @@ def base_terms(multipliers, over_raw, pack_raw, strag_raw, consts,
          if _m_churn(multipliers) and churn_raw is not None else None),
     )
     base, pending = _base_chain(
-        (m_over, m_pack, m_strag, _m_churn(multipliers)), norms
+        (m_over, m_pack, m_strag, _m_churn(multipliers)), norms, multipliers[1]
     )
     if base is None:
         base = torch.zeros_like(over_raw)

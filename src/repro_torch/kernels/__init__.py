@@ -1,5 +1,7 @@
-"""Hand-written CUDA kernels of the scheduler's decision path (Hopper, sm_90a),
-each beside its plain PyTorch version.
+"""Hand-written CUDA kernels of the port (Hopper, sm_90a), each beside its
+plain PyTorch version: the scheduler's decision path (``sched_weigh``,
+``sched_screen``) and the model-serving path (``flash_attention``,
+``rmsnorm``).
 
 The tensor's device picks the version: a CPU tensor runs the plain version,
 a CUDA tensor launches the kernel or raises.  Every kernel wrapper counts its
@@ -12,8 +14,12 @@ from __future__ import annotations
 from typing import Dict
 
 from ..core.screen_math import TIE_EPS
+from . import flash_attention as _flash_attention_mod
+from . import rmsnorm as _rmsnorm_mod
 from . import sched_screen as _sched_screen_mod
 from . import sched_weigh as _sched_weigh_mod
+from .flash_attention import flash_attention, flash_attention_plain
+from .rmsnorm import rmsnorm, rmsnorm_plain
 from .sched_screen import (
     sched_screen,
     sched_screen_consts,
@@ -23,10 +29,11 @@ from .sched_screen import (
 )
 from .sched_weigh import sched_weigh, sched_weigh_gathered, sched_weigh_plain
 
-_COUNTERS = (_sched_weigh_mod.LAUNCHES, _sched_screen_mod.LAUNCHES)
+_COUNTERS = (_sched_weigh_mod.LAUNCHES, _sched_screen_mod.LAUNCHES,
+             _flash_attention_mod.LAUNCHES, _rmsnorm_mod.LAUNCHES)
 
 #: the CUDA sources, one ``nvcc`` run each (``_build.build``).
-SOURCES = ("sched_weigh", "sched_screen")
+SOURCES = ("sched_weigh", "sched_screen", "flash_attention", "rmsnorm")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -46,8 +53,12 @@ def reset_launch_counts() -> None:
 __all__ = [
     "SOURCES",
     "TIE_EPS",
+    "flash_attention",
+    "flash_attention_plain",
     "launch_counts",
     "reset_launch_counts",
+    "rmsnorm",
+    "rmsnorm_plain",
     "sched_screen",
     "sched_screen_consts",
     "sched_screen_consts_plain",

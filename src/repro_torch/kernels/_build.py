@@ -20,12 +20,19 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 #: Hopper only: ``sm_90a`` keeps wgmma/setmaxnreg available to later kernels.
-#: ``--fmad=false`` stops nvcc contracting a*b+c, so every fused multiply-add
-#: is an explicit ``__fmaf_rn`` placed where the plain version fuses.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
 )
+#: flags of one source on top of ``NVCC_FLAGS``.  The scheduler kernels must
+#: equal their plain versions bit for bit: ``--fmad=false`` stops nvcc
+#: contracting a*b+c, so every fused multiply-add is an explicit
+#: ``__fmaf_rn`` placed where the plain version fuses.  The model kernels
+#: are held to a tolerance and let nvcc contract.
+SOURCE_FLAGS = {
+    "sched_weigh": ("--fmad=false",),
+    "sched_screen": ("--fmad=false",),
+}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
@@ -46,15 +53,19 @@ def nvcc_path() -> str:
     )
 
 
+def _flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _library_path(name: str) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def _compile_cmd(name: str, out: str) -> List[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, f"{name}.cu")]
+    return [nvcc_path(), *_flags(name), "-o", out, os.path.join(CSRC, f"{name}.cu")]
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

@@ -236,6 +236,12 @@ static __device__ __forceinline__ bool is_prod(float m) {
     return m != 1.0f && m != -1.0f;
 }
 
+// a positive power of two other than 1
+static __device__ __forceinline__ bool is_pow2(float m) {
+    int e;
+    return m > 0.0f && m != 1.0f && frexpf(m, &e) == 0.5f;
+}
+
 static __device__ __forceinline__ float scaled(float m, float x) {
     return (m == 1.0f) ? x : ((m == -1.0f) ? -x : m * x);
 }
@@ -265,11 +271,25 @@ static __device__ __forceinline__ float omega_ub(const ScreenArgs& a,
         if (is_prod(ms[idx[0]])) { pending = true; pm = ms[idx[0]]; px = xs[0]; }
     } else if (cnt >= 2) {
         const float m0 = ms[idx[0]], m1 = ms[idx[1]];
-        const bool p0 = is_prod(m0), p1 = is_prod(m1);
-        if (p0 && idx[0] != 0) base = __fmaf_rn(m0, xs[0], scaled(m1, xs[1]));
-        else if (p1 && !(p0 && cnt >= 3)) base = __fmaf_rn(m1, xs[1], scaled(m0, xs[0]));
+        const bool p0 = is_prod(m0) && idx[0] != 0, p1 = is_prod(m1);
+        if (p0) base = __fmaf_rn(m0, xs[0], scaled(m1, xs[1]));
+        else if (p1 && (cnt == 2 || (cnt == 3 && (m0 == 1.0f || ms[idx[2]] == 1.0f))))
+            base = __fmaf_rn(m1, xs[1], scaled(m0, xs[0]));
         else base = scaled(m0, xs[0]) + scaled(m1, xs[1]);
-        for (int j = 2; j < cnt; ++j) base = base + scaled(ms[idx[j]], xs[j]);
+        bool shared = true;
+        for (int j = 2; j < cnt; ++j) {
+            base = base + scaled(ms[idx[j]], xs[j]);
+            shared = shared && ms[idx[j]] == m0;
+        }
+        // one shared power-of-two multiplier: XLA factors it out of the sum
+        // and the termination add fuses that (exact) product instead
+        // (screen_math._base_chain lists when)
+        const float mt = a.m_term;
+        if (shared && m1 == m0 &&
+            ((is_pow2(m0) && !(mt == -1.0f || (cnt == 2 && mt > 0.0f && mt != 1.0f))) ||
+             (is_pow2(-m0) && cnt == 3 && mt < 0.0f && mt != -1.0f))) {
+            pending = true; pm = 1.0f; px = base;
+        }
     }
     float w = base;
     if (a.m_term != 0.0f) {

@@ -109,3 +109,81 @@ def test_decisions_match_cpu(cuda_device):
         _eq(getattr(gpu.state, name), getattr(cpu.state, name))
     costs = fleet_slot_costs(gpu.state, fleets.NOW + 0.3, SchedulerPolicy())
     _eq(costs, fleet_slot_costs(cpu.state, fleets.NOW + 0.3, SchedulerPolicy()))
+
+
+# ---------------------------------------------------------------------------
+# The model-serving kernels: flash-attention forward and RMSNorm
+# ---------------------------------------------------------------------------
+
+#: bf16 outputs may round one ulp apart (2e-2, as the JAX package's kernel
+#: tests); f32 outputs differ by summation order only
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 12, 2, 128), (1, 192, 8, 1, 256), (2, 100, 4, 2, 64),
+                                   (1, 33, 4, 4, 32)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_matches_plain(cuda_device, shape, dtype, causal):
+    b, s, h, g, hd = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(s + hd)
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device).to(dtype)
+               for n in (h, g, g))
+    kernels.reset_launch_counts()
+    o, lse = kernels.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    po, plse = kernels.flash_attention_plain(q, k, v, causal=causal)
+    assert o.dtype == dtype and o.shape == q.shape and lse.shape == (b * h, s)
+    _close(o, po, FLASH_TOL[dtype])
+    _close(lse, plse, 1e-4)
+
+
+def test_flash_attention_refuses_grad(cuda_device):
+    q = torch.randn((1, 64, 2, 64), device=cuda_device, requires_grad=True)
+    k = torch.randn((1, 64, 1, 64), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ROADMAP §2 item 5"):
+        kernels.flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("rows,d", [(4096, 1536), (8, 1536), (100, 384), (3, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rmsnorm_matches_plain(cuda_device, rows, d, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.randn((rows, d), generator=gen, device=cuda_device).to(dtype)
+    w = (0.1 * torch.randn((d,), generator=gen, device=cuda_device)).to(dtype)
+    kernels.reset_launch_counts()
+    got = kernels.rmsnorm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rmsnorm"] == 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    _close(got, kernels.rmsnorm_plain(x, w, 1e-6), tol)
+
+
+def test_reduced_model_matches_cpu(cuda_device):
+    """Reduced qwen2-1.5b in f32, the same weights on the card (kernels) and
+    on the CPU (plain versions): flash forward_logits agree to 1e-4, and
+    every layer's two norms, the final norm and the flash attention ran as
+    kernels."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as tm
+
+    cfg = dataclasses.replace(reduced(get_config("qwen2-1.5b")), attention_impl="flash")
+    cpu = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = tm.Model(cfg, device="meta")
+    gpu.load_state_dict({k: t.to(cuda_device) for k, t in cpu.state_dict().items()}, assign=True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab_size, (2, 40)))
+    kernels.reset_launch_counts()
+    got = tm.forward_logits(cfg, gpu, {"tokens": toks.to(cuda_device)}, last_only=False)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["rmsnorm"] == 2 * cfg.n_layers + 1
+    want = tm.forward_logits(cfg, cpu, {"tokens": toks}, last_only=False)
+    _close(got, want, 1e-4)

@@ -127,7 +127,12 @@ def test_default_device_is_the_card():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     modules = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
-    assert "repro_torch.core.torch_scheduler" in modules
+    for name in ("repro_torch.core.torch_scheduler", "repro_torch.core.preemption",
+                 "repro_torch.configs", "repro_torch.configs.qwen2_1_5b",
+                 "repro_torch.models.model", "repro_torch.models.convert",
+                 "repro_torch.serving.engine", "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.rmsnorm"):
+        assert name in modules, name
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -1,0 +1,182 @@
+"""The port's model stack (``repro_torch.models``) against the JAX package's,
+on reduced qwen2-1.5b, gemma-2b and yi-9b in f32 with the same weights: the
+converter's round trip, ``forward_logits`` with reference and flash
+attention, and ``prefill`` + ``decode_step`` in both cache layouts.
+
+Weights come from JAX's ``init_params`` through ``params_from_numpy``;
+tokens from seeded numpy.  Tolerance atol = rtol = 1e-4 (f32, summation
+order differs between XLA and PyTorch), and the greedy argmax must agree
+everywhere.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget, reduced as jreduced
+from repro.models import layers as jlayers
+from repro.models import model as jm
+from repro_torch.configs import ARCH_IDS, get_config, reduced
+from repro_torch.models import layers as tl
+from repro_torch.models import model as tm
+from repro_torch.models.convert import params_from_numpy, params_to_numpy
+
+torch.set_num_threads(1)
+ARCHS = ["qwen2-1.5b", "gemma-2b", "yi-9b"]
+TOL = dict(atol=1e-4, rtol=1e-4)
+S, B = 12, 2
+
+
+def _pair(arch, **overrides):
+    """(JAX cfg, port cfg, JAX params, port params) at reduced width."""
+    jcfg = jreduced(jget(arch), **overrides)
+    tcfg = reduced(get_config(arch), **overrides)
+    jp = jm.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def _tokens(cfg, seed=1, b=B, s=S):
+    return np.random.default_rng(seed).integers(2, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def _close(got, want):
+    got, want = got.numpy(), np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_config_registry_is_a_copy():
+    for arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jget(arch))
+        assert dataclasses.asdict(reduced(get_config(arch))) == \
+            dataclasses.asdict(jreduced(jget(arch)))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_round_trip(arch):
+    jcfg, tcfg, jp, tp = _pair(arch)
+    tree = jax.tree.map(np.asarray, jp)
+    back = params_to_numpy(tp)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(a, b)
+    assert sum(p.numel() for p in tp.parameters()) == sum(a.size for a in jax.tree.leaves(tree))
+
+
+@pytest.mark.parametrize("impl", ["reference", "flash"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits_matches_jax(arch, impl):
+    jcfg, tcfg, jp, tp = _pair(arch, attention_impl=impl)
+    toks = _tokens(jcfg)
+    for last_only in (False, True):
+        want = jm.forward_logits(jcfg, jp, {"tokens": jnp.asarray(toks)}, last_only=last_only)
+        got = tm.forward_logits(tcfg, tp, {"tokens": torch.from_numpy(toks)},
+                                last_only=last_only)
+        assert got.shape == want.shape
+        _close(got, want)
+
+
+@pytest.mark.parametrize("layout", ["stacked", "per_layer"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_jax(arch, layout):
+    """Prefill 8 tokens then decode 4 (stacked cache, as the serving engine
+    does), or decode all 12 from an empty per-layer cache."""
+    jcfg, tcfg, jp, tp = _pair(arch, decode_cache_layout=layout)
+    toks = _tokens(jcfg)
+    if layout == "stacked":
+        jl, js = jm.prefill(jcfg, jp, jnp.asarray(toks[:, :8]), S + 1)
+        tl_, ts = tm.prefill(tcfg, tp, torch.from_numpy(toks[:, :8]), S + 1)
+        _close(tl_, jl)
+        assert ts.length == int(js.length) == 8
+        np.testing.assert_allclose(ts.kv_k.numpy(), np.asarray(js.kv_k), **TOL)
+        start = 8
+    else:
+        js = jm.init_decode_state(jcfg, batch=B, max_len=S + 1, dtype=jnp.float32)
+        ts = tm.init_decode_state(tcfg, batch=B, max_len=S + 1, dtype=torch.float32,
+                                  device="cpu")
+        assert ts.kv_layers_k is not None and len(ts.kv_layers_k) == tcfg.n_layers
+        start = 0
+    jstep = jax.jit(lambda t, s: jm.decode_step(jcfg, jp, t, s))
+    for t in range(start, S):
+        jl, js = jstep(jnp.asarray(toks[:, t:t + 1]), js)
+        tl_, ts = tm.decode_step(tcfg, tp, torch.from_numpy(toks[:, t:t + 1]), ts)
+        assert tl_.shape == jl.shape == (B, 1, jcfg.vocab_size)
+        _close(tl_, jl)
+    assert ts.length == int(js.length) == S
+
+
+def test_layers_match_jax():
+    """RoPE, SwiGLU and the tanh-GELU GeGLU on their own."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 5, 4, 32)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(5), (2, 5)).astype(np.int32)
+    np.testing.assert_allclose(tl.rope_frequencies(32, 1e4).numpy(),
+                               np.asarray(jlayers.rope_frequencies(32, 1e4)), rtol=1e-6)
+    np.testing.assert_allclose(
+        tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e4).numpy(),
+        np.asarray(jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4)), atol=1e-5)
+    h = rng.standard_normal((3, 16)).astype(np.float32)
+    p = {k: (rng.standard_normal(s) * 0.3).astype(np.float32)
+         for k, s in (("w_gate", (16, 24)), ("w_up", (16, 24)), ("w_down", (24, 16)))}
+    tp = tm.ParamGroup(tl.mlp_defs(16, 24))
+    tp.load_state_dict({k: torch.from_numpy(v) for k, v in p.items()})
+    for kind in ("swiglu", "geglu"):
+        with torch.no_grad():
+            got = tl.glu_mlp(torch.from_numpy(h), tp, kind).numpy()
+        want = np.asarray(jlayers.glu_mlp(jnp.asarray(h), {k: jnp.asarray(v) for k, v in p.items()},
+                                          kind))
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_init_params_draws_the_jax_distributions():
+    """Same shapes, zeros where JAX has zeros, and each leaf's spread within
+    5 % of JAX's (std scale/sqrt(fan-in), the fan-in of a stacked leaf being
+    the layer count, as in ``layers._init_leaf``)."""
+    cfg = reduced(get_config("qwen2-1.5b"), n_layers=3, d_model=256)
+    tp = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    jp = jm.init_params(jreduced(jget("qwen2-1.5b"), n_layers=3, d_model=256),
+                        jax.random.PRNGKey(0))
+    tree = params_to_numpy(tp)
+    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jp))[0],
+                            jax.tree.leaves(tree)):
+        assert a.shape == b.shape, path
+        if not a.any():
+            assert not b.any(), path
+        else:
+            assert abs(b.std() / a.std() - 1.0) < 0.05, path
+    with pytest.raises(RuntimeError):
+        tm.init_params(cfg, torch.Generator().manual_seed(0))   # the card by default
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b", "zamba2-7b",
+                                  "xlstm-125m", "seamless-m4t-medium", "internvl2-26b"])
+def test_unsupported_families_raise(arch):
+    cfg = reduced(get_config(arch))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.init_decode_state(cfg, 1, 8, device="cpu")
+
+
+def test_blocked_attention_raises():
+    jcfg, tcfg, jp, tp = _pair("yi-9b", attention_impl="blocked")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.forward_logits(tcfg, tp, {"tokens": torch.from_numpy(_tokens(jcfg))})
+
+
+def test_init_kv_cache_matches_jax():
+    from repro.models.attention import init_kv_cache as jinit_kv
+    from repro_torch.models.attention import init_kv_cache
+
+    cfg = reduced(get_config("qwen2-1.5b"))
+    want = jinit_kv(jreduced(jget("qwen2-1.5b")), 3, 2, 16)
+    got = init_kv_cache(cfg, 3, 2, 16, device="cpu")
+    for g, w in ((got.k, want.k), (got.v, want.v)):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.bfloat16 and not g.any()
+    assert got.length == int(want.length) == 0

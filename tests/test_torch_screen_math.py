@@ -305,11 +305,16 @@ def test_fma_site_floor_mod_and_revenue(period):
     _eq(rev_g, rev_w, "revenue")
 
 
-#: every weigher configuration the JAX package's tests and benchmarks run
+#: every weigher configuration the JAX package's tests and benchmarks run,
+#: then vectors that mix exact multipliers (±1, powers of two) with inexact
+#: ones, each of which an earlier rule rounded differently from XLA
 REPO_POLICIES = [
     (1.0, 1.0, 0.0, 0.0), (1.0, 2.0, 0.0, 0.0), (1.0, 2.0, 0.5, 0.25),
     (0.0, 1.0, 0.0, 0.0), (1.0, -1.0, 0.0, 0.5), (1.0, 1.0, 0.5, 0.25, 2.0),
     (1.0, 1.0, 0.05, 0.0, 2.0),
+    (2.0, 1.0, 0.7, 1.0), (-1.0, 0.0, -1.7, 2.0), (1.0, 0.7, 0.7, 0.3, 1.3),
+    (0.0, 0.0, -1.0, -1.2, -1.0), (2.0, 1.0, 2.0, 2.0), (-2.0, -1.7, -2.0, -2.0, 0.0),
+    (-0.5, -0.7, 0.0, -0.5, -0.5),
 ]
 
 
@@ -324,11 +329,25 @@ def _random_multipliers(seed):
     return tuple(float(np.float32(m)) for m in mags * rng.choice([-1.0, 1.0], size))
 
 
-@pytest.mark.parametrize("mult", REPO_POLICIES + [_random_multipliers(s) for s in range(12)])
+#: the values a mixed vector draws from: 0, ±1, powers of two, inexact
+MIXED_VALUES = (0.0, 1.0, -1.0, 2.0, -2.0, 0.5, -0.5, 0.25, 4.0,
+                0.7, -1.7, 1.3, 0.3, -1.2, 2.6)
+
+
+def _mixed_multipliers(seed):
+    """A seeded 4- or 5-term weigher vector mixing zeros, ±1, powers of two
+    and inexact multipliers."""
+    rng = np.random.default_rng(2000 + seed)
+    return tuple(float(rng.choice(MIXED_VALUES)) for _ in range(4 + seed % 2))
+
+
+@pytest.mark.parametrize("mult", REPO_POLICIES + [_random_multipliers(s) for s in range(12)]
+                         + [_mixed_multipliers(s) for s in range(48)])
 def test_repo_policies_on_non_integer_inputs(mult):
     """consts → base → omega as one jitted program, on fractional inputs:
-    bitwise equal for every policy the repo uses and for a seeded sweep of
-    4- and 5-term vectors of multipliers that are not powers of two.
+    bitwise equal for every policy the repo uses, for a seeded sweep of
+    4- and 5-term vectors of multipliers that are not powers of two, and for
+    a seeded sweep of vectors that mix those with 0, ±1 and powers of two.
     ``base`` is an output of the program too, as in the decision pipeline,
     which gathers it for stage 2; XLA contracts differently when base is
     fused into omega alone, so the port mirrors the pipeline's form."""
