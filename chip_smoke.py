@@ -37,8 +37,29 @@ exits non-zero:
                drained by a second engine: prefill tokens/s, decode ms per
                step, decode tokens/s, peak memory, launch counts, and the
                device's busy share over a traced decode window;
-9. the ``kernels`` line, then the card's name and power limit, then the
-   result line.
+9. train_kernels — the flash-attention backward kernels (dq, dk/dv)
+               against ``flash_attention_bwd_plain`` on the same inputs at
+               qwen2-1.5b's training shape (B=2, S=4,096, bf16), gemma-2b's
+               (hd=256, MQA), a ragged (S=1,000), a full and an f32 case,
+               each gap against a stated tolerance; kernel / plain / bound /
+               library times;
+10. train_parity — reduced qwen2-1.5b in f32, flash attention, full remat,
+               the same weights on the card and on the CPU: three
+               ``make_train_step`` steps agree; then a ``Trainer`` run of 8
+               steps against one preempted after 4 and resumed by a fresh
+               ``Trainer``, which must end bitwise equal;
+11. train    — full-width qwen2-1.5b (f32 master weights and AdamW state,
+               bf16 compute, flash attention, full remat, 4 x 4,096 tokens a
+               step as 2 microbatches): 3 steps, a preemption through the
+               ``PreemptionController`` with a checkpoint, a fresh
+               ``Trainer`` restoring and taking 2 more: step time, tokens/s,
+               model-flops utilisation, peak memory, checkpoint bytes,
+               drain and restore seconds, launch counts checked against the
+               path, the device's busy share and time by kernel class over
+               one traced step, and the first step against reference
+               attention on the same batch;
+12. the ``kernels`` line, then the card's name and power limit, then the
+    result line.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so every f32
 product here is full f32.  The script imports neither JAX nor the JAX
@@ -48,9 +69,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,6 +98,12 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.serving import ServeConfig, ServingEngine  # noqa: E402
+from repro_torch.core.preemption import PreemptAck, PreemptionController  # noqa: E402
+from repro_torch.core.types import TPU_SPEC, Instance  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.training import Trainer, TrainerConfig, TrainSettings, make_train_step  # noqa: E402
+from repro_torch.training.trainer import state_tensors  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -117,25 +147,83 @@ def device_spans(prof):
                   if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def device_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn``: the durations of the
-    kernels (and fills) it runs, from a ``torch.profiler`` trace of ``reps``
-    calls, each followed by a synchronize so calls never overlap (the mean
-    when the trace's span count does not split evenly into calls)."""
+#: the ``device_ms`` measurements (by the line of their lambda) and
+#: ``kernel_ms`` kernels that the profiler could not time and CUDA events
+#: timed instead
+EVENT_TIMED = []
+
+
+def traced_spans(fn, reps: int, warmup: int):
+    """Device spans of ``reps`` calls of ``fn`` (each followed by a
+    synchronize, so calls never overlap) after ``warmup`` calls.  The
+    profiler on the card's machine now and then returns a trace with no
+    device activity at all (twice in a row at one and the same measurement,
+    ``F.rms_norm`` at the decode shape); such a trace is taken again, up to
+    3 times, and ``[]`` returned after the third."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-    spans = device_spans(prof)
-    check(len(spans) > 0, "the trace shows no device activity")
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+        spans = device_spans(prof)
+        if spans:
+            return spans
+    return []
+
+
+def device_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median device time of one call of ``fn``: the durations of the
+    kernels (and fills) it runs, from a ``torch.profiler`` trace of ``reps``
+    calls (the mean when the trace's span count does not split evenly into
+    calls).  Where no trace shows device activity, the median of ``reps``
+    calls timed with CUDA events (``median_ms``), which counts the host's
+    launch gaps too, so reads high for a call of a few microseconds."""
+    spans = traced_spans(fn, reps, warmup)
+    if not spans:
+        EVENT_TIMED.append(f"chip_smoke.py:{fn.__code__.co_firstlineno}")
+        return median_ms(fn, reps, warmup=0)
     if len(spans) % reps:           # a one-off span: fall back to the mean
         return sum(b - a for a, b, _ in spans) / reps / 1e3
     per = len(spans) // reps
     return float(np.median([sum(b - a for a, b, _ in spans[i * per:(i + 1) * per])
                             for i in range(reps)])) / 1e3
+
+
+def launch_event_ms(fn, symbols, reps: int) -> dict:
+    """Median time of each named launch over ``reps`` calls of ``fn``, from
+    CUDA events recorded on the launch's stream just before and after it:
+    ``_build.entry`` is wrapped for the duration, so the port's wrappers run
+    unchanged.  ``symbols`` maps a key to a C launch entry's name."""
+    real, marks = _build.entry, {key: [] for key in symbols}
+
+    def entry(name, symbol, argtypes):
+        launch = real(name, symbol, argtypes)
+        key = next((key for key, sym in symbols.items() if sym == symbol), None)
+        if key is None:
+            return launch
+
+        def timed(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = launch(*args)
+            end.record()
+            marks[key].append((start, end))
+            return err
+        return timed
+
+    _build.entry = entry
+    try:
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        _build.entry = real
+    for key, m in marks.items():
+        check(len(m) == reps, f"{len(m)} launches of {symbols[key]} in {reps} calls")
+    return {key: float(np.median([a.elapsed_time(b) for a, b in m])) for key, m in marks.items()}
 
 
 def max_gap(a, b) -> float:
@@ -145,7 +233,8 @@ def max_gap(a, b) -> float:
 
 #: largest |kernel - plain| measured per kernel (phases 3 and 6)
 GAPS = {"sched_screen_consts": 0.0, "sched_screen_topm": 0.0, "sched_screen": 0.0,
-        "sched_weigh": 0.0, "flash_attention": 0.0, "rmsnorm": 0.0}
+        "sched_weigh": 0.0, "flash_attention": 0.0, "rmsnorm": 0.0,
+        "flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
 
 
 def same(a, b, what: str, kernel: str) -> None:
@@ -705,15 +794,444 @@ emit("serve", config="qwen2-1.5b full width: 28 layers, d=1536, 12/2 heads, hd=1
      peak_device_gib=peak_gib, launches=dict(flash_attention=counts["flash_attention"],
                                              rmsnorm=counts["rmsnorm"]),
      traced_decode_window_ms=window_s * 1e3, device_busy_ms=busy / 1e3,
-     device_busy_share=(busy / 1e6) / window_s,
+     device_busy_share=(busy / 1e6) / window_s if busy else "not measured (empty trace)",
      device_us_per_decode_step={key: v_ / 8 for key, v_ in sorted(by_kernel.items())},
      host_top_ops_per_decode_step={e.key: dict(calls=e.count / 8,
                                                self_cpu_us=e.self_cpu_time_total / 8)
                                    for e in host_ops})
 
 # ---------------------------------------------------------------------------
-# 9. the kernels line, the card, the result
+# 9. the backward kernels against their plain version
 # ---------------------------------------------------------------------------
+#: tolerances (|kernel - plain| <= tol + tol * |plain|), with their reasons:
+#: bf16 gradients may round one bf16 ulp apart (2e-2, as the forward); f32
+#: gradients differ by summation order only, over sums of up to S*H/G terms
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+#: and scaled to the tensor, ||kernel - plain|| / ||plain||, since most
+#: gradients at S=4,096 lie near the elementwise floor: bf16 outputs rounded
+#: from f32 values that differ in summation order are at most one ulp (2^-8
+#: relative) apart, so 1e-2; f32, 1e-5.  A wrong tile moves this by its share
+#: of the norm, however small the gradients there.
+BWD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def kernel_ms(fn, names, reps: int = 10, warmup: int = 2):
+    """Median device time of each kernel over ``reps`` calls of ``fn`` (one
+    launch of each per call); ``names`` maps a key to (a substring of the
+    kernel's name in a trace, its C launch entry).  From a
+    ``torch.profiler`` trace, whose median stands if it holds at least half
+    the launches; else from CUDA events around each launch."""
+    spans = traced_spans(fn, reps, warmup)
+    durs = {key: [b_ - a for a, b_, name in spans if match in name]
+            for key, (match, _) in names.items()}
+    if all(2 * len(d_) >= reps for d_ in durs.values()):
+        return {key: float(np.median(d_)) / 1e3 for key, d_ in durs.items()}
+    EVENT_TIMED.extend(sym for _, sym in names.values())
+    return launch_event_ms(fn, {key: sym for key, (_, sym) in names.items()}, reps)
+
+
+bwd_cases = [  # name, B, S, H, G, hd, dtype, causal
+    ("qwen2-1.5b train", 2, 4096, 12, 2, 128, BF16, True),
+    ("gemma-2b", 1, 1024, 8, 1, 256, BF16, True),
+    ("ragged S=1000", 2, 1000, 12, 2, 128, BF16, True),
+    ("full", 2, 512, 12, 2, 128, BF16, False),
+    ("f32 S=77", 2, 77, 4, 2, 64, F32, True),
+]
+bwd_rows = {}
+for name, b_, s_, h_, g_, hd_, dt, causal in bwd_cases:
+    q, k, v, do = (torch.randn((b_, s_, n_, hd_), generator=gen, device=DEV).to(dt)
+                   for n_ in (h_, g_, g_, h_))
+    o, lse = kernels.flash_attention_plain(q, k, v, causal=causal)
+    got = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    row = {}
+    for grad, kname, g_k, g_p in zip(("dq", "dk", "dv"), ("flash_attention_dq",) + ("flash_attention_dkv",) * 2,
+                                     got, want):
+        check(g_k.dtype == dt and g_k.shape == g_p.shape, f"backward {name} {grad}: type or shape")
+        gap = within(g_k, g_p, BWD_TOL[dt], f"backward {name} {grad}", kname)
+        k64, p64 = g_k.double(), g_p.double()
+        rms = float(torch.sqrt(torch.mean(p64 * p64)))
+        rel = float(torch.linalg.vector_norm(k64 - p64) / torch.linalg.vector_norm(p64))
+        check(rel <= BWD_REL[dt], f"backward {name} {grad}: relative gap {rel} beyond {BWD_REL[dt]}")
+        row[grad] = dict(max_gap=gap, rel_gap=rel, rms_plain=rms)
+        del k64, p64
+    bwd_rows[name] = dict(row, tol=BWD_TOL[dt], rel_tol=BWD_REL[dt])
+    del q, k, v, do, o, lse, got, want
+emit("train_kernels_vs_plain", flash_attention_backward=bwd_rows,
+     tolerance="|kernel - plain| <= tol * (1 + |plain|): bf16 2e-2 (one bf16 ulp), "
+               "f32 1e-4 (summation order); ||kernel - plain|| / ||plain|| <= rel_tol: "
+               "bf16 1e-2, f32 1e-5")
+
+# times at the training path's shape: qwen2-1.5b, one microbatch of 2 x 4,096
+B_T, S_T = 2, 4096
+q, k, v, do = (torch.randn((B_T, S_T, n_, 128), generator=gen, device=DEV).to(BF16)
+               for n_ in (12, 2, 2, 12))
+o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
+bwd_ms = kernel_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+                   {"dq": ("flash_bwd_dq", "flash_attention_dq_launch"),
+                    "dkv": ("flash_bwd_dkv", "flash_attention_dkv_launch")})
+bwd_plain_ms = device_ms(lambda: kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
+                         reps=10)
+qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+dot = do.transpose(1, 2)
+lib_bwd_ms = device_ms(lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), dot, retain_graph=True),
+                       reps=10)
+pairs_t = B_T * 12 * S_T * (S_T + 1) // 2          # (query, key) pairs the causal mask keeps
+io_q = 2 * B_T * S_T * 12 * 128                     # bytes of one bf16 (B,S,H,hd) tensor
+io_kv = 2 * B_T * S_T * 2 * 128
+rows_f32 = 4 * B_T * 12 * S_T                       # bytes of lse or delta
+record("flash_attention_dq", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+       "src/repro/kernels/flash_attention.py:152", bwd_ms["dq"], bwd_plain_ms,
+       2 * io_q + 2 * io_kv + 2 * rows_f32 + io_q, 6 * 128 * pairs_t, flops=BF16_FLOPS,
+       library_ms=lib_bwd_ms)
+record("flash_attention_dkv", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+       "src/repro/kernels/flash_attention.py:191", bwd_ms["dkv"], bwd_plain_ms,
+       2 * io_q + 2 * io_kv + 2 * rows_f32 + 2 * io_kv, 8 * 128 * pairs_t, flops=BF16_FLOPS,
+       library_ms=lib_bwd_ms)
+# the same launches timed by CUDA events, kernel_ms's fallback, so that
+# path runs on every card and its reading stands beside the trace's
+bwd_event_ms = launch_event_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+                               {"dq": "flash_attention_dq_launch", "dkv": "flash_attention_dkv_launch"},
+                               reps=10)
+fwd_t_ms = device_ms(lambda: kernels.flash_attention_fwd(q, k, v, causal=True), reps=10)
+emit("train_kernel_times", card=smi, shape="B=2, S=4,096, H=12, G=2, hd=128, bf16, causal",
+     method="device time per call (trace), median of 10; plain_ms and library_ms compute "
+            "dq, dk and dv together (the plain backward; the backward of "
+            "scaled_dot_product_attention through torch.autograd.grad)",
+     **{r: {key: records[r][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for r in ("flash_attention_dq", "flash_attention_dkv")},
+     event_timed_ms=bwd_event_ms, forward_ms_at_this_shape=fwd_t_ms,
+     forward_bound_ms=4 * 128 * pairs_t / BF16_FLOPS * 1e3)
+del q, k, v, do, o, lse, qt, kt, vt, sdpa_o, dot
+torch.cuda.empty_cache()
+
+# ---------------------------------------------------------------------------
+# 10. training parity: reduced qwen2-1.5b, the card against the CPU, f32
+# ---------------------------------------------------------------------------
+pcfg = dataclasses.replace(reduced(get_config("qwen2-1.5b")), attention_impl="flash", remat="full")
+psettings = TrainSettings(total_steps=50, warmup_steps=2, learning_rate=1e-3)
+pdata = SyntheticLMDataset(DataConfig(vocab_size=pcfg.vocab_size, seq_len=128, global_batch=4,
+                                      seed=8))
+#: f32 on both sides: the card's products and the kernels sum in another
+#: order than the CPU's.  Each step starts from the CPU's weights and AdamW
+#: state, copied to the card, so that the two trajectories cannot drift
+#: apart (AdamW moves an element whose gradient is within rounding of 0 by
+#: about lr either way, and this random network amplifies that from step to
+#: step).  Losses agree to 1e-4; gradient norms to 1e-3 relative.  The same
+#: steps with reference attention on both sides are the witness for that
+#: bound: on an H100 they read the same gap as flash (3.5e-4 and 4.1e-4 at
+#: the first step), so it comes from the card's products, not from the
+#: flash kernels.
+PARITY_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
+#: the card's update of each step against the CPU's from the same state,
+#: ||d_card - d_cpu|| / ||d_cpu|| over each tensor's change d, the largest
+#: over tensors, a few times what an H100 reads (params 1.6e-3, mu 6.6e-4,
+#: nu 1.6e-3, with either attention): mu and nu follow the gradient; a
+#: parameter's first AdamW moves are +-lr whatever its gradient's size, so
+#: elements whose gradient is within rounding of 0 may move 2 lr apart.  An
+#: update the card got wrong (not applied, no bias correction) reads 1 or
+#: more.
+UPDATE_TOL = {"params": 1e-2, "mu": 3e-3, "nu": 5e-3}
+
+
+def card_vs_cpu(impl):
+    """Three ``make_train_step`` steps of reduced qwen2-1.5b with ``impl``
+    attention on the card and on the CPU, each from the CPU's state: per
+    step the two sides' loss and gradient norm, and the largest relative gap
+    of the card's update of params, mu and nu against the CPU's."""
+    cfg_ = dataclasses.replace(pcfg, attention_impl=impl)
+    cpu_params = tm.init_params(cfg_, torch.Generator().manual_seed(8), device="cpu")
+    gpu_params = tm.Model(cfg_, device="meta")
+    gpu_params.load_state_dict({key: t.to(DEV, copy=True) for key, t in cpu_params.state_dict().items()},
+                               assign=True)
+    step_fn = make_train_step(cfg_, psettings)
+    states = {"gpu": (gpu_params, adamw_init(dict(gpu_params.named_parameters()))),
+              "cpu": (cpu_params, adamw_init(dict(cpu_params.named_parameters())))}
+    rows = []
+    for i in range(3):
+        with torch.no_grad():
+            for dst, src in zip(state_tensors(*states["gpu"]).values(),
+                                state_tensors(*states["cpu"]).values()):
+                dst.copy_(src)
+        before = {key: t.detach().clone() for key, t in state_tensors(*states["cpu"]).items()}
+        row = {}
+        for tag in ("gpu", "cpu"):
+            prm, st_, met = step_fn(*states[tag], pdata.batch_at(i))
+            states[tag] = (prm, st_)
+            row[tag] = {key: float(met[key]) for key in PARITY_TOL}
+        after = {tag: state_tensors(*states[tag]) for tag in states}
+        check(int(after["gpu"]["opt.step"]) == int(after["cpu"]["opt.step"]) == i + 1,
+              f"train parity {impl}: optimizer step count")
+        upd = dict.fromkeys(UPDATE_TOL, 0.0)
+        for key, old in before.items():
+            if key == "opt.step":
+                continue
+            grp = "params" if key.startswith("params.") else key.split(".")[1]
+            d_cpu = after["cpu"][key].detach().double() - old.double()
+            d_gpu = after["gpu"][key].detach().cpu().double() - old.double()
+            diff = float(torch.linalg.vector_norm(d_gpu - d_cpu))
+            ref = float(torch.linalg.vector_norm(d_cpu))
+            upd[grp] = max(upd[grp], diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf))
+        row["update_rel_gap"] = upd
+        rows.append(row)
+    return rows
+
+
+parity = {impl: card_vs_cpu(impl) for impl in ("flash", "reference")}
+emit("train_parity_steps", config="qwen2-1.5b reduced (4 layers, d=128, f32), remat full",
+     tolerance=PARITY_TOL, update_tolerance=UPDATE_TOL, **parity)
+for impl, rows in parity.items():
+    for i, row in enumerate(rows):
+        for key, tol in PARITY_TOL.items():
+            a_, c_ = row["gpu"][key], row["cpu"][key]
+            check(abs(a_ - c_) <= tol * (1 + abs(c_)),
+                  f"train parity {impl}: step {i} {key} card {a_} vs CPU {c_} (tol {tol})")
+        for grp, tol in UPDATE_TOL.items():
+            check(row["update_rel_gap"][grp] <= tol,
+                  f"train parity {impl}: step {i} the card's {grp} update "
+                  f"{row['update_rel_gap'][grp]} from the CPU's (tol {tol})")
+
+ptmp = tempfile.mkdtemp(prefix="chip_smoke_parity_")
+
+
+def parity_trainer(sub):
+    return Trainer(pcfg, psettings, TrainerConfig(ckpt_dir=os.path.join(ptmp, sub), ckpt_every=1000,
+                                                  log_every=1, seed=9),
+                   data=SyntheticLMDataset(DataConfig(vocab_size=pcfg.vocab_size, seq_len=128,
+                                                      global_batch=4, seed=9)), device=DEV)
+
+
+ref_t = parity_trainer("ref")
+ref_t.run(8)
+pre_t = parity_trainer("pre")
+pre_t.run(4)
+check(pre_t.on_preempt(now=0.0, deadline=60.0) is PreemptAck.DRAINED, "train parity: drain not DRAINED")
+res_t = parity_trainer("pre")
+res_t.init_or_restore()
+check(res_t.step == 4, f"train parity: resumed at step {res_t.step}")
+res_t.run(until_step=8)
+want_st, got_st = state_tensors(ref_t.params, ref_t.opt_state), state_tensors(res_t.params, res_t.opt_state)
+check(sorted(want_st) == sorted(got_st), "train parity: state names differ")
+unequal = [key for key in want_st if not torch.equal(want_st[key], got_st[key])]
+check(not unequal, f"train parity: resumed state differs from the uninterrupted run at {unequal[:5]}")
+emit("train_parity", config="qwen2-1.5b reduced (4 layers, d=128, f32), flash, remat full",
+     resume=dict(uninterrupted_steps=8, preempted_after=4, tensors=len(want_st),
+                 bitwise_equal=True, final_loss=ref_t.history[-1]["loss"]))
+del ref_t, pre_t, res_t, want_st, got_st
+shutil.rmtree(ptmp, ignore_errors=True)
+torch.cuda.empty_cache()
+
+# ---------------------------------------------------------------------------
+# 11. train: full-width qwen2-1.5b, preempted and resumed
+# ---------------------------------------------------------------------------
+tcfg_ = dataclasses.replace(get_config("qwen2-1.5b"), attention_impl="flash")
+check(tcfg_.remat == "full" and tcfg_.dtype == "bfloat16" and tcfg_.params_dtype == "float32",
+      "train: the registry's qwen2-1.5b is expected with full remat, bf16 compute, f32 weights")
+SEQ, GB, N_MB, STEPS, PREEMPT_AT = 4096, 4, 2, 5, 3
+tsettings = TrainSettings(learning_rate=3e-4, warmup_steps=2, total_steps=1000, microbatches=N_MB)
+tdata = SyntheticLMDataset(DataConfig(vocab_size=tcfg_.vocab_size, seq_len=SEQ, global_batch=GB, seed=0))
+ttmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+free_tmp_gib = shutil.disk_usage(ttmp).free / 2**30
+
+
+def full_trainer():
+    return Trainer(tcfg_, tsettings, TrainerConfig(ckpt_dir=ttmp, ckpt_every=1000, log_every=1,
+                                                   seed=0),
+                   data=tdata, device=DEV)
+
+
+step_s = []
+
+
+def timed_run(trainer, until):
+    while trainer.step < until:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.run(until_step=trainer.step + 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+
+
+torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+first_t = full_trainer()
+first_t.init_or_restore()
+torch.cuda.synchronize()
+tinit_s = time.perf_counter() - t0
+
+ATTN_W = ("attn.wq", "attn.wk", "attn.wv", "attn.wo")
+
+
+def first_step(cfg_, n_mb):
+    """Loss and gradient norm of the first step on the trainer's weights and
+    batch, accumulated over ``n_mb`` microbatches as the train step does
+    (``n_mb=1``: the first microbatch alone), and the gradient of each
+    attention projection over all layers, flattened (f32)."""
+    b0 = {key: torch.from_numpy(val).to(DEV) for key, val in tdata.batch_at(0).items()}
+    rows = GB // N_MB
+    names = [n_ for n_, _ in first_t.params.named_parameters()]
+    acc, losses = None, []
+    for i in range(n_mb):
+        one = {key: val[i * rows:(i + 1) * rows] for key, val in b0.items()}
+        loss_, _ = tm.forward_train(cfg_, first_t.params, one)
+        grads_ = torch.autograd.grad(loss_, list(first_t.params.parameters()))
+        acc = list(grads_) if acc is None else [a + g_ for a, g_ in zip(acc, grads_)]
+        losses.append(float(loss_.detach()))
+        del grads_, loss_
+    gnorm = float(torch.sqrt(sum(torch.sum(torch.square(a / n_mb)) for a in acc)))
+    proj = {w_: torch.cat([(a / n_mb).flatten() for n_, a in zip(names, acc) if n_.endswith(w_)])
+            for w_ in ATTN_W}
+    del acc
+    torch.cuda.empty_cache()
+    return float(np.mean(losses)), gnorm, proj
+
+
+def proj_gaps(got, want):
+    """Per attention projection: the relative gap of the gradients' norms
+    and of the gradients themselves.  A backward that loses dq, dk or dv
+    leaves wq, wk or wv without a gradient: both read 1."""
+    out = {}
+    for w_ in ATTN_W:
+        a_, b_ = got[w_].double(), want[w_].double()
+        nb = float(torch.linalg.vector_norm(b_))
+        out[w_] = dict(norm=abs(float(torch.linalg.vector_norm(a_)) - nb) / nb,
+                       vector=float(torch.linalg.vector_norm(a_ - b_)) / nb)
+    return out
+
+
+# the first step with flash and with reference attention on the same weights
+# and batch: in bf16 as trained (both microbatches), and in f32 compute on
+# the first microbatch, where the two differ only in summation order
+first_gaps = {}
+
+
+def flash_and_reference(cfg_, n_mb, key):
+    pair = {impl: first_step(dataclasses.replace(cfg_, attention_impl=impl), n_mb)
+            for impl in ("flash", "reference")}
+    first_gaps[key] = proj_gaps(pair["flash"][2], pair["reference"][2])
+    return {impl: v_[:2] for impl, v_ in pair.items()}
+
+
+bf16_pair = flash_and_reference(tcfg_, N_MB, "bf16")
+f32_pair = flash_and_reference(dataclasses.replace(tcfg_, dtype="float32"), 1, "f32")
+torch.cuda.empty_cache()
+torch.cuda.synchronize()
+
+kernels.reset_launch_counts()
+timed_run(first_t, PREEMPT_AT)
+ctrl = PreemptionController(notice_s=30.0)
+inst = Instance(id="train0", resources=TPU_SPEC.make(chips=1, hbm_gb=80, host_ram_gb=96),
+                preemptible=True, host="h0", start_time=0.0)
+ctrl.register(inst.id, first_t)
+t0 = time.perf_counter()
+ctrl(inst, now=1000.0)
+drain_s = time.perf_counter() - t0
+# the drain ends when every shard is written to its file, as in the JAX
+# package, which does not fsync either: the writeback to disk comes after
+t0 = time.perf_counter()
+os.sync()
+writeback_s = time.perf_counter() - t0
+ckpt_bytes = first_t.ckpt.nbytes()
+history = list(first_t.history)
+check(ctrl.records[-1].ack is PreemptAck.DRAINED,
+      f"train: the drain took {drain_s:.1f} s and acked {ctrl.records[-1].ack}")
+del first_t
+torch.cuda.empty_cache()
+
+second_t = full_trainer()
+t0 = time.perf_counter()
+second_t.init_or_restore()
+torch.cuda.synchronize()
+restore_s = time.perf_counter() - t0
+check(second_t.step == PREEMPT_AT, f"train: restored at step {second_t.step}")
+timed_run(second_t, STEPS - 1)
+with torch.profiler.profile(
+    activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+) as prof:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second_t.run(until_step=STEPS)
+    torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+counts = kernels.launch_counts()
+history += second_t.history
+peak_gib = torch.cuda.max_memory_allocated() / 2**30
+for h_ in history:
+    check(np.isfinite(h_["loss"]) and np.isfinite(h_["grad_norm"]),
+          f"train: step {h_['step']} loss {h_['loss']} grad norm {h_['grad_norm']}")
+check([h_["step"] for h_ in history] == list(range(1, STEPS + 1)), "train: steps missing")
+# the path: per microbatch the forward runs once and again in the backward
+# (remat), the backward kernels once, each layer; the norms 2 a layer + 1
+L_ = tcfg_.n_layers
+want_counts = dict(flash_attention=STEPS * N_MB * 2 * L_, flash_attention_dq=STEPS * N_MB * L_,
+                   flash_attention_dkv=STEPS * N_MB * L_, rmsnorm=STEPS * N_MB * (2 * 2 * L_ + 1))
+for name, n_ in want_counts.items():
+    records[name]["launches"] = counts[name]
+    check(counts[name] == n_, f"train: {counts[name]} launches of {name}, the path implies {n_}")
+#: the stated bounds, relative, each a few times what an H100 reads (the run
+#: is deterministic: seeded weights and batch, deterministic kernels).  f32
+#: compute, summation order only: loss 1e-5 (read equal), gradient norm
+#: 5e-5 (read 4.6e-6).  bf16 compute, as trained: flash keeps the scores in
+#: f32 where the reference rounds them to bf16, and this random network (the
+#: JAX init's layer std 1/sqrt(L)) amplifies rounding: loss 1e-3 (read
+#: 2.0e-4), gradient norm 3e-2 (read 6.2e-3).  The attention projections'
+#: gradients are the witness for the backward kernels, since a lost dq, dk
+#: or dv reads 1 there however little it moves the whole norm: in bf16 their
+#: norms, 3e-2 (read up to 6.9e-3; the vectors themselves read 1.3, the
+#: bf16 gradients' directions being chaotic here), in f32 the vectors, 3e-3
+#: (read 7.0e-4).
+FIRST_TOL = {"f32 loss": 1e-5, "f32 grad norm": 5e-5, "bf16 loss": 1e-3, "bf16 grad norm": 3e-2}
+ATTN_TOL = {"bf16": ("norm", 3e-2), "f32": ("vector", 3e-3)}
+first_loss, first_gnorm = history[0]["loss"], history[0]["grad_norm"]
+first_pairs = {"f32 loss": (f32_pair["flash"][0], f32_pair["reference"][0]),
+               "f32 grad norm": (f32_pair["flash"][1], f32_pair["reference"][1]),
+               "bf16 loss": (first_loss, bf16_pair["reference"][0]),
+               "bf16 grad norm": (first_gnorm, bf16_pair["reference"][1])}
+emit("train_first_step", trained=[first_loss, first_gnorm], bf16=bf16_pair, f32_first_microbatch=f32_pair,
+     bounds=FIRST_TOL, attention_projection_gaps=first_gaps,
+     attention_bounds={key: f"{what} {tol}" for key, (what, tol) in ATTN_TOL.items()})
+check(abs(first_loss - bf16_pair["flash"][0]) <= 1e-5 * abs(first_loss),
+      f"train: the trainer's first loss {first_loss} is not the flash first step's {bf16_pair['flash'][0]}")
+for what, (a_, b_) in first_pairs.items():
+    check(abs(a_ - b_) <= FIRST_TOL[what] * abs(b_),
+          f"train: first step {what}: flash {a_} vs reference {b_} (relative bound {FIRST_TOL[what]})")
+for key, (what, tol) in ATTN_TOL.items():
+    for w_, g_ in first_gaps[key].items():
+        check(g_[what] <= tol, f"train: first step {key} {w_} gradient {what} gap {g_[what]} (bound {tol})")
+busy = busy_us(prof)
+by_class = {}
+for a, b_, name in device_spans(prof):
+    key = ("flash_fwd" if "flash_fwd" in name else "flash_bwd_dq" if "flash_bwd_dq" in name
+           else "flash_bwd_dkv" if "flash_bwd_dkv" in name else "rmsnorm" if "rmsnorm" in name
+           else "gemm" if any(t in name for t in ("gemm", "nvjet", "sm90", "cutlass", "Kernel2"))
+           else "other ops")
+    by_class[key] = by_class.get(key, 0.0) + (b_ - a)
+tokens = GB * SEQ
+model_flops = tokens * (6 * tcfg_.param_count() + 6 * L_ * tcfg_.n_heads * 128 * SEQ)
+p50 = float(np.median(step_s))
+emit("train", config="qwen2-1.5b full width: 28 layers, d=1536, 12/2 heads, hd=128, d_ff=8960, "
+     "vocab 151,936; f32 master weights and AdamW state (seed 0), bf16 compute, flash "
+     "attention, remat full", card=smi,
+     batch=f"{GB} x {SEQ} tokens a step, {N_MB} microbatches of {GB // N_MB}",
+     steps=STEPS, preempted_after=PREEMPT_AT, init_seconds=tinit_s,
+     step_seconds=step_s, step_p50_s=p50, tokens_per_s=tokens / p50,
+     model_flops_per_step=model_flops, mfu_vs_989_tflops=model_flops / p50 / BF16_FLOPS,
+     peak_device_gib=peak_gib, checkpoint_bytes=ckpt_bytes, tmp_free_gib_before=free_tmp_gib,
+     drain_seconds=drain_s, writeback_seconds_after_drain=writeback_s, notice_window_s=ctrl.notice_s, ack=ctrl.records[-1].ack.value,
+     restore_seconds=restore_s, losses=[h_["loss"] for h_ in history],
+     grad_norms=[h_["grad_norm"] for h_ in history],
+     launches=counts, launches_implied=want_counts,
+     traced_step_s=traced_s, device_busy_s=busy / 1e6,
+     device_busy_share=(busy / 1e6) / traced_s if busy else "not measured (empty trace)",
+     device_ms_per_step_by_class={key: v_ / 1e3 for key, v_ in sorted(by_class.items())})
+del second_t
+shutil.rmtree(ttmp, ignore_errors=True)
+
+# ---------------------------------------------------------------------------
+# 12. the kernels line, the card, the result
+# ---------------------------------------------------------------------------
+emit("timing", profiler_empty_timed_by_cuda_events=EVENT_TIMED)
 print(json.dumps({"kernels": list(records.values())}))
 print(smi)
 print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port (Hopper, sm_90a), each beside its
 plain PyTorch version: the scheduler's decision path (``sched_weigh``,
-``sched_screen``) and the model-serving path (``flash_attention``,
-``rmsnorm``).
+``sched_screen``), the model-serving path (``flash_attention``, ``rmsnorm``)
+and the training path (the flash-attention backward: dq and dk/dv).
 
 The tensor's device picks the version: a CPU tensor runs the plain version,
 a CUDA tensor launches the kernel or raises.  Every kernel wrapper counts its
@@ -18,7 +18,13 @@ from . import flash_attention as _flash_attention_mod
 from . import rmsnorm as _rmsnorm_mod
 from . import sched_screen as _sched_screen_mod
 from . import sched_weigh as _sched_weigh_mod
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
+    flash_attention_plain,
+)
 from .rmsnorm import rmsnorm, rmsnorm_plain
 from .sched_screen import (
     sched_screen,
@@ -33,7 +39,7 @@ _COUNTERS = (_sched_weigh_mod.LAUNCHES, _sched_screen_mod.LAUNCHES,
              _flash_attention_mod.LAUNCHES, _rmsnorm_mod.LAUNCHES)
 
 #: the CUDA sources, one ``nvcc`` run each (``_build.build``).
-SOURCES = ("sched_weigh", "sched_screen", "flash_attention", "rmsnorm")
+SOURCES = ("sched_weigh", "sched_screen", "flash_attention", "flash_attention_bwd", "rmsnorm")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -54,6 +60,9 @@ __all__ = [
     "SOURCES",
     "TIE_EPS",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
+    "flash_attention_fwd",
     "flash_attention_plain",
     "launch_counts",
     "reset_launch_counts",

@@ -11,7 +11,11 @@ source, a plain C interface through ``ctypes``, the launch error checked by
 the wrapper), where Triton would add a second compiler and cache.
 
 The tensor's device picks the version: a CPU tensor runs the plain version,
-a CUDA tensor launches the kernel or raises; nothing falls back.
+a CUDA tensor launches the kernel or raises; nothing falls back.  On the
+card the kernel sits in a ``torch.autograd.Function`` whose backward is the
+plain version's autograd gradient, recomputed from x and w: the JAX package
+has no RMSNorm backward kernel either (XLA differentiates the jnp
+``rms_norm``), so this is the reference's own route.
 """
 from __future__ import annotations
 
@@ -49,10 +53,6 @@ def _rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Te
             raise ValueError(f"rmsnorm: {name} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"rmsnorm: {name} must be contiguous")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "rmsnorm: the CUDA kernel has no backward yet; the training slice "
-                "(ROADMAP §1 item 10) brings gradients")
     d = x.shape[-1]
     rows = x.numel() // d if d else 0
     out = torch.empty_like(x)
@@ -68,10 +68,31 @@ def _rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Te
     return out
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The kernel forward; the backward differentiates ``rmsnorm_plain``
+    again from the saved x and w."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, weight)
+        return _rmsnorm_cuda(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weight = ctx.saved_tensors
+        with torch.enable_grad():
+            xg, wg = x.detach().requires_grad_(), weight.detach().requires_grad_()
+            dx, dw = torch.autograd.grad(rmsnorm_plain(xg, wg, ctx.eps), (xg, wg), dout)
+        return dx, dw, None
+
+
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Fused RMSNorm over the last axis; any leading shape (the contract of
-    ``repro.kernels.rmsnorm.rmsnorm``)."""
+    ``repro.kernels.rmsnorm.rmsnorm``), differentiable in x and w."""
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+            return _RMSNorm.apply(x, weight, eps)
         return _rmsnorm_cuda(x, weight, eps)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, weight, eps)

@@ -1,9 +1,10 @@
 """GQA/MQA attention with RoPE, a KV cache and the flash-kernel path (port of
 ``repro.models.attention``, self-attention only).
 
-The reference math is plain PyTorch; ``attention`` with
-``cfg.attention_impl == "flash"`` runs the flash-attention kernel on a CUDA
-tensor and its plain version on a CPU tensor.  Cross-attention waits for the
+The reference math is plain PyTorch and differentiable as it stands;
+``attention`` with ``cfg.attention_impl == "flash"`` runs flash attention
+through its ``torch.autograd.Function`` (the forward and backward kernels on
+a CUDA tensor, their plain versions on a CPU tensor).  Cross-attention waits for the
 encoder-decoder family, and the blocked jnp attention (``"blocked"``) for
 its own item (ROADMAP §1 item 11).
 """

@@ -1,5 +1,5 @@
-"""Shared layer machinery: parameter shapes, norms, RoPE, gated MLPs (port of
-``repro.models.layers``).
+"""Shared layer machinery: parameter shapes, norms, RoPE, gated MLPs and the
+training loss (port of ``repro.models.layers``).
 
 Parameters keep the JAX orientation (``x @ w`` with w of shape (in, out)),
 so every product reads as it does in the JAX package.  ``ParamDef`` keeps
@@ -84,3 +84,16 @@ def mlp_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
 
 def norm_defs(d_model: int) -> ParamDef:
     return ParamDef((d_model,), init="zeros")
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       z_loss: float = 1e-4) -> torch.Tensor:
+    """Token-mean cross-entropy in f32 with the z-loss ``z * lse^2`` (the JAX
+    package's ``cross_entropy_loss``)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    true = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - true
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return torch.mean(loss)

@@ -1,5 +1,6 @@
-"""Model assembly for the dense attention family: parameters, the
-prefill-style forward, and decode (port of ``repro.models.model``).
+"""Model assembly for the dense attention family: parameters, the training
+forward, the prefill-style forward, and decode (port of
+``repro.models.model``).
 
 Parameters are ``nn.Module``s holding ``nn.Parameter``s named and oriented
 as in the JAX parameter tree, with an ``nn.ModuleList`` of L layers where
@@ -7,17 +8,22 @@ JAX scans stacked parameters.  The port runs ``block_pattern ==
 "attention"`` with text input, no experts and no encoder; every other family
 raises ``NotImplementedError`` naming its ROADMAP item.
 
-``forward_logits``, ``prefill`` and ``decode_step`` are inference entry
-points and run without autograd.  Decode writes the KV caches of a
-``DecodeState`` in place (the JAX package returns updated copies); the
-state it returns carries the advanced length.
+``forward_train`` is differentiable in the parameters: it casts them to the
+compute dtype through autograd (``_cast_tree``) and rematerializes each
+layer as ``cfg.remat`` says.  ``forward_logits``, ``prefill`` and
+``decode_step`` are inference entry points and run without autograd.
+Decode writes the KV caches of a ``DecodeState`` in place (the JAX package
+returns updated copies); the state it returns carries the advanced length.
 """
 from __future__ import annotations
 
+import types
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.torch_scheduler import resolve_device
@@ -28,8 +34,18 @@ from .attention import (
     attention_decode,
     attn_defs,
 )
-from .layers import ParamDef, glu_mlp, init_leaf, mlp_defs, norm_defs, rms_norm
+from .layers import (
+    ParamDef,
+    cross_entropy_loss,
+    glu_mlp,
+    init_leaf,
+    mlp_defs,
+    norm_defs,
+    rms_norm,
+)
 
+#: weight of the experts' auxiliary loss (0 for the families the port runs)
+AUX_LOSS_WEIGHT = 0.01
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
@@ -166,8 +182,29 @@ def _cast(params: Model, cfg: ModelConfig) -> Model:
     return out
 
 
-def _embed(params: Model, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens.long()].to(torch_dtype(cfg.dtype))
+def _cast_tree(module: nn.Module, dt: torch.dtype):
+    """The parameters of ``module`` in ``dt`` (f32 leaves cast, others kept)
+    as a tree of namespaces shaped like the module (a ``ModuleList`` becomes
+    a list).  Each leaf is a differentiable cast of its parameter, so the
+    gradient reaches the f32 master weights.  (A namespace and not
+    ``torch.func.functional_call``: the layers' recomputation under
+    ``remat="full"`` runs during the backward, after a functional call would
+    have put the f32 parameters back.)"""
+    out = types.SimpleNamespace()
+    for name, p in module.named_parameters(recurse=False):
+        setattr(out, name, p.to(dt) if p.dtype == torch.float32 else p)
+    for name, child in module.named_children():
+        setattr(out, name, [_cast_tree(c, dt) for c in child]
+                if isinstance(child, nn.ModuleList) else _cast_tree(child, dt))
+    return out
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    # F.embedding and not ``embed[tokens]``: on the card the backward of an
+    # index is an accumulating ``index_put_`` (atomics, nondeterministic),
+    # while the embedding backward sorts the ids and sums each id's rows in
+    # a fixed order, so gradients repeat bit for bit.
+    return F.embedding(tokens.long(), params.embed).to(torch_dtype(cfg.dtype))
 
 
 def _logits(params: Model, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -186,13 +223,26 @@ def _attn_layer(h, lp: DecoderLayer, cfg: ModelConfig, positions, causal: bool =
     return h + y
 
 
-def _decoder_stack(h, params: Model, cfg: ModelConfig, positions):
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``cfg.remat``: ``"none"`` runs ``fn``; ``"full"`` saves only its
+    inputs and recomputes it in the backward (``jax.checkpoint``)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs, recompute the rest) is not ported "
+            "yet (ROADMAP §1 item 18); use 'full' or 'none'")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _decoder_stack(h, params, cfg: ModelConfig, positions):
+    layer = _maybe_remat(_attn_layer, cfg)
     for lp in params.layers:
-        h = _attn_layer(h, lp, cfg, positions, causal=True)
+        h = layer(h, lp, cfg, positions)
     return h
 
 
-def _forward_hidden(cfg: ModelConfig, params: Model, batch: Dict[str, torch.Tensor]):
+def _forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """Embeddings → block stack → final norm."""
     check_supported(cfg)
     tokens = batch["tokens"]
@@ -201,6 +251,19 @@ def _forward_hidden(cfg: ModelConfig, params: Model, batch: Dict[str, torch.Tens
     positions = torch.arange(s, device=h.device).expand(b, s)
     h = _decoder_stack(h, params, cfg, positions)
     return rms_norm(h, params.final_norm, cfg.norm_eps)
+
+
+def forward_train(cfg: ModelConfig, params: Model, batch: Dict[str, torch.Tensor]):
+    """Causal-LM loss of ``batch["tokens"]`` against ``batch["labels"]``
+    (token mean, f32, z-loss 1e-4) → ``(loss, {"lm_loss", "aux_loss"})``;
+    differentiable in ``params``.  ``aux_loss`` is the experts' loss, 0 for
+    the families the port runs."""
+    check_supported(cfg)
+    pc = _cast_tree(params, torch_dtype(cfg.dtype))
+    h = _forward_hidden(cfg, pc, batch)
+    loss = cross_entropy_loss(_logits(pc, cfg, h), batch["labels"])
+    aux_total = AUX_LOSS_WEIGHT * torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux_total, {"lm_loss": loss.detach(), "aux_loss": aux_total}
 
 
 @torch.no_grad()

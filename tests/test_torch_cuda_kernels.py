@@ -145,10 +145,55 @@ def test_flash_attention_matches_plain(cuda_device, shape, dtype, causal):
 
 
 def test_flash_attention_refuses_grad(cuda_device):
+    """``lse`` refuses a gradient (it is a non-differentiable output); ``o``'s
+    gradient runs the dq and dk/dv kernels once each."""
     q = torch.randn((1, 64, 2, 64), device=cuda_device, requires_grad=True)
-    k = torch.randn((1, 64, 1, 64), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP §2 item 5"):
-        kernels.flash_attention(q, k, k)
+    k = torch.randn((1, 64, 1, 64), device=cuda_device, requires_grad=True)
+    kernels.reset_launch_counts()
+    o, lse = kernels.flash_attention(q, k, k)
+    assert o.requires_grad and not lse.requires_grad
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(lse.sum(), (q, k))
+    torch.autograd.grad(o.sum(), (q, k))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_dq"],
+            counts["flash_attention_dkv"]) == (1, 1, 1)
+
+
+#: the backward: f32 gradients differ by summation order (1e-4 over sums of
+#: up to S*H/G terms); bf16 gradients may round one bf16 ulp apart (2e-2)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: and scaled to the tensor, ||kernel - plain|| / ||plain||: bf16 outputs
+#: rounded from f32 values that differ in summation order are at most one
+#: ulp (2^-8 relative) apart, so 1e-2; f32 sums of up to S*H/G terms in
+#: another order, 1e-5.  A tile computed wrongly moves this by its share of
+#: the norm, however small the gradients there.
+BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 12, 2, 128), (1, 192, 8, 1, 256), (2, 100, 4, 2, 64),
+                                   (1, 33, 4, 4, 32)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_backward_matches_plain(cuda_device, shape, dtype, causal):
+    b, s, h, g, hd = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(2 * s + hd)
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device).to(dtype)
+                   for n in (h, g, g, h))
+    o, lse = kernels.flash_attention_plain(q, k, v, causal=causal)
+    kernels.reset_launch_counts()
+    got = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["flash_attention_dq"], counts["flash_attention_dkv"]) == (1, 1)
+    want = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        _close(a, w, BWD_TOL[dtype])
+        a64, w64 = a.double(), w.double()
+        rel = float(torch.linalg.vector_norm(a64 - w64) / torch.linalg.vector_norm(w64))
+        assert rel <= BWD_REL[dtype], (name, rel)
 
 
 @pytest.mark.parametrize("rows,d", [(4096, 1536), (8, 1536), (100, 384), (3, 2048)])
@@ -187,3 +232,38 @@ def test_reduced_model_matches_cpu(cuda_device):
     assert counts["rmsnorm"] == 2 * cfg.n_layers + 1
     want = tm.forward_logits(cfg, cpu, {"tokens": toks}, last_only=False)
     _close(got, want, 1e-4)
+
+
+def test_reduced_model_gradients_match_cpu(cuda_device):
+    """``forward_train`` of reduced qwen2-1.5b in f32 with flash attention
+    and full remat, the same weights on the card and on the CPU: loss and
+    every gradient within 1e-3 of its tensor's largest magnitude; the
+    forward ran twice per layer (remat), the backward kernels once.  (The
+    tolerance: this random network is ill-conditioned, so f32 gradients
+    summed in another order differ by a few 1e-4 of their tensor's scale,
+    the embedding's most; loss 1e-4.)"""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as tm
+
+    cfg = dataclasses.replace(reduced(get_config("qwen2-1.5b")), attention_impl="flash",
+                              remat="full")
+    cpu = tm.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    gpu = tm.Model(cfg, device="meta")
+    gpu.load_state_dict({k: t.to(cuda_device) for k, t in cpu.state_dict().items()}, assign=True)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    kernels.reset_launch_counts()
+    loss_g, _ = tm.forward_train(cfg, gpu, {k: t.to(cuda_device) for k, t in batch.items()})
+    grads_g = torch.autograd.grad(loss_g, list(gpu.parameters()))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention_dq"] == counts["flash_attention_dkv"] == cfg.n_layers
+    loss_c, _ = tm.forward_train(cfg, cpu, batch)
+    grads_c = torch.autograd.grad(loss_c, list(cpu.parameters()))
+    _close(loss_g.detach(), loss_c.detach(), 1e-4)
+    for a, w in zip(grads_g, grads_c):
+        np.testing.assert_allclose(a.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=1e-3 * float(w.abs().max()))

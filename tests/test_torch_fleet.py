@@ -131,7 +131,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.configs", "repro_torch.configs.qwen2_1_5b",
                  "repro_torch.models.model", "repro_torch.models.convert",
                  "repro_torch.serving.engine", "repro_torch.kernels.flash_attention",
-                 "repro_torch.kernels.rmsnorm"):
+                 "repro_torch.kernels.rmsnorm", "repro_torch.optim.optimizers",
+                 "repro_torch.training.train_step", "repro_torch.training.trainer",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpointer"):
         assert name in modules, name
     code = (
         "import importlib, sys\n"
