@@ -8,7 +8,9 @@ exits non-zero:
 1. device    — the card's name and power limit (nvidia-smi), torch and CUDA
                versions;
 2. build     — compile every CUDA source of the port (one nvcc each, all
-               started together);
+               started together): seconds per source, and the count of
+               HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS
+               of each tensor-core kernel, which must not be 0;
 3. kernels   — the decision path's kernels at the paper's saturated geometry
                (65,536 hosts, K=8, D=3, M=64; plus the enumeration at K=12),
                each against its plain PyTorch version on the same inputs:
@@ -24,8 +26,9 @@ exits non-zero:
 6. model_kernels — flash-attention forward and RMSNorm against their plain
                versions at qwen2-1.5b's and gemma-2b's shapes (plus a full,
                a ragged and an f32 case; RMSNorm at the prefill and decode
-               shapes), each gap against a stated tolerance; kernel / plain /
-               bound / library times;
+               shapes), each gap against a stated tolerance, and two calls
+               of the bf16 forward giving the same bits; kernel / plain /
+               bound / library times (bf16 tensor-core and f32 routes);
 7. model_parity — reduced qwen2-1.5b in f32, the same weights on the card
                and on the CPU: flash ``forward_logits`` within 1e-4, and a
                ``ServingEngine`` run with identical tokens and step counts;
@@ -37,17 +40,20 @@ exits non-zero:
                drained by a second engine: prefill tokens/s, decode ms per
                step, decode tokens/s, peak memory, launch counts, and the
                device's busy share over a traced decode window;
-9. train_kernels — the flash-attention backward kernels (dq, dk/dv)
-               against ``flash_attention_bwd_plain`` on the same inputs at
+9. train_kernels — the flash-attention backward kernels (dq, dk/dv and its
+               reduction over grouped heads) against
+               ``flash_attention_bwd_plain`` on the same inputs at
                qwen2-1.5b's training shape (B=2, S=4,096, bf16), gemma-2b's
                (hd=256, MQA), a ragged (S=1,000), a full and an f32 case,
-               each gap against a stated tolerance; kernel / plain / bound /
-               library times;
+               each gap against a stated tolerance, two calls giving the
+               same bits, the reduction exactly equal to its plain version;
+               kernel / plain / bound / library times, the forward's too;
 10. train_parity — reduced qwen2-1.5b in f32, flash attention, full remat,
                the same weights on the card and on the CPU: three
                ``make_train_step`` steps agree; then a ``Trainer`` run of 8
                steps against one preempted after 4 and resumed by a fresh
-               ``Trainer``, which must end bitwise equal;
+               ``Trainer``, which must end bitwise equal; the launches of
+               the f32 flash routes this path runs;
 11. train    — full-width qwen2-1.5b (f32 master weights and AdamW state,
                bf16 compute, flash attention, full remat, 4 x 4,096 tokens a
                step as 2 microbatches): 3 steps, a preemption through the
@@ -95,6 +101,7 @@ from repro_torch.core.soa_fleet import SoAFleet  # noqa: E402
 from repro_torch.core.torch_scheduler import STATE_DTYPES, fleet_slot_costs  # noqa: E402
 from repro_torch.core.types import Request  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.serving import ServeConfig, ServingEngine  # noqa: E402
@@ -233,8 +240,9 @@ def max_gap(a, b) -> float:
 
 #: largest |kernel - plain| measured per kernel (phases 3 and 6)
 GAPS = {"sched_screen_consts": 0.0, "sched_screen_topm": 0.0, "sched_screen": 0.0,
-        "sched_weigh": 0.0, "flash_attention": 0.0, "rmsnorm": 0.0,
-        "flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
+        "sched_weigh": 0.0, "flash_attention": 0.0, "flash_attention_f32": 0.0, "rmsnorm": 0.0,
+        "flash_attention_dq": 0.0, "flash_attention_dkv": 0.0, "flash_attention_dkv_reduce": 0.0,
+        "flash_attention_dkv_f32": 0.0}
 
 
 def same(a, b, what: str, kernel: str) -> None:
@@ -275,7 +283,26 @@ t0 = time.perf_counter()
 paths = _build.build(kernels.SOURCES)
 for name in kernels.SOURCES:
     _build.load(name)
-emit("build", seconds=time.perf_counter() - t0, libraries=sorted(os.path.basename(p) for p in paths.values()))
+build_s = time.perf_counter() - t0
+# the tensor-core kernels reach the tensor cores (HGMMA: wgmma) and TMA
+# (UTMALDG), read from the SASS of each library
+cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+sass_counts = {}
+for src in ("flash_attention", "flash_attention_bwd"):
+    sass = subprocess.run([cuobjdump, "--dump-sass", paths[src]], capture_output=True, text=True,
+                          check=True).stdout
+    for chunk in sass.split("Function : ")[1:]:
+        fn_name = chunk.split(None, 1)[0]
+        if "wgmma_kernel" in fn_name:
+            sass_counts[fn_name] = dict(HGMMA=chunk.count("HGMMA"), UTMALDG=chunk.count("UTMALDG"))
+for kernel_name in ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+    found = {f: c for f, c in sass_counts.items() if kernel_name in f}
+    check(len(found) == len(HEAD_DIMS), f"build: {len(found)} instantiations of {kernel_name}")
+    for f, c in found.items():
+        check(c["HGMMA"] > 0 and c["UTMALDG"] > 0, f"build: {f} has {c} in its SASS")
+emit("build", seconds=build_s, seconds_by_source=dict(_build.BUILD_SECONDS),
+     libraries=sorted(os.path.basename(p) for p in paths.values()),
+     sass_hgmma_utmaldg=sass_counts)
 
 # ---------------------------------------------------------------------------
 # 3. kernels against their plain versions at the main path's shapes
@@ -540,6 +567,12 @@ emit("main_path", hosts=N_HOSTS, k=fleet.k_slots, m=M, decisions=decisions,
 #: differ by summation order only (flash 2e-5, lse 1e-4, RMSNorm 1e-5).
 OUT_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 LSE_TOL = 1e-4
+#: and o scaled to the tensor, ||kernel - plain|| / ||plain||: o's RMS is
+#: about sqrt(e / S), near the elementwise floor at S >= 1,024, so a lost key
+#: tile could hide under it; bf16 outputs rounded from f32 values that differ
+#: in summation order are at most one ulp (2^-8 relative) apart, so 1e-2 (as
+#: the backward's BWD_REL); f32, 1e-5
+OUT_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 RMS_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -558,20 +591,38 @@ def within(got, want, tol, what, kernel):
 gen = torch.Generator(device=DEV).manual_seed(12)
 flash_cases = [  # name, B, S, H, G, hd, dtype, causal
     ("qwen2-1.5b", 4, 1024, 12, 2, 128, BF16, True),
+    ("qwen2-1.5b train", 2, 4096, 12, 2, 128, BF16, True),
     ("gemma-2b", 1, 512, 8, 1, 256, BF16, True),
     ("full", 2, 512, 12, 2, 128, BF16, False),
     ("ragged S=1000", 2, 1000, 12, 2, 128, BF16, True),
     ("f32 S=77", 2, 77, 4, 2, 64, F32, True),
 ]
+#: the kernel each type routes to: bf16 the tensor cores, f32 the CUDA cores
+FWD_ROUTE = {BF16: "flash_attention", F32: "flash_attention_f32"}
 flash_rows = {}
 for name, b_, s_, h_, g_, hd_, dt, causal in flash_cases:
     qkv = [torch.randn((b_, s_, n_, hd_), generator=gen, device=DEV).to(dt) for n_ in (h_, g_, g_)]
+    kernels.reset_launch_counts()
     o, lse = kernels.flash_attention(*qkv, causal=causal)
+    check(kernels.launch_counts()[FWD_ROUTE[dt]] == 1, f"flash {name}: not the {FWD_ROUTE[dt]} route")
     po, plse = kernels.flash_attention_plain(*qkv, causal=causal)
+    check(o.dtype == dt and o.shape == po.shape, f"flash {name} o: type or shape")
+    o64, po64 = o.double(), po.double()
+    o_rel = float(torch.linalg.vector_norm(o64 - po64) / torch.linalg.vector_norm(po64))
+    check(o_rel <= OUT_REL[dt], f"flash {name} o: relative gap {o_rel} beyond {OUT_REL[dt]}")
     flash_rows[name] = dict(
-        o_gap=within(o, po, OUT_TOL[dt], f"flash {name} o", "flash_attention"),
-        o_tol=OUT_TOL[dt], lse_gap=within(lse, plse, LSE_TOL, f"flash {name} lse", "flash_attention"),
+        route=FWD_ROUTE[dt],
+        o_gap=within(o, po, OUT_TOL[dt], f"flash {name} o", FWD_ROUTE[dt]),
+        o_tol=OUT_TOL[dt], o_rel_gap=o_rel, o_rel_tol=OUT_REL[dt],
+        o_rms_plain=float(torch.sqrt(torch.mean(po64 * po64))),
+        lse_gap=within(lse, plse, LSE_TOL, f"flash {name} lse", FWD_ROUTE[dt]),
         lse_tol=LSE_TOL)
+    del o64, po64
+    if dt == BF16:                   # no atomics: a second call gives the same bits
+        o2, lse2 = kernels.flash_attention(*qkv, causal=causal)
+        check(torch.equal(o.view(torch.int16), o2.view(torch.int16)) and torch.equal(lse, lse2),
+              f"flash {name}: two calls differ")
+        flash_rows[name]["two_calls_bitwise_equal"] = True
 rms_rows = {}
 for name, rows_, d_, dt in (("prefill bf16", 4096, 1536, BF16), ("prefill f32", 4096, 1536, F32),
                             ("decode bf16", 8, 1536, BF16)):
@@ -581,7 +632,8 @@ for name, rows_, d_, dt in (("prefill bf16", 4096, 1536, BF16), ("prefill f32", 
                                      RMS_TOL[dt], f"rmsnorm {name}", "rmsnorm"), tol=RMS_TOL[dt])
 emit("model_kernels_vs_plain", flash_attention=flash_rows, rmsnorm=rms_rows,
      tolerance="|kernel - plain| <= tol * (1 + |plain|): bf16 outputs 2e-2 (one bf16 ulp, "
-               "tests/test_kernels.py:40), f32 by summation order")
+               "tests/test_kernels.py:40), f32 by summation order; ||o - plain|| / ||plain|| "
+               "<= o_rel_tol: bf16 1e-2, f32 1e-5")
 
 # times at the main path's shapes: the qwen2-1.5b prefill (4 x 1,024 tokens)
 q, k, v = (torch.randn((4, 1024, n_, 128), generator=gen, device=DEV).to(BF16) for n_ in (12, 2, 2))
@@ -595,6 +647,16 @@ record("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
        flops=BF16_FLOPS,
        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
            qt, kt, vt, is_causal=True, enable_gqa=True)))
+# the f32 route (CUDA cores, full f32) at the same shape: its bound is the
+# f32 rate, 67 TFLOP/s; the library's f32 attention runs with TF32 off
+q, k, v, qt, kt, vt = (t.float() for t in (q, k, v, qt, kt, vt))
+record("flash_attention_f32", "src/repro_torch/kernels/csrc/flash_attention.cu",
+       "src/repro/kernels/flash_attention.py:52",
+       device_ms(lambda: kernels.flash_attention(q, k, v, causal=True), reps=10),
+       device_ms(lambda: kernels.flash_attention_plain(q, k, v, causal=True), reps=10),
+       4 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * 4 * 12 * 1024, 4 * 128 * pairs,
+       library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+           qt, kt, vt, is_causal=True, enable_gqa=True), reps=10))
 x = torch.randn((4096, 1536), generator=gen, device=DEV).to(BF16)
 w = (0.1 * torch.randn((1536,), generator=gen, device=DEV)).to(BF16)
 w1 = 1.0 + w
@@ -606,7 +668,7 @@ record("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/
 xd = x[:8].contiguous()
 emit("model_kernel_times", card=smi, method="device time per call (trace), median of 25",
      **{r: {key: records[r][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for r in ("flash_attention", "rmsnorm")},
+        for r in ("flash_attention", "flash_attention_f32", "rmsnorm")},
      rmsnorm_decode_8x1536=dict(
          ms=device_ms(lambda: kernels.rmsnorm(xd, w, 1e-6)),
          plain_ms=device_ms(lambda: kernels.rmsnorm_plain(xd, w, 1e-6)),
@@ -837,15 +899,28 @@ bwd_cases = [  # name, B, S, H, G, hd, dtype, causal
     ("full", 2, 512, 12, 2, 128, BF16, False),
     ("f32 S=77", 2, 77, 4, 2, 64, F32, True),
 ]
+#: the dk/dv kernels each type routes to: bf16 the tensor cores and the
+#: reduction over grouped heads, f32 the CUDA cores
+DKV_ROUTE = {BF16: ("flash_attention_dkv", "flash_attention_dkv_reduce"), F32: ("flash_attention_dkv_f32",)}
 bwd_rows = {}
 for name, b_, s_, h_, g_, hd_, dt, causal in bwd_cases:
     q, k, v, do = (torch.randn((b_, s_, n_, hd_), generator=gen, device=DEV).to(dt)
                    for n_ in (h_, g_, g_, h_))
     o, lse = kernels.flash_attention_plain(q, k, v, causal=causal)
+    kernels.reset_launch_counts()
     got = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    counts = kernels.launch_counts()
+    check(all(counts[key] == 1 for key in ("flash_attention_dq",) + DKV_ROUTE[dt]),
+          f"backward {name}: not the route {DKV_ROUTE[dt]}")
     want = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     row = {}
-    for grad, kname, g_k, g_p in zip(("dq", "dk", "dv"), ("flash_attention_dq",) + ("flash_attention_dkv",) * 2,
+    if dt == BF16:                   # no atomics: a second call gives the same bits
+        again = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        check(all(torch.equal(a_.view(torch.int16), b_.view(torch.int16)) for a_, b_ in zip(got, again)),
+              f"backward {name}: two calls differ")
+        row["two_calls_bitwise_equal"] = True
+        del again
+    for grad, kname, g_k, g_p in zip(("dq", "dk", "dv"), ("flash_attention_dq",) + (DKV_ROUTE[dt][0],) * 2,
                                      got, want):
         check(g_k.dtype == dt and g_k.shape == g_p.shape, f"backward {name} {grad}: type or shape")
         gap = within(g_k, g_p, BWD_TOL[dt], f"backward {name} {grad}", kname)
@@ -867,9 +942,22 @@ B_T, S_T = 2, 4096
 q, k, v, do = (torch.randn((B_T, S_T, n_, 128), generator=gen, device=DEV).to(BF16)
                for n_ in (12, 2, 2, 12))
 o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
-bwd_ms = kernel_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-                   {"dq": ("flash_bwd_dq", "flash_attention_dq_launch"),
-                    "dkv": ("flash_bwd_dkv", "flash_attention_dkv_launch")})
+# the reduction against its plain version (the same sums in the same
+# order: exactly equal) on partials of the training shape
+parts = [torch.randn((B_T * 12, S_T, 128), generator=gen, device=DEV) for _ in range(2)]
+red = kernels.flash_attention_dkv_reduce(*parts, B_T * 2)
+red_p = kernels.flash_attention_dkv_reduce_plain(*parts, B_T * 2)
+for a_, b_, what in zip(red, red_p, ("dk", "dv")):
+    same(a_, b_, f"dk/dv reduction {what}", "flash_attention_dkv_reduce")
+# the kernel's own spans (one run read a per-call median below the bytes
+# bound from the whole trace): kernel_ms matches it by name
+red_ms = kernel_ms(lambda: kernels.flash_attention_dkv_reduce(*parts, B_T * 2),
+                   {"reduce": ("dkv_reduce", "flash_attention_dkv_reduce_launch")})["reduce"]
+red_pms = device_ms(lambda: kernels.flash_attention_dkv_reduce_plain(*parts, B_T * 2), reps=10)
+del parts, red, red_p
+BWD_NAMES = {"dq": ("flash_bwd_dq", "flash_attention_dq_launch"),
+             "dkv": ("dkv_wgmma", "flash_attention_dkv_bf16_launch")}
+bwd_ms = kernel_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True), BWD_NAMES)
 bwd_plain_ms = device_ms(lambda: kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
                          reps=10)
 qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -889,20 +977,45 @@ record("flash_attention_dkv", "src/repro_torch/kernels/csrc/flash_attention_bwd.
        "src/repro/kernels/flash_attention.py:191", bwd_ms["dkv"], bwd_plain_ms,
        2 * io_q + 2 * io_kv + 2 * rows_f32 + 2 * io_kv, 8 * 128 * pairs_t, flops=BF16_FLOPS,
        library_ms=lib_bwd_ms)
+# the reduction: f32 partials of 12 heads in, bf16 dk and dv of 2 heads
+# out (no single PyTorch call sums and casts)
+record("flash_attention_dkv_reduce", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+       "src/repro/kernels/flash_attention.py:191", red_ms, red_pms,
+       2 * 4 * B_T * 12 * S_T * 128 + 2 * io_kv, 2 * B_T * 12 * S_T * 128)
 # the same launches timed by CUDA events, kernel_ms's fallback, so that
 # path runs on every card and its reading stands beside the trace's
 bwd_event_ms = launch_event_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-                               {"dq": "flash_attention_dq_launch", "dkv": "flash_attention_dkv_launch"},
-                               reps=10)
+                               {key: sym for key, (_, sym) in BWD_NAMES.items()}, reps=10)
 fwd_t_ms = device_ms(lambda: kernels.flash_attention_fwd(q, k, v, causal=True), reps=10)
+fwd_t_lib_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                enable_gqa=True), reps=10)
 emit("train_kernel_times", card=smi, shape="B=2, S=4,096, H=12, G=2, hd=128, bf16, causal",
      method="device time per call (trace), median of 10; plain_ms and library_ms compute "
             "dq, dk and dv together (the plain backward; the backward of "
             "scaled_dot_product_attention through torch.autograd.grad)",
      **{r: {key: records[r][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for r in ("flash_attention_dq", "flash_attention_dkv")},
+        for r in ("flash_attention_dq", "flash_attention_dkv", "flash_attention_dkv_reduce")},
      event_timed_ms=bwd_event_ms, forward_ms_at_this_shape=fwd_t_ms,
+     forward_library_ms_at_this_shape=fwd_t_lib_ms,
      forward_bound_ms=4 * 128 * pairs_t / BF16_FLOPS * 1e3)
+del q, k, v, do, o, lse, qt, kt, vt, sdpa_o, dot
+
+# the f32 dk/dv route (CUDA cores) at 1 x 2,048, bound by the f32 rate
+S_F = 2048
+q, k, v, do = (torch.randn((1, S_F, n_, 128), generator=gen, device=DEV) for n_ in (12, 2, 2, 12))
+o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
+f32_ms = kernel_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+                   {"dkv": ("flash_bwd_dkv_kernel", "flash_attention_dkv_f32_launch")})
+qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+dot = do.transpose(1, 2)
+pairs_f = 12 * S_F * (S_F + 1) // 2
+record("flash_attention_dkv_f32", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+       "src/repro/kernels/flash_attention.py:191", f32_ms["dkv"],
+       device_ms(lambda: kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True), reps=5),
+       4 * S_F * 128 * (2 * 12 + 2 * 2 + 2 * 2) + 2 * 4 * 12 * S_F, 8 * 128 * pairs_f,
+       library_ms=device_ms(lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), dot, retain_graph=True),
+                            reps=5))
 del q, k, v, do, o, lse, qt, kt, vt, sdpa_o, dot
 torch.cuda.empty_cache()
 
@@ -978,6 +1091,7 @@ def card_vs_cpu(impl):
     return rows
 
 
+kernels.reset_launch_counts()
 parity = {impl: card_vs_cpu(impl) for impl in ("flash", "reference")}
 emit("train_parity_steps", config="qwen2-1.5b reduced (4 layers, d=128, f32), remat full",
      tolerance=PARITY_TOL, update_tolerance=UPDATE_TOL, **parity)
@@ -1011,13 +1125,19 @@ res_t = parity_trainer("pre")
 res_t.init_or_restore()
 check(res_t.step == 4, f"train parity: resumed at step {res_t.step}")
 res_t.run(until_step=8)
+counts = kernels.launch_counts()          # the f32 flash routes of this path
+for name in ("flash_attention_f32", "flash_attention_dkv_f32"):
+    records[name]["launches"] = counts[name]
+    check(counts[name] > 0, f"train parity: kernel {name} was never launched")
 want_st, got_st = state_tensors(ref_t.params, ref_t.opt_state), state_tensors(res_t.params, res_t.opt_state)
 check(sorted(want_st) == sorted(got_st), "train parity: state names differ")
 unequal = [key for key in want_st if not torch.equal(want_st[key], got_st[key])]
 check(not unequal, f"train parity: resumed state differs from the uninterrupted run at {unequal[:5]}")
 emit("train_parity", config="qwen2-1.5b reduced (4 layers, d=128, f32), flash, remat full",
      resume=dict(uninterrupted_steps=8, preempted_after=4, tensors=len(want_st),
-                 bitwise_equal=True, final_loss=ref_t.history[-1]["loss"]))
+                 bitwise_equal=True, final_loss=ref_t.history[-1]["loss"]),
+     launches={name: counts[name] for name in ("flash_attention_f32", "flash_attention_dq",
+                                               "flash_attention_dkv_f32")})
 del ref_t, pre_t, res_t, want_st, got_st
 shutil.rmtree(ptmp, ignore_errors=True)
 torch.cuda.empty_cache()
@@ -1165,7 +1285,8 @@ check([h_["step"] for h_ in history] == list(range(1, STEPS + 1)), "train: steps
 # (remat), the backward kernels once, each layer; the norms 2 a layer + 1
 L_ = tcfg_.n_layers
 want_counts = dict(flash_attention=STEPS * N_MB * 2 * L_, flash_attention_dq=STEPS * N_MB * L_,
-                   flash_attention_dkv=STEPS * N_MB * L_, rmsnorm=STEPS * N_MB * (2 * 2 * L_ + 1))
+                   flash_attention_dkv=STEPS * N_MB * L_, flash_attention_dkv_reduce=STEPS * N_MB * L_,
+                   rmsnorm=STEPS * N_MB * (2 * 2 * L_ + 1))
 for name, n_ in want_counts.items():
     records[name]["launches"] = counts[name]
     check(counts[name] == n_, f"train: {counts[name]} launches of {name}, the path implies {n_}")
@@ -1203,6 +1324,7 @@ busy = busy_us(prof)
 by_class = {}
 for a, b_, name in device_spans(prof):
     key = ("flash_fwd" if "flash_fwd" in name else "flash_bwd_dq" if "flash_bwd_dq" in name
+           else "flash_bwd_dkv_reduce" if "flash_bwd_dkv_reduce" in name
            else "flash_bwd_dkv" if "flash_bwd_dkv" in name else "rmsnorm" if "rmsnorm" in name
            else "gemm" if any(t in name for t in ("gemm", "nvjet", "sm90", "cutlass", "Kernel2"))
            else "other ops")

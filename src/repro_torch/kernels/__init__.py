@@ -22,6 +22,8 @@ from .flash_attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
+    flash_attention_dkv_reduce,
+    flash_attention_dkv_reduce_plain,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -62,6 +64,8 @@ __all__ = [
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_plain",
+    "flash_attention_dkv_reduce",
+    "flash_attention_dkv_reduce_plain",
     "flash_attention_fwd",
     "flash_attention_plain",
     "launch_counts",

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (device pointers, sizes, the
 stream) and is compiled on first use into ``build/<name>-<hash>.so`` next to
-this module, the hash covering the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once.  Nothing here runs at import
+this module, the hash covering the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads at once.  Nothing here runs at import
 time: the CPU tests import every module on machines without ``nvcc``.
 """
 from __future__ import annotations
@@ -14,6 +15,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -34,6 +37,8 @@ SOURCE_FLAGS = {
     "sched_screen": ("--fmad=false",),
 }
 
+#: seconds each source's ``nvcc`` took in the last ``build`` that compiled it
+BUILD_SECONDS: Dict[str, float] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
 
@@ -58,9 +63,11 @@ def _flags(name: str) -> Tuple[str, ...]:
 
 
 def _library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_flags(name)).encode())
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -75,7 +82,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     names = list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {n: _library_path(n) for n in names}
-    procs = []
+    start, procs = time.perf_counter(), []
     for n in names:
         if os.path.exists(paths[n]):
             continue
@@ -85,14 +92,24 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             _compile_cmd(n, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT
         )
         procs.append((n, tmp, proc))
-    failed = []
-    for n, tmp, proc in procs:
+
+    def drain(n: str, proc: subprocess.Popen) -> bytes:
+        # read the pipe while nvcc runs, so a long message cannot block it;
+        # each source's wall time counts from the common start
         out, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{n}.cu:\n{out.decode(errors='replace')}")
-        else:
-            os.replace(tmp, paths[n])
+        BUILD_SECONDS[n] = time.perf_counter() - start
+        return out
+
+    with ThreadPoolExecutor(max_workers=max(1, len(procs))) as pool:
+        outs = [pool.submit(drain, n, proc) for n, _, proc in procs]
+        failed = []
+        for (n, tmp, proc), out in zip(procs, outs):
+            text = out.result()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"{n}.cu:\n{text.decode(errors='replace')}")
+            else:
+                os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return paths

@@ -2,44 +2,76 @@
 // (sm_90a).  Replaces the two Pallas TPU kernels of
 // src/repro/kernels/flash_attention.py::_flash_bwd:
 //   * _dq_kernel  -> flash_bwd_dq_kernel  (dq = sum over KV tiles of ds.k)
-//   * _dkv_kernel -> flash_bwd_dkv_kernel (dv = sum p^T.do, dk = sum ds^T.q
-//                    over the rep grouped heads and every q tile)
+//   * _dkv_kernel -> flash_bwd_dkv_wgmma_kernel + flash_bwd_dkv_reduce_kernel
+//                    (bf16), flash_bwd_dkv_kernel (f32): dv = sum p^T.do,
+//                    dk = sum ds^T.q over the rep grouped heads and every q
+//                    tile
 //
-//   q, do (B*H, Sq, hd), k/v (B*G, Skv, hd), bf16 or f32 in, f32 math;
-//   lse, delta (B*H, Sq) f32 (delta = rowsum(do*o), formed by the caller);
-//   dq in q's type, dk/dv (B*G, Skv, hd) in k's type.
-//   Row b*H + h of q reads KV row (b*H + h) / rep, rep = H/G.
+//   q, do (B*H, Sq, hd), k/v (B*G, Skv, hd); lse, delta (B*H, Sq) f32
+//   (delta = rowsum(do*o), formed by the caller); dq in q's type, dk/dv
+//   (B*G, Skv, hd) in k's type.  Row b*H + h of q reads KV row
+//   (b*H + h) / rep, rep = H/G.
 //
-// Both kernels recompute p = exp(s*scale - lse) from the saved lse, as the
-// TPU kernels do, and form ds = p * (do.v^T - delta) * scale.
+// Every kernel recomputes p = exp(s*scale - lse) from the saved lse, as the
+// TPU kernels do, and forms ds = p * (do.v^T - delta) * scale.  Masked
+// pairs (causal, or past a ragged Sq) get p = 0 exactly, as the TPU
+// kernel's -1e30 scores do after exp.
 //
 // The TPU grid runs in order and carries dq (or dk, dv) in VMEM scratch
 // along its innermost axis.  Hopper blocks run in any order, so each block
 // owns its output tile and loops over the other axis itself, and no block
 // writes another's rows: no atomics, so the gradients are the same bits on
 // every run (a preempted training run resumes bit-exactly).
-//   * dq:  one block per (32-query tile, head).  Four warps own 8 query rows
-//     each, with the rows' dq in f32 registers (hd/32 values a lane).  The
-//     block stages each tile of 32 keys and values in shared memory (row
-//     stride hd+1: 32 lanes reading 32 keys hit 32 banks); a lane scores
-//     one key, and ds.k broadcasts each lane's ds over the warp.  Causal
-//     tiles wholly above the block's last row are never loaded.
-//   * dk/dv: one block per (32-key tile, KV head).  Eight warps own 4 keys
-//     each, with their dk and dv in f32 registers.  The block walks the rep
-//     grouped heads and, for each, the q tiles that can see its keys (all of
-//     them, or from the diagonal on when causal), staging q, do, lse and
-//     delta; a lane scores one query row against the warp's key.
-// Masked pairs (causal, or past a ragged Skv / Sq tail) get p = 0 exactly,
-// as the TPU kernel's -1e30 scores do after exp.
 //
 // Bound on this card: operations.  dq does 3 products of 2*hd flops per
-// kept (query, key) pair (s, dp, ds.k), dk/dv 4 (s, dp, p^T.do, ds^T.q).
-// These first kernels run them on the CUDA cores in f32 (no wgmma, no TMA),
-// far from the bf16 tensor-core bound; chip_smoke.py prints both.
+// kept (query, key) pair (s, dp, ds.k), dk/dv 4 (s, dp, p^T.do, ds^T.q), on
+// the bf16 tensor cores (989 TFLOP/s).
+//
+// dk/dv, bf16 (flash_bwd_dkv_wgmma_kernel): all four products on wgmma, the
+// streamed tiles by TMA.
+//   * One block per (128-key tile, q head): at qwen2's training shape 768
+//     blocks, the heaviest (key tile 0, causal) walking 4,096 queries of one
+//     head, 1/6 of what the f32 kernel's heaviest walks over the 6 grouped
+//     heads; the grid issues the low (heaviest) key tiles first.  Two
+//     consumer warpgroups own 64 keys each, with their dK and dV in f32
+//     registers; a producer warpgroup, one warp of which loads (registers
+//     moved to the consumers by setmaxnreg).
+//   * The producer loads the block's K and V once and streams 64-row tiles
+//     of Q and dO (TMA, 128-byte swizzle; 64-byte at hd 32), with their lse
+//     (times log2 e) and delta, through a ring of 2 stages, from the
+//     diagonal on when causal.
+//   * A consumer computes S^T = K.Q^T and dP^T = V.dO^T (wgmma, A and B from
+//     shared memory), P^T = exp2(S^T*scale*log2 e - lse*log2 e) and
+//     dS^T = P^T * (dP^T - delta) * scale on the accumulator fragments,
+//     then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T rounded to bf16
+//     as register A operands, dO and Q read MN-major.
+//   * hd 256: dK and dV of 64 keys would need 256 f32 registers a thread.
+//     The block takes 64 keys instead, and its two warpgroups split the head
+//     dim: each computes S^T and dP^T for all 64 keys and accumulates its
+//     128 columns of dK and dV.  That repeats the two score products (6
+//     products for 4), paid only at hd 256, and keeps the registers of hd
+//     128 with no shared-memory accumulator.
+//   * Each block writes f32 partials of its q head; the reduce kernel sums
+//     the rep heads of a group in head order and casts to k's type.
+// f32 (flash_bwd_dkv_kernel): on the CUDA cores (f32 on wgmma would be
+// TF32): one block per (32-key tile, KV head); eight warps own 4 keys each;
+// the block walks the rep grouped heads and, for each, the q tiles that can
+// see its keys, staging q, do, lse and delta; a lane scores one query row
+// against the warp's key.
+//
+// dq, both types (flash_bwd_dq_kernel, the CUDA-core kernel): one block per
+// (32-query tile, head).  Four warps own 8 query rows each, with the rows'
+// dq in f32 registers (hd/32 values a lane).  The block stages each tile of
+// 32 keys and values in shared memory (row stride hd+1: 32 lanes reading 32
+// keys hit 32 banks); a lane scores one key, and ds.k broadcasts each
+// lane's ds over the warp.  Causal tiles wholly above the block's last row
+// are never loaded.
 //
 // C interface (loaded with ctypes); each entry returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -155,12 +187,12 @@ constexpr size_t dkv_smem_bytes() {
     return sizeof(float) * (2 * kTile * HD + 2 * kTile * (HD + 1) + 2 * kTile);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kDkvWarps * 32)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int rep, int sq, int skv,
+                     float* __restrict__ dk, float* __restrict__ dv, int rep, int sq, int skv,
                      int causal, float scale) {
     constexpr int C = HD / 32;
     extern __shared__ float smem[];
@@ -179,8 +211,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = threadIdx.x; i < kTile * HD; i += blockDim.x) {
         const bool in = kv0 + i / HD < skv;
         const size_t g = kvoff + static_cast<size_t>(kv0) * HD + i;
-        ks[i] = in ? to_f(k[g]) : 0.0f;
-        vs[i] = in ? to_f(v[g]) : 0.0f;
+        ks[i] = in ? k[g] : 0.0f;
+        vs[i] = in ? v[g] : 0.0f;
     }
     float dk_acc[kDkvKeys][C], dv_acc[kDkvKeys][C];
 #pragma unroll
@@ -201,8 +233,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int rr = i / HD, d = i - rr * HD;
                 const bool in = q0 + rr < sq;
                 const size_t g = qoff + static_cast<size_t>(q0) * HD + i;
-                qs[rr * (HD + 1) + d] = in ? to_f(q[g]) : 0.0f;
-                dos[rr * (HD + 1) + d] = in ? to_f(dout[g]) : 0.0f;
+                qs[rr * (HD + 1) + d] = in ? q[g] : 0.0f;
+                dos[rr * (HD + 1) + d] = in ? dout[g] : 0.0f;
             }
             if (threadIdx.x < kTile) {
                 const int row = q0 + threadIdx.x;
@@ -252,8 +284,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const size_t at = kvoff + static_cast<size_t>(key) * HD;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-            dk[at + lane + 32 * c] = from_f<T>(dk_acc[jj][c]);
-            dv[at + lane + 32 * c] = from_f<T>(dv_acc[jj][c]);
+            dk[at + lane + 32 * c] = dk_acc[jj][c];
+            dv[at + lane + 32 * c] = dv_acc[jj][c];
         }
     }
 }
@@ -281,18 +313,19 @@ int launch_dq(const Args& a, void* dq, int bh) {
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_dkv(const Args& a, void* dk, void* dv, int bg) {
     constexpr size_t bytes = dkv_smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((a.skv + kTile - 1) / kTile, bg);
-    flash_bwd_dkv_kernel<T, HD><<<grid, kDkvWarps * 32, bytes, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk),
-        static_cast<T*>(dv), a.rep, a.sq, a.skv, a.causal, a.scale);
+    flash_bwd_dkv_kernel<HD><<<grid, kDkvWarps * 32, bytes, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+        static_cast<float*>(dk), static_cast<float*>(dv), a.rep, a.sq, a.skv, a.causal,
+        a.scale);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -307,16 +340,243 @@ int dispatch_dq(const Args& a, void* dq, int bh, int hd) {
     }
 }
 
-template <typename T>
 int dispatch_dkv(const Args& a, void* dk, void* dv, int bg, int hd) {
     switch (hd) {
-        case 32: return launch_dkv<T, 32>(a, dk, dv, bg);
-        case 64: return launch_dkv<T, 64>(a, dk, dv, bg);
-        case 128: return launch_dkv<T, 128>(a, dk, dv, bg);
-        case 256: return launch_dkv<T, 256>(a, dk, dv, bg);
+        case 32: return launch_dkv<32>(a, dk, dv, bg);
+        case 64: return launch_dkv<64>(a, dk, dv, bg);
+        case 128: return launch_dkv<128>(a, dk, dv, bg);
+        case 256: return launch_dkv<256>(a, dk, dv, bg);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
+
+// ---------------------------------------------------------------------------
+// dk/dv, bf16: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+
+template <int HD>
+struct Cfg {
+    static constexpr int SW = HD == 32 ? 32 : 64;  // columns of a swizzled slab row
+    static constexpr int SWB = 2 * SW;
+    static constexpr int NSLAB = HD / SW;
+    static constexpr int SPLIT = HD == 256 ? 2 : 1;  // warpgroups sharing one set of keys
+    static constexpr int BN = 128 / SPLIT;           // keys a block
+    static constexpr int NC = HD / SPLIT;            // dK, dV columns a warpgroup
+    static constexpr int BM = 64;                    // query rows a streamed tile
+    static constexpr int STAGES = 2;
+    static constexpr int KV_SLAB = BN * SWB;
+    static constexpr int Q_SLAB = BM * SWB;
+    static constexpr int KV_BYTES = BN * HD * 2;     // K, or V
+    static constexpr int Q_BYTES = BM * HD * 2;      // Q, or dO, of one stage
+    // K, V, then per stage Q and dO, then per stage lse and delta (f32)
+    static constexpr int ROWS_OFF = 2 * KV_BYTES + 2 * STAGES * Q_BYTES;
+    static constexpr int SMEM = ROWS_OFF + 2 * STAGES * BM * 4 + 64 + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dk_part, float* __restrict__ dv_part, int rep,
+                           int sq, int skv, int causal, float scale) {
+    using C = Cfg<HD>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* ks = align_1024(smem_raw);
+    uint8_t* vs = ks + C::KV_BYTES;
+    uint8_t* qdo = vs + C::KV_BYTES;  // stage st: Q at qdo + 2*st*Q_BYTES, dO after it
+    float* rows = reinterpret_cast<float*>(ks + C::ROWS_OFF);  // stage st: lse2, delta
+    uint64_t* kv_full = reinterpret_cast<uint64_t*>(rows + 2 * C::STAGES * C::BM);
+    uint64_t* full = kv_full + 1;
+    uint64_t* empty = full + C::STAGES;
+
+    const int bh = blockIdx.x;
+    const int k0 = blockIdx.y * C::BN;  // the low (heaviest, when causal) key tiles first
+    // with the causal mask, query rows before k0 see none of these keys
+    // (k0 is a multiple of the q tile's height)
+    const int q_begin = causal ? k0 : 0;
+    const int n_qt = q_begin < sq ? (sq - q_begin + C::BM - 1) / C::BM : 0;
+
+    if (threadIdx.x == 0) {
+        mbar_init(kv_full, 1);
+        for (int st = 0; st < C::STAGES; ++st) {
+            mbar_init(&full[st], 1);
+            mbar_init(&empty[st], 256);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int wgi = threadIdx.x / 128;
+    const int lane = threadIdx.x % 32;
+    if (wgi == 2) {  // the producer warpgroup: its first warp loads
+        producer_registers();
+        if (threadIdx.x >= 288) return;
+        if (lane == 0) {
+            mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+            for (int s = 0; s < C::NSLAB; ++s) {
+                tma_load_3d(ks + s * C::KV_SLAB, &tk, kv_full, s * C::SW, k0, bh / rep);
+                tma_load_3d(vs + s * C::KV_SLAB, &tv, kv_full, s * C::SW, k0, bh / rep);
+            }
+        }
+        for (int it = 0; it < n_qt; ++it) {
+            const int st = it % C::STAGES, q0 = q_begin + it * C::BM;
+            if (it >= C::STAGES) mbar_wait(&empty[st], (it / C::STAGES - 1) & 1);
+            float* lse2 = rows + 2 * st * C::BM;
+            for (int i = lane; i < C::BM; i += 32) {  // rows past Sq are masked: any value
+                const size_t at = static_cast<size_t>(bh) * sq + q0 + i;
+                lse2[i] = q0 + i < sq ? lse[at] * kLog2e : 0.0f;
+                lse2[C::BM + i] = q0 + i < sq ? delta[at] : 0.0f;
+            }
+            __threadfence_block();
+            __syncwarp();
+            if (lane == 0) {
+                uint8_t* qs = qdo + 2 * st * C::Q_BYTES;
+                mbar_expect_tx(&full[st], 2 * C::Q_BYTES);
+                for (int s = 0; s < C::NSLAB; ++s) {
+                    tma_load_3d(qs + s * C::Q_SLAB, &tq, &full[st], s * C::SW, q0, bh);
+                    tma_load_3d(qs + C::Q_BYTES + s * C::Q_SLAB, &tdo, &full[st], s * C::SW, q0, bh);
+                }
+            }
+        }
+        return;
+    }
+    consumer_registers();
+
+    const int t = threadIdx.x % 128, warp = t / 32;
+    const int koff = C::SPLIT == 1 ? wgi * 64 : 0;    // this warpgroup's keys in the block
+    const int coff = C::SPLIT == 1 ? 0 : wgi * C::NC;  // and its columns of dK, dV
+    const int kfirst = k0 + koff;
+    const int r_lo = warp * 16 + lane / 4;  // fragment rows (keys) r_lo, r_lo + 8
+    const int c_lo = 2 * (lane % 4);        // fragment columns (queries) 8j + c_lo, + 1
+    const float scale_log2 = scale * kLog2e;
+    float dk[C::NC / 2], dv[C::NC / 2];
+#pragma unroll
+    for (int i = 0; i < C::NC / 2; ++i) dk[i] = dv[i] = 0.0f;
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_qt; ++it) {
+        const int st = it % C::STAGES, q0 = q_begin + it * C::BM;
+        mbar_wait(&full[st], (it / C::STAGES) & 1);
+        if (!causal || q0 + C::BM - 1 >= kfirst) {  // else every query lies before these keys
+            const uint8_t* qs = qdo + 2 * st * C::Q_BYTES;
+            const uint8_t* dos = qs + C::Q_BYTES;
+            const float* lse2 = rows + 2 * st * C::BM;
+            const float* dlt = lse2 + C::BM;
+            float s[32], dp[32];
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+                const int slab = kk / (C::SW / 16), in_row = 32 * (kk % (C::SW / 16));
+                const int a_off = slab * C::KV_SLAB + koff * C::SWB + in_row;
+                const int b_off = slab * C::Q_SLAB + in_row;
+                wgmma_ss<64>(s, desc<C::SWB>(ks + a_off, 16, 8 * C::SWB),
+                             desc<C::SWB>(qs + b_off, 16, 8 * C::SWB), kk > 0);
+                wgmma_ss<64>(dp, desc<C::SWB>(vs + a_off, 16, 8 * C::SWB),
+                             desc<C::SWB>(dos + b_off, 16, 8 * C::SWB), kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(s);
+            fence_regs(dp);
+
+            const bool masked = (causal && q0 < kfirst + 63) || q0 + C::BM > sq;
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+                const int col = 8 * (i / 4) + c_lo + (i & 1);  // query q0 + col
+                float p = exp2f(s[i] * scale_log2 - lse2[col]);
+                if (masked) {
+                    const int key = kfirst + r_lo + 8 * ((i >> 1) & 1);
+                    if (q0 + col >= sq || (causal && key > q0 + col)) p = 0.0f;
+                }
+                s[i] = p;
+                dp[i] = p * (dp[i] - dlt[col]) * scale;
+            }
+
+            uint32_t pa[C::BM / 16][4], da[C::BM / 16][4];  // P^T, dS^T in bf16, before the fence
+#pragma unroll
+            for (int kk = 0; kk < C::BM / 16; ++kk) {
+                acc_to_a(s, kk, pa[kk]);
+                acc_to_a(dp, kk, da[kk]);
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < C::BM / 16; ++kk) {
+                const int b_off = (coff / C::SW) * C::Q_SLAB + kk * 16 * C::SWB;
+                wgmma_rs<C::NC>(dv, pa[kk], desc<C::SWB>(dos + b_off, C::Q_SLAB, 8 * C::SWB));
+                wgmma_rs<C::NC>(dk, da[kk], desc<C::SWB>(qs + b_off, C::Q_SLAB, 8 * C::SWB));
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(dk);
+            fence_regs(dv);
+        }
+        mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int key = kfirst + r_lo + 8 * h;
+        if (key >= skv) continue;
+        const size_t at = (static_cast<size_t>(bh) * skv + key) * HD + coff + c_lo;
+#pragma unroll
+        for (int j = 0; j < C::NC / 8; ++j) {
+            *reinterpret_cast<float2*>(dk_part + at + 8 * j) = make_float2(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+            *reinterpret_cast<float2*>(dv_part + at + 8 * j) = make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+        }
+    }
+}
+
+// dk[g] = sum over r < rep of dk_part[g*rep + r], in that order (and dv),
+// cast to bf16; four values a thread
+__global__ void flash_bwd_dkv_reduce_kernel(const float4* __restrict__ dk_part,
+                                            const float4* __restrict__ dv_part,
+                                            __nv_bfloat162* __restrict__ dk,
+                                            __nv_bfloat162* __restrict__ dv, int rep,
+                                            long long per_head, long long n) {
+    for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<long long>(gridDim.x) * blockDim.x) {
+        const long long g = i / per_head, off = i - g * per_head;
+        float4 a = dk_part[g * rep * per_head + off], b = dv_part[g * rep * per_head + off];
+        for (int r = 1; r < rep; ++r) {
+            const float4 x = dk_part[(g * rep + r) * per_head + off];
+            const float4 y = dv_part[(g * rep + r) * per_head + off];
+            a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+            b.x += y.x; b.y += y.y; b.z += y.z; b.w += y.w;
+        }
+        dk[2 * i] = __floats2bfloat162_rn(a.x, a.y);
+        dk[2 * i + 1] = __floats2bfloat162_rn(a.z, a.w);
+        dv[2 * i] = __floats2bfloat162_rn(b.x, b.y);
+        dv[2 * i + 1] = __floats2bfloat162_rn(b.z, b.w);
+    }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, float* dk_part, float* dv_part, int bh, int bg, int sq, int skv,
+           int causal, float scale, cudaStream_t stream) {
+    using C = Cfg<HD>;
+    CUtensorMap tq, tk, tv, tdo;
+    if (!encode_3d(&tq, q, HD, sq, bh, C::SW, C::BM) || !encode_3d(&tdo, dout, HD, sq, bh, C::SW, C::BM) ||
+        !encode_3d(&tk, k, HD, skv, bg, C::SW, C::BN) || !encode_3d(&tv, v, HD, skv, bg, C::SW, C::BN))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(bh, (skv + C::BN - 1) / C::BN);
+    flash_bwd_dkv_wgmma_kernel<HD><<<grid, kThreads, C::SMEM, stream>>>(
+        tq, tk, tv, tdo, lse, delta, dk_part, dv_part, bh / bg, sq, skv, causal, scale);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
 
 }  // namespace
 
@@ -331,14 +591,50 @@ extern "C" int flash_attention_dq_launch(const void* q, const void* k, const voi
     return is_bf16 ? dispatch_dq<__nv_bfloat16>(a, dq, bh, hd) : dispatch_dq<float>(a, dq, bh, hd);
 }
 
-extern "C" int flash_attention_dkv_launch(const void* q, const void* k, const void* v,
-                                          const void* dout, const void* lse,
-                                          const void* delta, void* dk, void* dv, int bh,
-                                          int bg, int sq, int skv, int hd, int causal,
-                                          float scale, int is_bf16, void* stream) {
+extern "C" int flash_attention_dkv_f32_launch(const void* q, const void* k, const void* v,
+                                              const void* dout, const void* lse,
+                                              const void* delta, void* dk, void* dv, int bh,
+                                              int bg, int sq, int skv, int hd, int causal,
+                                              float scale, void* stream) {
     const Args a{q, k, v, dout, static_cast<const float*>(lse),
                  static_cast<const float*>(delta), bh / bg, sq, skv, causal, scale,
                  static_cast<cudaStream_t>(stream)};
-    return is_bf16 ? dispatch_dkv<__nv_bfloat16>(a, dk, dv, bg, hd)
-                   : dispatch_dkv<float>(a, dk, dv, bg, hd);
+    return dispatch_dkv(a, dk, dv, bg, hd);
+}
+
+extern "C" int flash_attention_dkv_bf16_launch(const void* q, const void* k, const void* v,
+                                               const void* dout, const void* lse,
+                                               const void* delta, void* dk_part, void* dv_part,
+                                               int bh, int bg, int sq, int skv, int hd,
+                                               int causal, float scale, void* stream) {
+    const float* l = static_cast<const float*>(lse);
+    const float* d = static_cast<const float*>(delta);
+    float* pk = static_cast<float*>(dk_part);
+    float* pv = static_cast<float*>(dv_part);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (hd) {
+        case 32: return wg::launch<32>(q, k, v, dout, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
+        case 64: return wg::launch<64>(q, k, v, dout, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
+        case 128: return wg::launch<128>(q, k, v, dout, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
+        case 256: return wg::launch<256>(q, k, v, dout, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+extern "C" int flash_attention_dkv_reduce_launch(const void* dk_part, const void* dv_part,
+                                                 void* dk, void* dv, int bh, int bg, int skv,
+                                                 int hd, void* stream) {
+    const long long per_head = static_cast<long long>(skv) * hd / 4;
+    const long long n = per_head * bg;
+    // 16 blocks an SM at most: the kernel strides over the rest
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long cap = 16LL * sms;
+    const int blocks = static_cast<int>(n / 256 + 1 < cap ? n / 256 + 1 : cap);
+    wg::flash_bwd_dkv_reduce_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(dk_part), static_cast<const float4*>(dv_part),
+        static_cast<__nv_bfloat162*>(dk), static_cast<__nv_bfloat162*>(dv), bh / bg, per_head, n);
+    return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,11 @@ backward reads and which carries no gradient.  The kernels are
 softmax.
 
 The tensor's device picks the version: a CPU tensor runs the plain version,
-a CUDA tensor launches the kernel or raises; nothing falls back.
+a CUDA tensor launches the kernel or raises; nothing falls back.  On the
+card the inputs' type picks the route before launch: bf16 runs the forward
+and dk/dv on the tensor cores (``wgmma`` fed by TMA; dk/dv as f32 partials
+per q head, summed over each group by a second kernel), f32 the CUDA-core
+kernels, whose products stay full f32.  dq has one kernel for both.
 """
 from __future__ import annotations
 
@@ -25,24 +29,31 @@ import torch
 
 from . import _build
 
-#: launches of the CUDA kernels: the forward, dq and dk/dv.
-LAUNCHES = {"flash_attention": 0, "flash_attention_dq": 0, "flash_attention_dkv": 0}
+#: launches of the CUDA kernels: the bf16 forward and dk/dv (tensor cores)
+#: and the dk/dv reduction over grouped heads, their f32 routes, and dq.
+LAUNCHES = {"flash_attention": 0, "flash_attention_f32": 0, "flash_attention_dq": 0,
+            "flash_attention_dkv": 0, "flash_attention_dkv_reduce": 0,
+            "flash_attention_dkv_f32": 0}
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
-#: ``flash_attention_fwd_launch``: q, k, v, o, lse, bh, bg, sq, skv, hd,
-#: causal, scale, is_bf16, stream
+#: ``flash_attention_fwd_{bf16,f32}_launch``: q, k, v, o, lse, bh, bg, sq,
+#: skv, hd, causal, scale, stream
 _LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] \
-    + [ctypes.c_int] + [ctypes.c_void_p]
+    + [ctypes.c_void_p]
 #: ``flash_attention_dq_launch``: q, k, v, do, lse, delta, dq, bh, bg, sq, skv,
 #: hd, causal, scale, is_bf16, stream
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] \
     + [ctypes.c_int] + [ctypes.c_void_p]
-#: ``flash_attention_dkv_launch``: q, k, v, do, lse, delta, dk, dv, bh, bg, sq,
-#: skv, hd, causal, scale, is_bf16, stream
+#: ``flash_attention_dkv_{bf16,f32}_launch``: q, k, v, do, lse, delta, dk (or
+#: its f32 partials per q head), dv (or partials), bh, bg, sq, skv, hd,
+#: causal, scale, stream
 _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] \
-    + [ctypes.c_int] + [ctypes.c_void_p]
+    + [ctypes.c_void_p]
+#: ``flash_attention_dkv_reduce_launch``: dk partials, dv partials, dk, dv, bh,
+#: bg, skv, hd, stream
+_REDUCE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _flatten(q, k, v):
@@ -53,7 +64,14 @@ def _flatten(q, k, v):
     qf = q.transpose(1, 2).reshape(b * h, sq, hd)
     kf = k.transpose(1, 2).reshape(b * g, skv, hd)
     vf = v.transpose(1, 2).reshape(b * g, skv, hd)
-    return qf.contiguous(), kf.contiguous(), vf.contiguous()
+    return _contiguous(qf), _contiguous(kf), _contiguous(vf)
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as a TMA tensor map's base must be (a
+    view may start anywhere in its storage)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_shapes(q, k, v):
@@ -113,14 +131,16 @@ def _flash_cuda(q, k, v, causal):
     o = torch.empty_like(qf)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     if qf.numel() and skv:
-        fn = _build.entry("flash_attention", "flash_attention_fwd_launch", _LAUNCH_ARGTYPES)
+        key, symbol = (("flash_attention", "flash_attention_fwd_bf16_launch")
+                       if q.dtype == torch.bfloat16 else
+                       ("flash_attention_f32", "flash_attention_fwd_f32_launch"))
+        fn = _build.entry("flash_attention", symbol, _LAUNCH_ARGTYPES)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
             _build.check(fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
                             lse.data_ptr(), b * h, b * g, sq, skv, hd, int(causal),
-                            1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16), stream),
-                         "flash_attention")
-        LAUNCHES["flash_attention"] += 1
+                            1.0 / math.sqrt(hd), stream), key)
+        LAUNCHES[key] += 1
     return o.reshape(b, h, sq, hd).transpose(1, 2), lse
 
 
@@ -190,30 +210,88 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal):
                          f"and lse {tuple(lse.shape)} do not match q {tuple(q.shape)}")
     qf, kf, vf = _flatten(q, k, v)
     of = o.transpose(1, 2).reshape(b * h, sq, hd)
-    dof = do.to(q.dtype).transpose(1, 2).reshape(b * h, sq, hd).contiguous()
+    dof = _contiguous(do.to(q.dtype).transpose(1, 2).reshape(b * h, sq, hd))
     lse = lse.to(torch.float32).contiguous()
     delta = _delta(of, dof).contiguous()
-    dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
-    if qf.numel() and skv:
+    if not (qf.numel() and skv):
+        dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    else:
+        dq = torch.empty_like(qf)
         common = (qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
                   lse.data_ptr(), delta.data_ptr())
-        shape = (b * h, b * g, sq, skv, hd, int(causal), 1.0 / math.sqrt(hd),
-                 int(q.dtype == torch.bfloat16))
+        shape = (b * h, b * g, sq, skv, hd, int(causal), 1.0 / math.sqrt(hd))
+        bf16 = q.dtype == torch.bfloat16
         fn_dq = _build.entry("flash_attention_bwd", "flash_attention_dq_launch", _DQ_ARGTYPES)
-        fn_dkv = _build.entry("flash_attention_bwd", "flash_attention_dkv_launch", _DKV_ARGTYPES)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
-            _build.check(fn_dq(*common, dq.data_ptr(), *shape, stream), "flash_attention_dq")
+            _build.check(fn_dq(*common, dq.data_ptr(), *shape, int(bf16), stream),
+                         "flash_attention_dq")
             LAUNCHES["flash_attention_dq"] += 1
-            _build.check(fn_dkv(*common, dk.data_ptr(), dv.data_ptr(), *shape, stream),
-                         "flash_attention_dkv")
-            LAUNCHES["flash_attention_dkv"] += 1
-    else:
-        for t in (dq, dk, dv):
-            t.zero_()
+            if bf16:
+                # f32 partials per q head, summed over each group in head order
+                dk_part = torch.empty((b * h, skv, hd), dtype=torch.float32, device=q.device)
+                dv_part = torch.empty_like(dk_part)
+                fn = _build.entry("flash_attention_bwd", "flash_attention_dkv_bf16_launch",
+                                  _DKV_ARGTYPES)
+                _build.check(fn(*common, dk_part.data_ptr(), dv_part.data_ptr(), *shape, stream),
+                             "flash_attention_dkv")
+                LAUNCHES["flash_attention_dkv"] += 1
+                dk, dv = flash_attention_dkv_reduce(dk_part, dv_part, b * g)
+            else:
+                dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+                fn = _build.entry("flash_attention_bwd", "flash_attention_dkv_f32_launch",
+                                  _DKV_ARGTYPES)
+                _build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *shape, stream),
+                             "flash_attention_dkv_f32")
+                LAUNCHES["flash_attention_dkv_f32"] += 1
     return (dq.reshape(b, h, sq, hd).transpose(1, 2),
             dk.reshape(b, g, skv, hd).transpose(1, 2),
             dv.reshape(b, g, skv, hd).transpose(1, 2))
+
+
+def flash_attention_dkv_reduce_plain(
+    dk_part: torch.Tensor, dv_part: torch.Tensor, groups: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 dk/dv kernel's partials per q head (B*H, S, hd) f32, summed
+    over the rep = B*H / groups heads of each group in head order and cast
+    to bf16: (groups, S, hd) each."""
+    out = []
+    for part in (dk_part, dv_part):
+        heads = part.reshape(groups, part.shape[0] // groups, *part.shape[1:])
+        acc = heads[:, 0]
+        for r in range(1, heads.shape[1]):
+            acc = acc + heads[:, r]
+        out.append(acc.to(torch.bfloat16))
+    return out[0], out[1]
+
+
+def flash_attention_dkv_reduce(
+    dk_part: torch.Tensor, dv_part: torch.Tensor, groups: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_dkv_reduce_plain``: the reduction kernel on CUDA
+    tensors (the same sums in the same order), the plain version on CPU
+    tensors."""
+    if dk_part.device.type == "cpu":
+        return flash_attention_dkv_reduce_plain(dk_part, dv_part, groups)
+    bh, skv, hd = dk_part.shape
+    if (dv_part.shape != dk_part.shape or bh % groups or hd % 4 or dk_part.dtype != torch.float32
+            or dv_part.dtype != torch.float32 or not dk_part.is_contiguous()
+            or not dv_part.is_contiguous()):
+        raise ValueError(f"flash_attention_dkv_reduce: expected two contiguous f32 (B*H, S, hd) "
+                         f"partials, hd a multiple of 4, B*H a multiple of {groups}; got "
+                         f"{tuple(dk_part.shape)} {dk_part.dtype}, {tuple(dv_part.shape)} "
+                         f"{dv_part.dtype}")
+    dk = torch.empty((groups, skv, hd), dtype=torch.bfloat16, device=dk_part.device)
+    dv = torch.empty_like(dk)
+    if dk.numel():
+        fn = _build.entry("flash_attention_bwd", "flash_attention_dkv_reduce_launch",
+                          _REDUCE_ARGTYPES)
+        with torch.cuda.device(dk_part.device):
+            _build.check(fn(dk_part.data_ptr(), dv_part.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                            bh, groups, skv, hd, torch.cuda.current_stream().cuda_stream),
+                         "flash_attention_dkv_reduce")
+        LAUNCHES["flash_attention_dkv_reduce"] += 1
+    return dk, dv
 
 
 def flash_attention_bwd(

@@ -1,10 +1,12 @@
-"""The JAX package's parameter tree and AdamW state (as numpy) to the port's
-modules and dicts, and back.
+"""The JAX package's parameter tree and optimizer state (as numpy) to the
+port's modules and dicts, and back.
 
 The JAX tree nests dicts and stacks the L decoder layers on a leading axis
 (``layers/attn/wq`` is (L, d, H*hd)); the port keeps one module per layer
-(``layers.<i>.attn.wq`` is (d, H*hd)) and keys optimizer moments by the
-same names.  Every direction copies the values exactly.
+(``layers.<i>.attn.wq`` is (d, H*hd)) and keys AdamW's moments by the same
+names.  Adafactor's second moment stays stacked in the port too (its
+``(row, col)`` factors belong to the whole ``(L, ...)`` leaf), keyed
+``layers.<rest>``.  Every direction copies the values exactly.
 """
 from __future__ import annotations
 
@@ -31,11 +33,6 @@ def _flat_from_tree(cfg: ModelConfig, tree: Dict[str, Any], device) -> Dict[str,
     port's parameter names."""
     flat = {}
     for name, a in _leaves(tree):
-        if isinstance(a, tuple):
-            raise NotImplementedError(
-                f"{name}: factored (Adafactor) moments do not carry across: the JAX package "
-                "factors the stacked (L, ...) leaf, the port each layer's tensor (ROADMAP §1 "
-                "item 12)")
         if name.startswith("layers."):
             if np.shape(a)[0] != cfg.n_layers:
                 raise ValueError(f"{name}: {np.shape(a)[0]} stacked layers, config has "
@@ -47,29 +44,47 @@ def _flat_from_tree(cfg: ModelConfig, tree: Dict[str, Any], device) -> Dict[str,
     return flat
 
 
+def _nu_from_tree(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """Adafactor's second-moment tree as the port keeps it: one entry per
+    JAX leaf (layers still stacked), a ``(row, col)`` pair where factored."""
+    return {name: tuple(_to_tensor(x, device) for x in a) if isinstance(a, tuple)
+            else _to_tensor(a, device) for name, a in _leaves(tree)}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    arr = t.detach().cpu()
+    return arr.float().numpy() if arr.dtype == torch.bfloat16 else arr.numpy()
+
+
+def _put(tree: Dict[str, Any], name: str, value) -> None:
+    node = tree
+    *path, leaf = name.split(".")
+    for key in path:
+        node = node.setdefault(key, {})
+    node[leaf] = value
+
+
 def _tree_from_flat(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Tensors keyed by the port's parameter names as a JAX tree: numpy
     leaves, layers stacked."""
     tree: Dict[str, Any] = {}
     stacks: Dict[str, list] = {}
-
-    def put(name, value):
-        node = tree
-        *path, leaf = name.split(".")
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = value
-
     for name, t in flat.items():
-        arr = t.detach().cpu()
-        arr = arr.float().numpy() if arr.dtype == torch.bfloat16 else arr.numpy()
         if name.startswith("layers."):
             _, i, rest = name.split(".", 2)
-            stacks.setdefault(rest, []).append((int(i), arr))
+            stacks.setdefault(rest, []).append((int(i), _numpy(t)))
         else:
-            put(name, arr)
+            _put(tree, name, _numpy(t))
     for rest, items in stacks.items():
-        put(f"layers.{rest}", np.stack([a for _, a in sorted(items, key=lambda x: x[0])]))
+        _put(tree, f"layers.{rest}", np.stack([a for _, a in sorted(items, key=lambda x: x[0])]))
+    return tree
+
+
+def _nu_to_tree(nu: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``_nu_from_tree``: numpy leaves, pairs kept."""
+    tree: Dict[str, Any] = {}
+    for name, t in nu.items():
+        _put(tree, name, tuple(_numpy(x) for x in t) if isinstance(t, tuple) else _numpy(t))
     return tree
 
 
@@ -87,20 +102,29 @@ def params_to_numpy(params: Model) -> Dict[str, Any]:
 
 
 def opt_state_from_numpy(cfg: ModelConfig, state, device=None) -> OptState:
-    """The JAX package's AdamW ``OptState`` (``step``, ``mu`` and ``nu``
-    trees shaped like the parameters, numpy leaves) as the port's."""
+    """The JAX package's ``OptState`` (numpy leaves) as the port's: AdamW's
+    ``mu`` and ``nu`` trees shaped like the parameters, split per layer;
+    Adafactor's (``mu`` None) ``nu`` with its ``(row, col)`` pairs, stacked
+    as in the JAX package."""
     device = resolve_device(device)
     step, mu, nu = state
-    return OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
-                    mu=_flat_from_tree(cfg, mu, device), nu=_flat_from_tree(cfg, nu, device))
+    step = torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device)
+    if mu is None:
+        for name, a in _leaves(nu):
+            n = np.shape(a[0] if isinstance(a, tuple) else a)[0]
+            if name.startswith("layers.") and n != cfg.n_layers:
+                raise ValueError(f"{name}: {n} stacked layers, config has {cfg.n_layers}")
+        return OptState(step=step, mu=None, nu=_nu_from_tree(nu, device))
+    return OptState(step=step, mu=_flat_from_tree(cfg, mu, device),
+                    nu=_flat_from_tree(cfg, nu, device))
 
 
 def opt_state_to_numpy(state: OptState) -> OptState:
-    """The port's AdamW ``OptState`` with the JAX package's leaves: an int32
-    numpy step and numpy trees with stacked layers (``repro.optim.OptState(
-    *opt_state_to_numpy(s))`` rebuilds the JAX container)."""
-    if not isinstance(next(iter(state.nu.values())), torch.Tensor) or state.mu is None:
-        raise NotImplementedError("opt_state_to_numpy carries AdamW state only "
-                                  "(ROADMAP §1 item 12)")
-    return OptState(step=np.asarray(int(state.step), dtype=np.int32),
-                    mu=_tree_from_flat(state.mu), nu=_tree_from_flat(state.nu))
+    """The port's ``OptState`` with the JAX package's leaves: an int32 numpy
+    step and numpy trees with stacked layers, Adafactor's factor pairs as
+    tuples (``repro.optim.OptState(*opt_state_to_numpy(s))`` rebuilds the
+    JAX container)."""
+    step = np.asarray(int(state.step), dtype=np.int32)
+    if state.mu is None:
+        return OptState(step=step, mu=None, nu=_nu_to_tree(state.nu))
+    return OptState(step=step, mu=_tree_from_flat(state.mu), nu=_tree_from_flat(state.nu))

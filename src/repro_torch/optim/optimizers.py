@@ -8,10 +8,12 @@ returns the parameter deltas and the new ``OptState``.  Differences:
   holds the same tensors), where the JAX package returns new trees; the
   arithmetic is the same, operation for operation, so the values are too.
 * The JAX package stacks the L decoder layers into one leaf; here each
-  layer's tensor is its own entry.  AdamW is elementwise, so that changes
-  nothing; Adafactor factors and clips each entry alone, so on a stacked
-  model its per-layer statistics differ from the JAX package's (no config
-  of the ported families uses it; ROADMAP §1 item 12).
+  layer's tensor is its own entry (``layers.<i>.<rest>``).  AdamW is
+  elementwise, so that changes nothing.  Adafactor is not: it groups the
+  entries of every ``<rest>`` and runs on their ``(L, ...)`` stack in layer
+  order, so its factors (keyed ``layers.<rest>``), its row mean and its RMS
+  clip are the JAX leaf's, and a ``(L, d)`` stack is factored; the deltas
+  come back per layer.
 * ``state_specs`` (shardings) has no counterpart on one card.
 
 Scalars that JAX computes in f32 (``b1 ** step``, the learning rate, the
@@ -111,14 +113,57 @@ def _factored(shape) -> bool:
     return len(shape) >= 2
 
 
-def adafactor_init(params: Tree) -> OptState:
-    def nu_init(p):
-        if _factored(p.shape):
-            return (torch.zeros(p.shape[:-1], dtype=F32, device=p.device),
-                    torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=F32, device=p.device))
-        return torch.zeros(p.shape, dtype=F32, device=p.device)
+def _stacks(tree: Tree) -> Tuple[Dict[str, torch.Tensor], Dict[str, list]]:
+    """``(plain, groups)``: the entries without the ``layers.`` prefix, and
+    the layer entries grouped by ``layers.<rest>``, each group a list of
+    ``(i, name)`` in layer order."""
+    plain, groups = {}, {}
+    for k, t in tree.items():
+        if k.startswith("layers."):
+            _, i, rest = k.split(".", 2)
+            groups.setdefault(f"layers.{rest}", []).append((int(i), k))
+        else:
+            plain[k] = t
+    for key, items in groups.items():
+        items.sort()
+        if [i for i, _ in items] != list(range(len(items))):
+            raise ValueError(f"{key}: layers {[i for i, _ in items]} are not 0..L-1")
+    return plain, groups
 
-    return OptState(step=_step0(params), mu=None, nu={k: nu_init(p) for k, p in params.items()})
+
+def _nu_zeros(shape, device):
+    if _factored(shape):
+        return (torch.zeros(shape[:-1], dtype=F32, device=device),
+                torch.zeros(shape[:-2] + shape[-1:], dtype=F32, device=device))
+    return torch.zeros(shape, dtype=F32, device=device)
+
+
+def adafactor_init(params: Tree) -> OptState:
+    plain, groups = _stacks(params)
+    nu = {k: _nu_zeros(tuple(p.shape), p.device) for k, p in plain.items()}
+    for key, items in groups.items():
+        p = params[items[0][1]]
+        nu[key] = _nu_zeros((len(items),) + tuple(p.shape), p.device)
+    return OptState(step=_step0(params), mu=None, nu=nu)
+
+
+def _adafactor_leaf(g, nu, beta, eps, clip_threshold):
+    """The JAX package's ``upd`` on one leaf (f32 ``g``): the new second
+    moment and the clipped update."""
+    g2 = torch.square(g) + eps
+    if _factored(g.shape):
+        row, col = nu
+        row = beta * row + (1 - beta) * torch.mean(g2, dim=-1)
+        col = beta * col + (1 - beta) * torch.mean(g2, dim=-2)
+        row_mean = torch.mean(row, dim=-1, keepdim=True)
+        vhat = (row / row_mean)[..., None] * col[..., None, :]
+        new_nu = (row, col)
+    else:
+        vhat = beta * nu + (1 - beta) * g2
+        new_nu = vhat
+    update = g * torch.rsqrt(vhat + eps)
+    rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-12)
+    return new_nu, update / torch.clamp(rms / clip_threshold, min=1.0)
 
 
 @torch.no_grad()
@@ -127,27 +172,21 @@ def adafactor_update(grads: Tree, state: OptState, params: Tree, lr: torch.Tenso
                      weight_decay: float = 0.0) -> Tuple[Tree, OptState]:
     step = state.step + 1
     beta = 1.0 - (step.to(F32) + 1.0) ** (-decay)
+    plain, groups = _stacks(grads)
     delta, new_nu = {}, {}
-    for k, g in grads.items():
-        g = g.to(F32)
-        p, nu = params[k], state.nu[k]
-        g2 = torch.square(g) + eps
-        if _factored(g.shape):
-            row, col = nu
-            row = beta * row + (1 - beta) * torch.mean(g2, dim=-1)
-            col = beta * col + (1 - beta) * torch.mean(g2, dim=-2)
-            row_mean = torch.mean(row, dim=-1, keepdim=True)
-            vhat = (row / row_mean)[..., None] * col[..., None, :]
-            new_nu[k] = (row, col)
-        else:
-            vhat = beta * nu + (1 - beta) * g2
-            new_nu[k] = vhat
-        update = g * torch.rsqrt(vhat + eps)
-        rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-12)
-        update = update / torch.clamp(rms / clip_threshold, min=1.0)
+    for k, g in plain.items():
+        new_nu[k], update = _adafactor_leaf(g.to(F32), state.nu[k], beta, eps, clip_threshold)
         if weight_decay:
-            update = update + weight_decay * p.to(F32)
-        delta[k] = (-lr * update).to(p.dtype)
+            update = update + weight_decay * params[k].to(F32)
+        delta[k] = (-lr * update).to(params[k].dtype)
+    for key, items in groups.items():
+        g = torch.stack([grads[name].to(F32) for _, name in items])
+        new_nu[key], update = _adafactor_leaf(g, state.nu[key], beta, eps, clip_threshold)
+        del g
+        for i, name in items:
+            p = params[name]
+            u = update[i] + weight_decay * p.to(F32) if weight_decay else update[i]
+            delta[name] = (-lr * u).to(p.dtype)
     return delta, OptState(step=step, mu=None, nu=new_nu)
 
 

@@ -125,8 +125,17 @@ def _close(got, want, tol):
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("shape", [(2, 256, 12, 2, 128), (1, 192, 8, 1, 256), (2, 100, 4, 2, 64),
-                                   (1, 33, 4, 4, 32)], ids=str)
+#: the bf16 route (tensor cores) launches these, the f32 route its own
+FWD_KEY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention"}
+DKV_KEYS = {torch.float32: ("flash_attention_dkv_f32",),
+            torch.bfloat16: ("flash_attention_dkv", "flash_attention_dkv_reduce")}
+#: several key tiles of every width, ragged tails against the 128-row tiles
+#: (S=1,000; S=640 with hd 256's 64-key tiles), MQA at hd 256
+SHAPES = [(2, 256, 12, 2, 128), (1, 192, 8, 1, 256), (2, 100, 4, 2, 64), (1, 33, 4, 4, 32),
+          (1, 1000, 4, 2, 128), (2, 640, 8, 1, 256), (1, 300, 6, 3, 32), (1, 520, 4, 1, 64)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_attention_matches_plain(cuda_device, shape, dtype, causal):
@@ -137,7 +146,7 @@ def test_flash_attention_matches_plain(cuda_device, shape, dtype, causal):
     kernels.reset_launch_counts()
     o, lse = kernels.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["flash_attention"] == 1
+    assert kernels.launch_counts()[FWD_KEY[dtype]] == 1
     po, plse = kernels.flash_attention_plain(q, k, v, causal=causal)
     assert o.dtype == dtype and o.shape == q.shape and lse.shape == (b * h, s)
     _close(o, po, FLASH_TOL[dtype])
@@ -157,8 +166,8 @@ def test_flash_attention_refuses_grad(cuda_device):
     torch.autograd.grad(o.sum(), (q, k))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert (counts["flash_attention"], counts["flash_attention_dq"],
-            counts["flash_attention_dkv"]) == (1, 1, 1)
+    assert (counts["flash_attention_f32"], counts["flash_attention_dq"],
+            counts["flash_attention_dkv_f32"]) == (1, 1, 1)
 
 
 #: the backward: f32 gradients differ by summation order (1e-4 over sums of
@@ -172,8 +181,7 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
-@pytest.mark.parametrize("shape", [(2, 256, 12, 2, 128), (1, 192, 8, 1, 256), (2, 100, 4, 2, 64),
-                                   (1, 33, 4, 4, 32)], ids=str)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_backward_matches_plain(cuda_device, shape, dtype, causal):
@@ -186,7 +194,8 @@ def test_flash_backward_matches_plain(cuda_device, shape, dtype, causal):
     got = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert (counts["flash_attention_dq"], counts["flash_attention_dkv"]) == (1, 1)
+    assert [counts[key] for key in ("flash_attention_dq",) + DKV_KEYS[dtype]] == \
+        [1] * (1 + len(DKV_KEYS[dtype]))
     want = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     for name, a, w in zip("qkv", got, want):
         assert a.dtype == dtype and a.shape == w.shape, name
@@ -194,6 +203,23 @@ def test_flash_backward_matches_plain(cuda_device, shape, dtype, causal):
         a64, w64 = a.double(), w.double()
         rel = float(torch.linalg.vector_norm(a64 - w64) / torch.linalg.vector_norm(w64))
         assert rel <= BWD_REL[dtype], (name, rel)
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 12, 2, 128), (1, 640, 8, 1, 256)], ids=str)
+def test_flash_bf16_kernels_are_deterministic(cuda_device, shape):
+    """Two calls on the same inputs give the same bits: o, lse, dq, dk, dv
+    (no atomics; dk/dv sums its grouped heads in head order)."""
+    b, s, h, g, hd = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(s)
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+                   for n in (h, g, g, h))
+    runs = []
+    for _ in range(2):
+        o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
+        runs.append((o, lse) + kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True))
+    for name, a, b_ in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a.view(torch.uint8) if a.dtype == torch.bfloat16 else a,
+                           b_.view(torch.uint8) if b_.dtype == torch.bfloat16 else b_), name
 
 
 @pytest.mark.parametrize("rows,d", [(4096, 1536), (8, 1536), (100, 384), (3, 2048)])

@@ -107,3 +107,20 @@ def test_lse_carries_no_gradient_and_cpu_launches_no_kernel():
     counts = kernels.launch_counts()
     assert counts["flash_attention"] == counts["flash_attention_dq"] \
         == counts["flash_attention_dkv"] == 0
+
+
+def test_dkv_reduce_plain_sums_each_group_in_head_order():
+    """The bf16 route's reduction: f32 partials per q head, summed over the
+    rep heads of each group in head order (bit for bit the left-to-right
+    sum), cast to bf16."""
+    from repro_torch.kernels import flash_attention_dkv_reduce
+
+    rng = np.random.default_rng(9)
+    parts = [torch.from_numpy(rng.standard_normal((2 * 3, 40, 32)).astype(np.float32))
+             for _ in range(2)]
+    got = flash_attention_dkv_reduce(*parts, 2)
+    for part, out in zip(parts, got):
+        heads = part.reshape(2, 3, 40, 32)
+        want = ((heads[:, 0] + heads[:, 1]) + heads[:, 2]).to(torch.bfloat16)
+        assert out.dtype == torch.bfloat16 and out.shape == (2, 40, 32)
+        assert torch.equal(out, want)

@@ -92,3 +92,34 @@ def test_cosine_schedule_matches_jax():
 def test_unknown_optimizer_raises():
     with pytest.raises(ValueError):
         topt.make_optimizer("sgd")
+
+
+def test_adafactor_stacked_layers_match_jax():
+    """Layer entries ``layers.<i>.<rest>`` are the JAX package's stacked
+    ``(L, ...)`` leaves: factored on the stack (a ``(L, d)`` norm stack to
+    ``(L,)`` and ``(d,)``), the update's RMS clip taken over the whole
+    stack.  Each layer's gradients have their own scale, so a clip over one
+    layer alone moves the deltas by far more than f32 rounding."""
+    rng = np.random.default_rng(7)
+    n_layers, shapes = 3, {"attn": (4, 6), "norm": (6,)}
+    stack = lambda scale: {r: np.stack([(scale * (i + 1) ** 2 * rng.standard_normal(s)).astype(np.float32)
+                                        for i in range(n_layers)]) for r, s in shapes.items()}
+    flat = lambda tree: {f"layers.{i}.{r}": torch.from_numpy(np.array(a[i]))
+                         for r, a in tree.items() for i in range(n_layers)}
+    params = stack(1.0)
+    jo, to = jopt.make_optimizer("adafactor", weight_decay=0.01), topt.make_optimizer(
+        "adafactor", weight_decay=0.01)
+    jp, tp = {"layers": _j(params)}, flat(params)
+    js, ts = jo.init(jp), to.init(tp)
+    for step in range(3):
+        grads = stack(10.0 ** (step - 1))
+        lr = np.float32(1e-3 * (step + 1))
+        jd, js = jo.update({"layers": _j(grads)}, js, jp, jnp.asarray(lr))
+        td, ts = to.update(flat(grads), ts, tp, torch.tensor(lr))
+        want = {f"layers.{i}.{r}": np.asarray(a)[i] for r, a in jd["layers"].items()
+                for i in range(n_layers)}
+        _close(td, want, f"delta, step {step}")
+        _close(ts.nu, {f"layers.{r}": v for r, v in js.nu["layers"].items()}, f"nu, step {step}")
+        assert [t.shape for t in ts.nu["layers.norm"]] == [(n_layers,), (6,)]
+        jp = jopt.apply_updates(jp, jd)
+        tp = topt.apply_updates(tp, td)

@@ -180,6 +180,86 @@ def test_train_step_matches_jax_over_three_steps():
     _leaves_close(back.mu, jax.tree.map(np.asarray, js.mu), "mu", atol=1e-4, rtol=1e-3)
 
 
+def test_adafactor_train_step_matches_jax_over_three_steps():
+    """Adafactor on reduced qwen2-1.5b: the JAX package factors each stacked
+    (L, ...) leaf (a (L, d) norm stack too) and clips over the whole leaf.
+    Every step, the port's parameter moves and (row, col) factors must be
+    the JAX package's to f32 rounding of a gradient that agrees to summation
+    order.  Adafactor's update is g / sqrt(vhat), clipped to RMS 1: a
+    gradient's relative error passes into it at its own size, so each move
+    is held at rtol 1e-5 with atol 5e-3 x lr, and in norm to 1e-3 of the
+    leaf's move.  The loosest leaf is the key bias, whose gradient is 0 in
+    exact arithmetic (the softmax ignores a shift shared by every key):
+    its move is normalized rounding noise and reads 1.4e-3 x lr, 1.9e-4 in
+    norm; every other leaf reads 6e-5 x lr.  A clip over each layer alone
+    moves a stack by the spread of the per-layer RMS, a few percent.  The
+    factors are held at rtol 1e-5 with atol 1e-5 of the leaf's largest
+    value (they read 2.4e-6)."""
+    settings = dict(STEP_KW, weight_decay=0.01)
+    jcfg, tcfg, jp, tp = _pair("qwen2-1.5b", optimizer="adafactor")
+    data = JData(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=16, global_batch=4, seed=3))
+    jstep = jax.jit(jmake_step(jcfg, JSettings(**settings)))
+    tstep = make_train_step(tcfg, TrainSettings(**settings))
+    js = jopt.adafactor_init(jp)
+    ts = opt_state_from_numpy(tcfg, jax.tree.map(np.asarray, js), device="cpu")
+    moved = 0.0
+    for i in range(3):
+        batch = data.batch_at(i)
+        jbefore, tbefore = jax.tree.map(np.array, jp), jax.tree.map(np.array, params_to_numpy(tp))
+        jp, js, jmet = jstep(jp, js, {k: jnp.asarray(v) for k, v in batch.items()})
+        tp, ts, tmet = tstep(tp, ts, batch)
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(tmet[key]), float(jmet[key]), **TOL, err_msg=key)
+        lr = float(jmet["lr"])
+        moved += lr
+        jd = jax.tree.map(lambda a, b: np.asarray(a) - b, jp, jbefore)
+        td = jax.tree.map(lambda a, b: np.asarray(a) - b, params_to_numpy(tp), tbefore)
+        _leaves_close(td, jd, f"step {i} move", atol=5e-3 * lr, rtol=1e-5)
+        for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(td), jax.tree.leaves(jd)):
+            assert np.linalg.norm(g - w) <= 1e-3 * np.linalg.norm(w), (i, jax.tree_util.keystr(path))
+        back = opt_state_to_numpy(ts)
+        for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(back.nu),
+                                jax.tree.leaves(jax.tree.map(np.asarray, js.nu))):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * float(np.abs(w).max()),
+                                       err_msg=f"step {i} nu {jax.tree_util.keystr(path)}")
+    assert moved > 0
+    _leaves_close(params_to_numpy(tp), jax.tree.map(np.asarray, jp), "params",
+                  atol=5e-3 * moved, rtol=1e-5)
+    assert int(back.step) == int(js.step) == 3 and back.mu is None
+    row, col = back.nu["layers"]["attn_norm"]
+    assert row.shape == (jcfg.n_layers,) and col.shape == (jcfg.d_model,)
+
+
+def test_adafactor_opt_state_round_trip_is_exact():
+    jcfg, tcfg, jp, _ = _pair("gemma-2b")
+    rng = np.random.default_rng(6)
+    init = jax.tree.map(np.asarray, jopt.adafactor_init(jp))
+    st = jopt.OptState(step=np.asarray(4, np.int32), mu=None,
+                       nu=jax.tree.map(lambda a: rng.random(a.shape).astype(np.float32), init.nu))
+    port = opt_state_from_numpy(tcfg, st, device="cpu")
+    assert sorted(port.nu) == sorted(_port_init_nu(tcfg, port))
+    back = opt_state_to_numpy(port)
+    assert int(back.step) == 4 and back.step.dtype == np.int32 and back.mu is None
+    assert jax.tree.structure(back.nu) == jax.tree.structure(st.nu)
+    for a, b in zip(jax.tree.leaves(st.nu), jax.tree.leaves(back.nu)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def _port_init_nu(tcfg, port_state):
+    """The port's own Adafactor init on the same model: its keys and shapes
+    must be the ones the JAX state converts to."""
+    from repro_torch.optim import adafactor_init
+
+    model = tm.Model(tcfg, device="cpu")
+    nu = adafactor_init(dict(model.named_parameters())).nu
+    for key, t in nu.items():
+        got = port_state.nu[key]
+        shapes = [x.shape for x in t] if isinstance(t, tuple) else t.shape
+        assert ([x.shape for x in got] if isinstance(got, tuple) else got.shape) == shapes, key
+    return nu
+
+
 @pytest.mark.parametrize("variant", ["microbatches", "int8"])
 def test_train_step_variants_match_jax(variant):
     """Two microbatches with a bf16 accumulator, or int8 gradient
