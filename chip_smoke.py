@@ -10,7 +10,8 @@ exits non-zero:
 2. build     — compile every CUDA source of the port (one nvcc each, all
                started together): seconds per source, and the count of
                HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS
-               of each tensor-core kernel, which must not be 0;
+               of each tensor-core kernel, which must not be 0, and ptxas's
+               registers and spill bytes of each;
 3. kernels   — the decision path's kernels at the paper's saturated geometry
                (65,536 hosts, K=8, D=3, M=64; plus the enumeration at K=12),
                each against its plain PyTorch version on the same inputs:
@@ -41,13 +42,15 @@ exits non-zero:
                step, decode tokens/s, peak memory, launch counts, and the
                device's busy share over a traced decode window;
 9. train_kernels — the flash-attention backward kernels (dq, dk/dv and its
-               reduction over grouped heads) against
+               reduction over grouped heads; bf16 on the tensor cores, f32
+               on the CUDA cores) against
                ``flash_attention_bwd_plain`` on the same inputs at
                qwen2-1.5b's training shape (B=2, S=4,096, bf16), gemma-2b's
                (hd=256, MQA), a ragged (S=1,000), a full and an f32 case,
                each gap against a stated tolerance, two calls giving the
                same bits, the reduction exactly equal to its plain version;
-               kernel / plain / bound / library times, the forward's too;
+               kernel / plain / bound / library times, the forward's too,
+               and the f32 routes' (dq at phase 10's shape);
 10. train_parity — reduced qwen2-1.5b in f32, flash attention, full remat,
                the same weights on the card and on the CPU: three
                ``make_train_step`` steps agree; then a ``Trainer`` run of 8
@@ -241,8 +244,8 @@ def max_gap(a, b) -> float:
 #: largest |kernel - plain| measured per kernel (phases 3 and 6)
 GAPS = {"sched_screen_consts": 0.0, "sched_screen_topm": 0.0, "sched_screen": 0.0,
         "sched_weigh": 0.0, "flash_attention": 0.0, "flash_attention_f32": 0.0, "rmsnorm": 0.0,
-        "flash_attention_dq": 0.0, "flash_attention_dkv": 0.0, "flash_attention_dkv_reduce": 0.0,
-        "flash_attention_dkv_f32": 0.0}
+        "flash_attention_dq": 0.0, "flash_attention_dq_f32": 0.0, "flash_attention_dkv": 0.0,
+        "flash_attention_dkv_reduce": 0.0, "flash_attention_dkv_f32": 0.0}
 
 
 def same(a, b, what: str, kernel: str) -> None:
@@ -295,14 +298,25 @@ for src in ("flash_attention", "flash_attention_bwd"):
         fn_name = chunk.split(None, 1)[0]
         if "wgmma_kernel" in fn_name:
             sass_counts[fn_name] = dict(HGMMA=chunk.count("HGMMA"), UTMALDG=chunk.count("UTMALDG"))
-for kernel_name in ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+for kernel_name in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
     found = {f: c for f, c in sass_counts.items() if kernel_name in f}
     check(len(found) == len(HEAD_DIMS), f"build: {len(found)} instantiations of {kernel_name}")
     for f, c in found.items():
         check(c["HGMMA"] > 0 and c["UTMALDG"] > 0, f"build: {f} has {c} in its SASS")
+# ptxas's registers and spills of each tensor-core kernel instantiation
+# (a library already built by an earlier run of this checkout has no report)
+ptxas = {}
+for src in ("flash_attention", "flash_attention_bwd"):
+    if src not in _build.BUILD_LOG:
+        ptxas[src] = "library cached from an earlier build: no report"
+        continue
+    found = {f: c for f, c in _build.ptxas_report(src).items() if "wgmma_kernel" in f}
+    check(len(found) == (1 if src == "flash_attention" else 2) * len(HEAD_DIMS),
+          f"build: ptxas reported {len(found)} tensor-core kernels of {src}.cu")
+    ptxas.update(found)
 emit("build", seconds=build_s, seconds_by_source=dict(_build.BUILD_SECONDS),
      libraries=sorted(os.path.basename(p) for p in paths.values()),
-     sass_hgmma_utmaldg=sass_counts)
+     sass_hgmma_utmaldg=sass_counts, ptxas_registers_spills=ptxas)
 
 # ---------------------------------------------------------------------------
 # 3. kernels against their plain versions at the main path's shapes
@@ -899,8 +913,9 @@ bwd_cases = [  # name, B, S, H, G, hd, dtype, causal
     ("full", 2, 512, 12, 2, 128, BF16, False),
     ("f32 S=77", 2, 77, 4, 2, 64, F32, True),
 ]
-#: the dk/dv kernels each type routes to: bf16 the tensor cores and the
-#: reduction over grouped heads, f32 the CUDA cores
+#: the dq and dk/dv kernels each type routes to: bf16 the tensor cores (and
+#: the reduction over grouped heads), f32 the CUDA cores
+DQ_ROUTE = {BF16: "flash_attention_dq", F32: "flash_attention_dq_f32"}
 DKV_ROUTE = {BF16: ("flash_attention_dkv", "flash_attention_dkv_reduce"), F32: ("flash_attention_dkv_f32",)}
 bwd_rows = {}
 for name, b_, s_, h_, g_, hd_, dt, causal in bwd_cases:
@@ -910,8 +925,9 @@ for name, b_, s_, h_, g_, hd_, dt, causal in bwd_cases:
     kernels.reset_launch_counts()
     got = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     counts = kernels.launch_counts()
-    check(all(counts[key] == 1 for key in ("flash_attention_dq",) + DKV_ROUTE[dt]),
-          f"backward {name}: not the route {DKV_ROUTE[dt]}")
+    route = (DQ_ROUTE[dt],) + DKV_ROUTE[dt]
+    check(all(counts[key] == 1 for key in route) and counts[DQ_ROUTE[F32 if dt == BF16 else BF16]] == 0,
+          f"backward {name}: not the route {route}")
     want = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     row = {}
     if dt == BF16:                   # no atomics: a second call gives the same bits
@@ -920,7 +936,7 @@ for name, b_, s_, h_, g_, hd_, dt, causal in bwd_cases:
               f"backward {name}: two calls differ")
         row["two_calls_bitwise_equal"] = True
         del again
-    for grad, kname, g_k, g_p in zip(("dq", "dk", "dv"), ("flash_attention_dq",) + (DKV_ROUTE[dt][0],) * 2,
+    for grad, kname, g_k, g_p in zip(("dq", "dk", "dv"), (DQ_ROUTE[dt],) + (DKV_ROUTE[dt][0],) * 2,
                                      got, want):
         check(g_k.dtype == dt and g_k.shape == g_p.shape, f"backward {name} {grad}: type or shape")
         gap = within(g_k, g_p, BWD_TOL[dt], f"backward {name} {grad}", kname)
@@ -955,7 +971,7 @@ red_ms = kernel_ms(lambda: kernels.flash_attention_dkv_reduce(*parts, B_T * 2),
                    {"reduce": ("dkv_reduce", "flash_attention_dkv_reduce_launch")})["reduce"]
 red_pms = device_ms(lambda: kernels.flash_attention_dkv_reduce_plain(*parts, B_T * 2), reps=10)
 del parts, red, red_p
-BWD_NAMES = {"dq": ("flash_bwd_dq", "flash_attention_dq_launch"),
+BWD_NAMES = {"dq": ("flash_bwd_dq_wgmma", "flash_attention_dq_bf16_launch"),
              "dkv": ("dkv_wgmma", "flash_attention_dkv_bf16_launch")}
 bwd_ms = kernel_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True), BWD_NAMES)
 bwd_plain_ms = device_ms(lambda: kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
@@ -1000,12 +1016,13 @@ emit("train_kernel_times", card=smi, shape="B=2, S=4,096, H=12, G=2, hd=128, bf1
      forward_bound_ms=4 * 128 * pairs_t / BF16_FLOPS * 1e3)
 del q, k, v, do, o, lse, qt, kt, vt, sdpa_o, dot
 
-# the f32 dk/dv route (CUDA cores) at 1 x 2,048, bound by the f32 rate
+# the f32 routes of dq and dk/dv (CUDA cores) at 1 x 2,048, bound by the f32 rate
 S_F = 2048
 q, k, v, do = (torch.randn((1, S_F, n_, 128), generator=gen, device=DEV) for n_ in (12, 2, 2, 12))
 o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
-f32_ms = kernel_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-                   {"dkv": ("flash_bwd_dkv_kernel", "flash_attention_dkv_f32_launch")})
+F32_BWD_NAMES = {"dq": ("flash_bwd_dq_kernel", "flash_attention_dq_f32_launch"),
+                 "dkv": ("flash_bwd_dkv_kernel", "flash_attention_dkv_f32_launch")}
+f32_ms = kernel_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True), F32_BWD_NAMES)
 qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
 sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 dot = do.transpose(1, 2)
@@ -1016,6 +1033,35 @@ record("flash_attention_dkv_f32", "src/repro_torch/kernels/csrc/flash_attention_
        4 * S_F * 128 * (2 * 12 + 2 * 2 + 2 * 2) + 2 * 4 * 12 * S_F, 8 * 128 * pairs_f,
        library_ms=device_ms(lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), dot, retain_graph=True),
                             reps=5))
+del q, k, v, do, o, lse, qt, kt, vt, sdpa_o, dot
+# the f32 dq at the shape of phase 10, the path that runs it: one step of
+# reduced qwen2-1.5b (4 x 128 tokens, H=4, G=2, hd=32)
+B_P, S_P, H_P, G_P, HD_P = 4, 128, rcfg.n_heads, rcfg.n_kv_heads, rcfg.head_dim
+q, k, v, do = (torch.randn((B_P, S_P, n_, HD_P), generator=gen, device=DEV) for n_ in (H_P, G_P, G_P, H_P))
+o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
+qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+dot = do.transpose(1, 2)
+record("flash_attention_dq_f32", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+       "src/repro/kernels/flash_attention.py:152",
+       kernel_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+                 {"dq": F32_BWD_NAMES["dq"]})["dq"],
+       device_ms(lambda: kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True), reps=10),
+       4 * B_P * S_P * HD_P * (3 * H_P + 2 * G_P) + 2 * 4 * B_P * H_P * S_P,
+       6 * HD_P * B_P * H_P * S_P * (S_P + 1) // 2,
+       library_ms=device_ms(lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), dot, retain_graph=True),
+                            reps=10))
+emit("train_kernel_times_f32", card=smi,
+     method="device time per call (trace), median of 10 calls (5 for the dk/dv row's plain "
+            "and library); plain_ms and library_ms compute dq, dk and dv together",
+     flash_attention_dq_f32=dict(shape=f"B={B_P}, S={S_P}, H={H_P}, G={G_P}, hd={HD_P}, f32, causal",
+                                 **{key: records["flash_attention_dq_f32"][key]
+                                    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+     flash_attention_dkv_f32=dict(shape=f"B=1, S={S_F}, H=12, G=2, hd=128, f32, causal",
+                                  **{key: records["flash_attention_dkv_f32"][key]
+                                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+     flash_attention_dq_f32_ms_at_1x2048=f32_ms["dq"],
+     flash_attention_dq_f32_bound_ms_at_1x2048=6 * 128 * pairs_f / FP32_FLOPS * 1e3)
 del q, k, v, do, o, lse, qt, kt, vt, sdpa_o, dot
 torch.cuda.empty_cache()
 
@@ -1126,9 +1172,11 @@ res_t.init_or_restore()
 check(res_t.step == 4, f"train parity: resumed at step {res_t.step}")
 res_t.run(until_step=8)
 counts = kernels.launch_counts()          # the f32 flash routes of this path
-for name in ("flash_attention_f32", "flash_attention_dkv_f32"):
+for name in ("flash_attention_f32", "flash_attention_dq_f32", "flash_attention_dkv_f32"):
     records[name]["launches"] = counts[name]
     check(counts[name] > 0, f"train parity: kernel {name} was never launched")
+for name in ("flash_attention", "flash_attention_dq", "flash_attention_dkv"):
+    check(counts[name] == 0, f"train parity: f32 launched the bf16 kernel {name} {counts[name]} times")
 want_st, got_st = state_tensors(ref_t.params, ref_t.opt_state), state_tensors(res_t.params, res_t.opt_state)
 check(sorted(want_st) == sorted(got_st), "train parity: state names differ")
 unequal = [key for key in want_st if not torch.equal(want_st[key], got_st[key])]
@@ -1136,7 +1184,7 @@ check(not unequal, f"train parity: resumed state differs from the uninterrupted 
 emit("train_parity", config="qwen2-1.5b reduced (4 layers, d=128, f32), flash, remat full",
      resume=dict(uninterrupted_steps=8, preempted_after=4, tensors=len(want_st),
                  bitwise_equal=True, final_loss=ref_t.history[-1]["loss"]),
-     launches={name: counts[name] for name in ("flash_attention_f32", "flash_attention_dq",
+     launches={name: counts[name] for name in ("flash_attention_f32", "flash_attention_dq_f32",
                                                "flash_attention_dkv_f32")})
 del ref_t, pre_t, res_t, want_st, got_st
 shutil.rmtree(ptmp, ignore_errors=True)
@@ -1290,6 +1338,8 @@ want_counts = dict(flash_attention=STEPS * N_MB * 2 * L_, flash_attention_dq=STE
 for name, n_ in want_counts.items():
     records[name]["launches"] = counts[name]
     check(counts[name] == n_, f"train: {counts[name]} launches of {name}, the path implies {n_}")
+for name in ("flash_attention_f32", "flash_attention_dq_f32", "flash_attention_dkv_f32"):
+    check(counts[name] == 0, f"train: bf16 launched the f32 kernel {name} {counts[name]} times")
 #: the stated bounds, relative, each a few times what an H100 reads (the run
 #: is deterministic: seeded weights and batch, deterministic kernels).  f32
 #: compute, summation order only: loss 1e-5 (read equal), gradient norm

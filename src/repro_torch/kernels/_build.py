@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,9 +24,10 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 #: Hopper only: ``sm_90a`` keeps wgmma/setmaxnreg available to later kernels.
+#: ``-Xptxas -v`` reports each kernel's registers and spills (``ptxas_report``).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: flags of one source on top of ``NVCC_FLAGS``.  The scheduler kernels must
 #: equal their plain versions bit for bit: ``--fmad=false`` stops nvcc
@@ -39,6 +41,8 @@ SOURCE_FLAGS = {
 
 #: seconds each source's ``nvcc`` took in the last ``build`` that compiled it
 BUILD_SECONDS: Dict[str, float] = {}
+#: and its output (ptxas's report of every kernel)
+BUILD_LOG: Dict[str, str] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
 
@@ -104,15 +108,37 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         outs = [pool.submit(drain, n, proc) for n, _, proc in procs]
         failed = []
         for (n, tmp, proc), out in zip(procs, outs):
-            text = out.result()
+            BUILD_LOG[n] = out.result().decode(errors="replace")
             if proc.returncode != 0:
                 os.unlink(tmp)
-                failed.append(f"{n}.cu:\n{text.decode(errors='replace')}")
+                failed.append(f"{n}.cu:\n{BUILD_LOG[n]}")
             else:
                 os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return paths
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers, stack frame and spill bytes of every kernel of
+    ``csrc/<name>.cu`` by its mangled name, read from ptxas's report in the
+    last ``build`` that compiled the source (empty if none did)."""
+    report: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in BUILD_LOG.get(name, "").splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            current = report.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current is not None:
+            current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    return report
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,7 +1,8 @@
 // Flash-attention backward (causal or full, grouped-query) for NVIDIA Hopper
 // (sm_90a).  Replaces the two Pallas TPU kernels of
 // src/repro/kernels/flash_attention.py::_flash_bwd:
-//   * _dq_kernel  -> flash_bwd_dq_kernel  (dq = sum over KV tiles of ds.k)
+//   * _dq_kernel  -> flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel
+//                    (f32): dq = sum over KV tiles of ds.k
 //   * _dkv_kernel -> flash_bwd_dkv_wgmma_kernel + flash_bwd_dkv_reduce_kernel
 //                    (bf16), flash_bwd_dkv_kernel (f32): dv = sum p^T.do,
 //                    dk = sum ds^T.q over the rep grouped heads and every q
@@ -25,7 +26,35 @@
 //
 // Bound on this card: operations.  dq does 3 products of 2*hd flops per
 // kept (query, key) pair (s, dp, ds.k), dk/dv 4 (s, dp, p^T.do, ds^T.q), on
-// the bf16 tensor cores (989 TFLOP/s).
+// the bf16 tensor cores (989 TFLOP/s).  The bf16 kernels run every product
+// on wgmma and stream their tiles by TMA; the f32 kernels stay on the CUDA
+// cores, since f32 on wgmma would be TF32 and the f32 checks (the card
+// against the CPU, the bitwise resume) need full f32.
+//
+// dq, bf16 (flash_bwd_dq_wgmma_kernel): the forward kernel's shape with a
+// second score product and no online softmax.
+//   * One block per (128-query tile, q head): at qwen2's training shape 768
+//     blocks, the last (heaviest, when causal) query tiles issued first.
+//     Two consumer warpgroups own 64 query rows each, with their dQ in f32
+//     registers; a producer warpgroup, one thread of which loads (registers
+//     moved to the consumers by setmaxnreg).
+//   * The producer loads the block's Q and dO once and streams 64-key tiles
+//     of K and V through a ring of 2 stages (TMA, 128-byte swizzle; 64-byte
+//     at hd 32), stopping at the diagonal when causal.  Each consumer
+//     thread holds lse*log2 e and delta of its two fragment rows in
+//     registers.
+//   * A consumer computes S = Q.K^T and dP = dO.V^T (wgmma, A and B from
+//     shared memory, K-major), P = exp2(S*scale*log2 e - lse*log2 e) and
+//     dS = P * (dP - delta) * scale on the accumulator fragments (masking
+//     only diagonal or ragged tiles), then dQ += dS.K with dS rounded to
+//     bf16 as the register A operand, K read MN-major; dQ is cast to bf16
+//     once, at the end.  Tiles wholly above a warpgroup's rows are skipped.
+//   * Registers at hd <= 128: dQ (hd/2) + S and dP (32 each) + dS (16) f32
+//     or packed values a thread.  hd 256: dQ of 64 rows would be 128 values,
+//     so the block takes 64 query rows and its two warpgroups split the head
+//     dim: each computes S and dP for all 64 rows (the two score products
+//     repeated, paid only at hd 256) and accumulates its 128 columns of dQ.
+//   * Each block owns its rows of dq: no atomics, no partials.
 //
 // dk/dv, bf16 (flash_bwd_dkv_wgmma_kernel): all four products on wgmma, the
 // streamed tiles by TMA.
@@ -53,19 +82,17 @@
 //     128 with no shared-memory accumulator.
 //   * Each block writes f32 partials of its q head; the reduce kernel sums
 //     the rep heads of a group in head order and casts to k's type.
-// f32 (flash_bwd_dkv_kernel): on the CUDA cores (f32 on wgmma would be
-// TF32): one block per (32-key tile, KV head); eight warps own 4 keys each;
-// the block walks the rep grouped heads and, for each, the q tiles that can
-// see its keys, staging q, do, lse and delta; a lane scores one query row
-// against the warp's key.
 //
-// dq, both types (flash_bwd_dq_kernel, the CUDA-core kernel): one block per
-// (32-query tile, head).  Four warps own 8 query rows each, with the rows'
-// dq in f32 registers (hd/32 values a lane).  The block stages each tile of
-// 32 keys and values in shared memory (row stride hd+1: 32 lanes reading 32
-// keys hit 32 banks); a lane scores one key, and ds.k broadcasts each
-// lane's ds over the warp.  Causal tiles wholly above the block's last row
-// are never loaded.
+// f32 dk/dv (flash_bwd_dkv_kernel): one block per (32-key tile, KV head);
+// eight warps own 4 keys each; the block walks the rep grouped heads and,
+// for each, the q tiles that can see its keys, staging q, do, lse and
+// delta; a lane scores one query row against the warp's key.
+// f32 dq (flash_bwd_dq_kernel): one block per (32-query tile, head).  Four
+// warps own 8 query rows each, with the rows' dq in registers (hd/32
+// values a lane).  The block stages each tile of 32 keys and values in
+// shared memory (row stride hd+1: 32 lanes reading 32 keys hit 32 banks);
+// a lane scores one key, and ds.k broadcasts each lane's ds over the warp.
+// Causal tiles wholly above the block's last row are never loaded.
 //
 // C interface (loaded with ctypes); each entry returns cudaGetLastError().
 #include <cuda_bf16.h>
@@ -81,27 +108,18 @@ constexpr int kDqRows = kTile / kDqWarps;
 constexpr int kDkvWarps = 8;
 constexpr int kDkvKeys = kTile / kDkvWarps;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-    return __float2bfloat16_rn(v);
-}
-
-// dq: q, do [kTile][HD] (broadcast reads); k, v [kTile][HD + 1]
+// dq, f32: q, do [kTile][HD] (broadcast reads); k, v [kTile][HD + 1]
 template <int HD>
 constexpr size_t dq_smem_bytes() {
     return sizeof(float) * (2 * kTile * HD + 2 * kTile * (HD + 1));
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kDqWarps * 32)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int rep, int sq, int skv, int causal, float scale) {
+                    float* __restrict__ dq, int rep, int sq, int skv, int causal, float scale) {
     constexpr int C = HD / 32;
     extern __shared__ float smem[];
     float* qs = smem;                          // [kTile][HD]
@@ -118,8 +136,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = threadIdx.x; i < kTile * HD; i += blockDim.x) {
         const bool in = q0 + i / HD < sq;
         const size_t g = qoff + static_cast<size_t>(q0) * HD + i;
-        qs[i] = in ? to_f(q[g]) : 0.0f;
-        dos[i] = in ? to_f(dout[g]) : 0.0f;
+        qs[i] = in ? q[g] : 0.0f;
+        dos[i] = in ? dout[g] : 0.0f;
     }
     float row_lse[kDqRows], row_delta[kDqRows], acc[kDqRows][C];
 #pragma unroll
@@ -140,8 +158,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int j = i / HD, d = i - j * HD;
             const bool in = kv0 + j < skv;
             const size_t g = kvoff + static_cast<size_t>(kv0) * HD + i;
-            ks[j * (HD + 1) + d] = in ? to_f(k[g]) : 0.0f;
-            vs[j * (HD + 1) + d] = in ? to_f(v[g]) : 0.0f;
+            ks[j * (HD + 1) + d] = in ? k[g] : 0.0f;
+            vs[j * (HD + 1) + d] = in ? v[g] : 0.0f;
         }
         __syncthreads();
         const int key = kv0 + lane;
@@ -175,9 +193,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kDqRows; ++i) {
         const int row = q0 + warp * kDqRows + i;
         if (row >= sq) continue;
-        T* out = dq + qoff + static_cast<size_t>(row) * HD;
+        float* out = dq + qoff + static_cast<size_t>(row) * HD;
 #pragma unroll
-        for (int c = 0; c < C; ++c) out[lane + 32 * c] = from_f<T>(acc[i][c]);
+        for (int c = 0; c < C; ++c) out[lane + 32 * c] = acc[i][c];
     }
 }
 
@@ -298,18 +316,18 @@ struct Args {
     cudaStream_t stream;
 };
 
-template <typename T, int HD>
+template <int HD>
 int launch_dq(const Args& a, void* dq, int bh) {
     constexpr size_t bytes = dq_smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((a.sq + kTile - 1) / kTile, bh);
-    flash_bwd_dq_kernel<T, HD><<<grid, kDqWarps * 32, bytes, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), a.rep, a.sq,
-        a.skv, a.causal, a.scale);
+    flash_bwd_dq_kernel<HD><<<grid, kDqWarps * 32, bytes, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+        static_cast<float*>(dq), a.rep, a.sq, a.skv, a.causal, a.scale);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -329,13 +347,12 @@ int launch_dkv(const Args& a, void* dk, void* dv, int bg) {
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_dq(const Args& a, void* dq, int bh, int hd) {
     switch (hd) {
-        case 32: return launch_dq<T, 32>(a, dq, bh);
-        case 64: return launch_dq<T, 64>(a, dq, bh);
-        case 128: return launch_dq<T, 128>(a, dq, bh);
-        case 256: return launch_dq<T, 256>(a, dq, bh);
+        case 32: return launch_dq<32>(a, dq, bh);
+        case 64: return launch_dq<64>(a, dq, bh);
+        case 128: return launch_dq<128>(a, dq, bh);
+        case 256: return launch_dq<256>(a, dq, bh);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -534,6 +551,189 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
 }
 
+// ---------------------------------------------------------------------------
+// dq, bf16: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+template <int HD>
+struct DqCfg {
+    static constexpr int SW = HD == 32 ? 32 : 64;  // columns of a swizzled slab row
+    static constexpr int SWB = 2 * SW;
+    static constexpr int NSLAB = HD / SW;
+    static constexpr int SPLIT = HD == 256 ? 2 : 1;  // warpgroups sharing one set of rows
+    static constexpr int BM = 128 / SPLIT;           // query rows a block
+    static constexpr int NC = HD / SPLIT;            // dQ columns a warpgroup
+    static constexpr int BN = 64;                    // keys a streamed tile
+    static constexpr int STAGES = 2;
+    static constexpr int Q_SLAB = BM * SWB;
+    static constexpr int KV_SLAB = BN * SWB;
+    static constexpr int Q_BYTES = BM * HD * 2;      // Q, or dO
+    static constexpr int KV_BYTES = BN * HD * 2;     // K, or V, of one stage
+    static constexpr int SMEM = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 64 + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int rep, int sq, int skv, int causal,
+                          float scale) {
+    using C = DqCfg<HD>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* qs = align_1024(smem_raw);
+    uint8_t* dos = qs + C::Q_BYTES;
+    uint8_t* kvs = dos + C::Q_BYTES;  // stage st: K at kvs + 2*st*KV_BYTES, V after it
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(kvs + 2 * C::STAGES * C::KV_BYTES);
+    uint64_t* full = q_full + 1;
+    uint64_t* empty = full + C::STAGES;
+
+    const int bh = blockIdx.x;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BM;  // the last query tiles first
+    const int kv_end = causal ? min(skv, q0 + C::BM) : skv;  // keys the block's rows see
+    const int n_kt = (kv_end + C::BN - 1) / C::BN;
+
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        for (int st = 0; st < C::STAGES; ++st) {
+            mbar_init(&full[st], 1);
+            mbar_init(&empty[st], 256);  // every consumer thread frees the stage
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int wgi = threadIdx.x / 128;
+    if (wgi == 2) {  // the producer warpgroup: one thread issues every copy
+        producer_registers();
+        if (threadIdx.x == 256) {
+            mbar_expect_tx(q_full, 2 * C::Q_BYTES);
+            for (int s = 0; s < C::NSLAB; ++s) {
+                tma_load_3d(qs + s * C::Q_SLAB, &tq, q_full, s * C::SW, q0, bh);
+                tma_load_3d(dos + s * C::Q_SLAB, &tdo, q_full, s * C::SW, q0, bh);
+            }
+            for (int it = 0; it < n_kt; ++it) {
+                const int st = it % C::STAGES;
+                if (it >= C::STAGES) mbar_wait(&empty[st], (it / C::STAGES - 1) & 1);
+                uint8_t* ks = kvs + 2 * st * C::KV_BYTES;
+                mbar_expect_tx(&full[st], 2 * C::KV_BYTES);
+                for (int s = 0; s < C::NSLAB; ++s) {
+                    tma_load_3d(ks + s * C::KV_SLAB, &tk, &full[st], s * C::SW, it * C::BN, bh / rep);
+                    tma_load_3d(ks + C::KV_BYTES + s * C::KV_SLAB, &tv, &full[st], s * C::SW,
+                                it * C::BN, bh / rep);
+                }
+            }
+        }
+        return;
+    }
+    consumer_registers();
+
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int roff = C::SPLIT == 1 ? wgi * 64 : 0;    // this warpgroup's rows in the block
+    const int coff = C::SPLIT == 1 ? 0 : wgi * C::NC;  // and its columns of dQ
+    const int row0 = q0 + roff;
+    const int r_lo = warp * 16 + lane / 4;  // fragment rows r_lo, r_lo + 8
+    const int c_lo = 2 * (lane % 4);        // fragment columns (keys) 8j + c_lo, + 1
+    const int wg_kv_end = causal ? min(skv, row0 + 64) : skv;
+    const float scale_log2 = scale * kLog2e;
+    // lse (times log2 e) and delta of the two fragment rows; rows past Sq
+    // read zeros and are never stored
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r_lo + 8 * h;
+        const size_t at = static_cast<size_t>(bh) * sq + row;
+        lse2[h] = row < sq ? lse[at] * kLog2e : 0.0f;
+        dlt[h] = row < sq ? delta[at] : 0.0f;
+    }
+    float acc[C::NC / 2];
+#pragma unroll
+    for (int i = 0; i < C::NC / 2; ++i) acc[i] = 0.0f;
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_kt; ++it) {
+        const int st = it % C::STAGES;
+        const int kv0 = it * C::BN;
+        mbar_wait(&full[st], (it / C::STAGES) & 1);
+        if (kv0 < wg_kv_end) {  // else every key of the tile lies above these rows
+            const uint8_t* ks = kvs + 2 * st * C::KV_BYTES;
+            const uint8_t* vs = ks + C::KV_BYTES;
+            float s[C::BN / 2], dp[C::BN / 2];
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+                const int slab = kk / (C::SW / 16), in_row = 32 * (kk % (C::SW / 16));
+                const int a_off = slab * C::Q_SLAB + roff * C::SWB + in_row;
+                const int b_off = slab * C::KV_SLAB + in_row;
+                wgmma_ss<C::BN>(s, desc<C::SWB>(qs + a_off, 16, 8 * C::SWB),
+                                desc<C::SWB>(ks + b_off, 16, 8 * C::SWB), kk > 0);
+                wgmma_ss<C::BN>(dp, desc<C::SWB>(dos + a_off, 16, 8 * C::SWB),
+                                desc<C::SWB>(vs + b_off, 16, 8 * C::SWB), kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(s);
+            fence_regs(dp);
+
+            const bool masked = (causal && kv0 + C::BN - 1 > row0) || kv0 + C::BN > skv;
+#pragma unroll
+            for (int i = 0; i < C::BN / 2; ++i) {
+                const int h = (i >> 1) & 1;
+                float p = exp2f(s[i] * scale_log2 - lse2[h]);
+                if (masked) {
+                    const int key = kv0 + 8 * (i / 4) + c_lo + (i & 1);
+                    if (key >= skv || (causal && key > row0 + r_lo + 8 * h)) p = 0.0f;
+                }
+                dp[i] = p * (dp[i] - dlt[h]) * scale;
+            }
+
+            uint32_t da[C::BN / 16][4];  // dS in bf16, the A operand (written before the fence)
+#pragma unroll
+            for (int kk = 0; kk < C::BN / 16; ++kk) acc_to_a(dp, kk, da[kk]);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < C::BN / 16; ++kk) {
+                const int b_off = (coff / C::SW) * C::KV_SLAB + kk * 16 * C::SWB;
+                wgmma_rs<C::NC>(acc, da[kk], desc<C::SWB>(ks + b_off, C::KV_SLAB, 8 * C::SWB));
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(acc);
+        }
+        mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r_lo + 8 * h;
+        if (row >= sq) continue;
+        __nv_bfloat16* out = dq + (static_cast<size_t>(bh) * sq + row) * HD + coff;
+#pragma unroll
+        for (int j = 0; j < C::NC / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + c_lo) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+}
+
+template <int HD>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+              const float* delta, __nv_bfloat16* dq, int bh, int bg, int sq, int skv, int causal,
+              float scale, cudaStream_t stream) {
+    using C = DqCfg<HD>;
+    CUtensorMap tq, tk, tv, tdo;
+    if (!encode_3d(&tq, q, HD, sq, bh, C::SW, C::BM) || !encode_3d(&tdo, dout, HD, sq, bh, C::SW, C::BM) ||
+        !encode_3d(&tk, k, HD, skv, bg, C::SW, C::BN) || !encode_3d(&tv, v, HD, skv, bg, C::SW, C::BN))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(bh, (sq + C::BM - 1) / C::BM);
+    flash_bwd_dq_wgmma_kernel<HD><<<grid, kThreads, C::SMEM, stream>>>(
+        tq, tk, tv, tdo, lse, delta, dq, bh / bg, sq, skv, causal, scale);
+    return static_cast<int>(cudaGetLastError());
+}
+
 // dk[g] = sum over r < rep of dk_part[g*rep + r], in that order (and dv),
 // cast to bf16; four values a thread
 __global__ void flash_bwd_dkv_reduce_kernel(const float4* __restrict__ dk_part,
@@ -580,15 +780,33 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 }  // namespace
 
-extern "C" int flash_attention_dq_launch(const void* q, const void* k, const void* v,
-                                         const void* dout, const void* lse,
-                                         const void* delta, void* dq, int bh, int bg,
-                                         int sq, int skv, int hd, int causal, float scale,
-                                         int is_bf16, void* stream) {
+extern "C" int flash_attention_dq_f32_launch(const void* q, const void* k, const void* v,
+                                             const void* dout, const void* lse,
+                                             const void* delta, void* dq, int bh, int bg,
+                                             int sq, int skv, int hd, int causal, float scale,
+                                             void* stream) {
     const Args a{q, k, v, dout, static_cast<const float*>(lse),
                  static_cast<const float*>(delta), bh / bg, sq, skv, causal, scale,
                  static_cast<cudaStream_t>(stream)};
-    return is_bf16 ? dispatch_dq<__nv_bfloat16>(a, dq, bh, hd) : dispatch_dq<float>(a, dq, bh, hd);
+    return dispatch_dq(a, dq, bh, hd);
+}
+
+extern "C" int flash_attention_dq_bf16_launch(const void* q, const void* k, const void* v,
+                                              const void* dout, const void* lse,
+                                              const void* delta, void* dq, int bh, int bg,
+                                              int sq, int skv, int hd, int causal, float scale,
+                                              void* stream) {
+    const float* l = static_cast<const float*>(lse);
+    const float* d = static_cast<const float*>(delta);
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(dq);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (hd) {
+        case 32: return wg::launch_dq<32>(q, k, v, dout, l, d, o, bh, bg, sq, skv, causal, scale, s);
+        case 64: return wg::launch_dq<64>(q, k, v, dout, l, d, o, bh, bg, sq, skv, causal, scale, s);
+        case 128: return wg::launch_dq<128>(q, k, v, dout, l, d, o, bh, bg, sq, skv, causal, scale, s);
+        case 256: return wg::launch_dq<256>(q, k, v, dout, l, d, o, bh, bg, sq, skv, causal, scale, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 extern "C" int flash_attention_dkv_f32_launch(const void* q, const void* k, const void* v,

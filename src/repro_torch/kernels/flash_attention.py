@@ -14,10 +14,10 @@ softmax.
 
 The tensor's device picks the version: a CPU tensor runs the plain version,
 a CUDA tensor launches the kernel or raises; nothing falls back.  On the
-card the inputs' type picks the route before launch: bf16 runs the forward
-and dk/dv on the tensor cores (``wgmma`` fed by TMA; dk/dv as f32 partials
-per q head, summed over each group by a second kernel), f32 the CUDA-core
-kernels, whose products stay full f32.  dq has one kernel for both.
+card the inputs' type picks the route before launch: bf16 runs the forward,
+dq and dk/dv on the tensor cores (``wgmma`` fed by TMA; dk/dv as f32
+partials per q head, summed over each group by a second kernel), f32 the
+CUDA-core kernels, whose products stay full f32.
 """
 from __future__ import annotations
 
@@ -29,11 +29,11 @@ import torch
 
 from . import _build
 
-#: launches of the CUDA kernels: the bf16 forward and dk/dv (tensor cores)
-#: and the dk/dv reduction over grouped heads, their f32 routes, and dq.
+#: launches of the CUDA kernels: the bf16 forward, dq and dk/dv (tensor
+#: cores) and the dk/dv reduction over grouped heads, and their f32 routes.
 LAUNCHES = {"flash_attention": 0, "flash_attention_f32": 0, "flash_attention_dq": 0,
-            "flash_attention_dkv": 0, "flash_attention_dkv_reduce": 0,
-            "flash_attention_dkv_f32": 0}
+            "flash_attention_dq_f32": 0, "flash_attention_dkv": 0,
+            "flash_attention_dkv_reduce": 0, "flash_attention_dkv_f32": 0}
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
@@ -42,10 +42,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 #: skv, hd, causal, scale, stream
 _LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] \
     + [ctypes.c_void_p]
-#: ``flash_attention_dq_launch``: q, k, v, do, lse, delta, dq, bh, bg, sq, skv,
-#: hd, causal, scale, is_bf16, stream
+#: ``flash_attention_dq_{bf16,f32}_launch``: q, k, v, do, lse, delta, dq, bh,
+#: bg, sq, skv, hd, causal, scale, stream
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] \
-    + [ctypes.c_int] + [ctypes.c_void_p]
+    + [ctypes.c_void_p]
 #: ``flash_attention_dkv_{bf16,f32}_launch``: q, k, v, do, lse, delta, dk (or
 #: its f32 partials per q head), dv (or partials), bh, bg, sq, skv, hd,
 #: causal, scale, stream
@@ -221,12 +221,13 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal):
                   lse.data_ptr(), delta.data_ptr())
         shape = (b * h, b * g, sq, skv, hd, int(causal), 1.0 / math.sqrt(hd))
         bf16 = q.dtype == torch.bfloat16
-        fn_dq = _build.entry("flash_attention_bwd", "flash_attention_dq_launch", _DQ_ARGTYPES)
+        dq_key, dq_symbol = (("flash_attention_dq", "flash_attention_dq_bf16_launch") if bf16 else
+                             ("flash_attention_dq_f32", "flash_attention_dq_f32_launch"))
+        fn_dq = _build.entry("flash_attention_bwd", dq_symbol, _DQ_ARGTYPES)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
-            _build.check(fn_dq(*common, dq.data_ptr(), *shape, int(bf16), stream),
-                         "flash_attention_dq")
-            LAUNCHES["flash_attention_dq"] += 1
+            _build.check(fn_dq(*common, dq.data_ptr(), *shape, stream), dq_key)
+            LAUNCHES[dq_key] += 1
             if bf16:
                 # f32 partials per q head, summed over each group in head order
                 dk_part = torch.empty((b * h, skv, hd), dtype=torch.float32, device=q.device)

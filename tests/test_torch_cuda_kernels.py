@@ -127,6 +127,7 @@ def _close(got, want, tol):
 
 #: the bf16 route (tensor cores) launches these, the f32 route its own
 FWD_KEY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention"}
+DQ_KEY = {torch.float32: "flash_attention_dq_f32", torch.bfloat16: "flash_attention_dq"}
 DKV_KEYS = {torch.float32: ("flash_attention_dkv_f32",),
             torch.bfloat16: ("flash_attention_dkv", "flash_attention_dkv_reduce")}
 #: several key tiles of every width, ragged tails against the 128-row tiles
@@ -166,8 +167,9 @@ def test_flash_attention_refuses_grad(cuda_device):
     torch.autograd.grad(o.sum(), (q, k))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert (counts["flash_attention_f32"], counts["flash_attention_dq"],
+    assert (counts["flash_attention_f32"], counts["flash_attention_dq_f32"],
             counts["flash_attention_dkv_f32"]) == (1, 1, 1)
+    assert counts["flash_attention_dq"] == counts["flash_attention_dkv"] == 0
 
 
 #: the backward: f32 gradients differ by summation order (1e-4 over sums of
@@ -194,8 +196,10 @@ def test_flash_backward_matches_plain(cuda_device, shape, dtype, causal):
     got = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert [counts[key] for key in ("flash_attention_dq",) + DKV_KEYS[dtype]] == \
+    assert [counts[key] for key in (DQ_KEY[dtype],) + DKV_KEYS[dtype]] == \
         [1] * (1 + len(DKV_KEYS[dtype]))
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    assert counts[DQ_KEY[other]] == counts[FWD_KEY[other]] == 0
     want = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     for name, a, w in zip("qkv", got, want):
         assert a.dtype == dtype and a.shape == w.shape, name
@@ -254,7 +258,7 @@ def test_reduced_model_matches_cpu(cuda_device):
     kernels.reset_launch_counts()
     got = tm.forward_logits(cfg, gpu, {"tokens": toks.to(cuda_device)}, last_only=False)
     counts = kernels.launch_counts()
-    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["flash_attention_f32"] == cfg.n_layers      # f32: the CUDA-core route
     assert counts["rmsnorm"] == 2 * cfg.n_layers + 1
     want = tm.forward_logits(cfg, cpu, {"tokens": toks}, last_only=False)
     _close(got, want, 1e-4)
@@ -285,8 +289,8 @@ def test_reduced_model_gradients_match_cpu(cuda_device):
     grads_g = torch.autograd.grad(loss_g, list(gpu.parameters()))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert counts["flash_attention"] == 2 * cfg.n_layers
-    assert counts["flash_attention_dq"] == counts["flash_attention_dkv"] == cfg.n_layers
+    assert counts["flash_attention_f32"] == 2 * cfg.n_layers   # f32: the CUDA-core route
+    assert counts["flash_attention_dq_f32"] == counts["flash_attention_dkv_f32"] == cfg.n_layers
     loss_c, _ = tm.forward_train(cfg, cpu, batch)
     grads_c = torch.autograd.grad(loss_c, list(cpu.parameters()))
     _close(loss_g.detach(), loss_c.detach(), 1e-4)

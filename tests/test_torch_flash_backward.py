@@ -105,8 +105,7 @@ def test_lse_carries_no_gradient_and_cpu_launches_no_kernel():
     o.sum().backward()
     assert all(t.grad is not None for t in (q, k, v))
     counts = kernels.launch_counts()
-    assert counts["flash_attention"] == counts["flash_attention_dq"] \
-        == counts["flash_attention_dkv"] == 0
+    assert all(n == 0 for n in counts.values()), counts
 
 
 def test_dkv_reduce_plain_sums_each_group_in_head_order():
