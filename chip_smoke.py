@@ -11,13 +11,17 @@ exits non-zero:
                started together): seconds per source, and the count of
                HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS
                of each tensor-core kernel, which must not be 0, and ptxas's
-               registers and spill bytes of each;
+               registers and spill bytes of each; ptxas's registers, stack
+               frame and spill bytes of every screen kernel, the K=8 ones
+               with no stack frame and no spills;
 3. kernels   — the decision path's kernels at the paper's saturated geometry
                (65,536 hosts, K=8, D=3, M=64; plus the enumeration at K=12),
                each against its plain PyTorch version on the same inputs:
                exactly equal on integer-valued inputs and on the non-integer
-               cases (a fractional clock; the weigher vector (2, 1, 0.7, 1));
-               kernel / plain / bound times (CUDA events, medians);
+               cases (a fractional clock; the weigher vectors (2, 1, 0.7, 1)
+               and (8, 1, 8, 8)); kernel / plain / bound times (CUDA events,
+               medians); then the screen at 2^20 packed hosts, nearly all
+               tied: exactly equal, two calls the same bits, its times;
 4. parity    — the simulator on the card and on the CPU, 4,096 hosts, the
                same seed: identical placements, counters and final state;
 5. main path — ``SoAFleet`` on the card at 65,536 hosts, 2,048 decisions in
@@ -29,7 +33,8 @@ exits non-zero:
                a ragged and an f32 case; RMSNorm at the prefill and decode
                shapes), each gap against a stated tolerance, and two calls
                of the bf16 forward giving the same bits; kernel / plain /
-               bound / library times (bf16 tensor-core and f32 routes);
+               bound / library times (bf16 tensor-core and f32 routes), and
+               RMSNorm's and the library's also with the L2 flushed;
 7. model_parity — reduced qwen2-1.5b in f32, the same weights on the card
                and on the CPU: flash ``forward_logits`` within 1e-4, and a
                ``ServingEngine`` run with identical tokens and step counts;
@@ -314,9 +319,21 @@ for src in ("flash_attention", "flash_attention_bwd"):
     check(len(found) == (1 if src == "flash_attention" else 2) * len(HEAD_DIMS),
           f"build: ptxas reported {len(found)} tensor-core kernels of {src}.cu")
     ptxas.update(found)
+# and of every screen kernel (a template instantiation for each K <= 12):
+# the K=8 ones, the main path's, keep every value in registers
+screen_ptxas = "library cached from an earlier build: no report"
+if "sched_screen" in _build.BUILD_LOG:
+    screen_ptxas = {f: c for f, c in _build.ptxas_report("sched_screen").items()
+                    if "screen_consts_kernel" in f or "screen_topm_kernel" in f}
+    check(len(screen_ptxas) == 2 * 12, f"build: ptxas reported {len(screen_ptxas)} screen kernels")
+    for f, c in screen_ptxas.items():
+        if "ILi8E" in f:
+            check(c["stack"] == 0 and c["spill_stores"] == 0 and c["spill_loads"] == 0,
+                  f"build: {f} has a stack frame or spills: {c}")
 emit("build", seconds=build_s, seconds_by_source=dict(_build.BUILD_SECONDS),
      libraries=sorted(os.path.basename(p) for p in paths.values()),
-     sass_hgmma_utmaldg=sass_counts, ptxas_registers_spills=ptxas)
+     sass_hgmma_utmaldg=sass_counts, ptxas_registers_spills=ptxas,
+     ptxas_sched_screen=screen_ptxas)
 
 # ---------------------------------------------------------------------------
 # 3. kernels against their plain versions at the main path's shapes
@@ -407,18 +424,20 @@ frac_gap = max(frac_gap, max_gap(wf[0], wfp[0]))
 GAPS["sched_weigh"] = max(GAPS["sched_weigh"], max_gap(wf[0], wfp[0]))
 frac_same = frac_same and bool(torch.equal(wf[1].cpu(), wfp[1].cpu()))
 check(frac_same, "non-integer case: kernel and plain version pick different hosts/plans")
-# a weigher vector that mixes exact and inexact multipliers, on the
-# fractional costs: the fused multiply-add sites must agree bit for bit
-mixed = (2.0, 1.0, 0.7, 1.0)
-mix = kernels.sched_screen(*hf, mixed, True, M + 1)
-mix_c = kernels.sched_screen_consts_plain(*hf, mixed, True)
-mix_p = kernels.sched_screen_topm_plain(*hf, mix_c, mixed, True, M + 1)
-same(mix[0], mix_p[0], "sched_screen scores (2, 1, 0.7, 1)", "sched_screen")
-same(mix[1], mix_p[1], "sched_screen idx (2, 1, 0.7, 1)", "sched_screen")
-same(mix[2], mix_c, "sched_screen consts (2, 1, 0.7, 1)", "sched_screen")
+# weigher vectors that mix exact and inexact multipliers, and one shared
+# power of two beyond 4, on the fractional costs: the fused multiply-add
+# sites must agree bit for bit
+MIXED = ((2.0, 1.0, 0.7, 1.0), (8.0, 1.0, 8.0, 8.0))
+for mixed in MIXED:
+    mix = kernels.sched_screen(*hf, mixed, True, M + 1)
+    mix_c = kernels.sched_screen_consts_plain(*hf, mixed, True)
+    mix_p = kernels.sched_screen_topm_plain(*hf, mix_c, mixed, True, M + 1)
+    same(mix[0], mix_p[0], f"sched_screen scores {mixed}", "sched_screen")
+    same(mix[1], mix_p[1], f"sched_screen idx {mixed}", "sched_screen")
+    same(mix[2], mix_c, f"sched_screen consts {mixed}", "sched_screen")
 emit("kernels_vs_plain", hosts=n, k=k, d=d, m=M, integer_cases="exact",
      non_integer_max_gap=frac_gap, non_integer_decisions_agree=frac_same,
-     mixed_multipliers=list(mixed), mixed_multipliers_case="exact")
+     mixed_multipliers=[list(m_) for m_ in MIXED], mixed_multipliers_case="exact")
 
 # times at the main path's shapes
 screen_ops = n * 400                        # compares/adds/mins per host and pass
@@ -463,6 +482,45 @@ emit("kernel_times", card=smi, method="ms/plain_ms: device time per call (trace)
      "call_ms: CUDA events around one call, host enqueue included",
      **{r["name"]: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
         | {"call_ms": call_ms[r["name"]]} for r in records.values()}, **extra)
+
+# 2^20 hosts, the JAX package's strong-scaling fleet (benchmarks/bench_screen.py)
+# and four times the old one-block merge's ceiling of 258,048: packed nodes
+# with costs as above (start times a minute apart), nearly every host tied
+N_BIG = 1 << 20
+packed, preq = fleets.packed_arrays(N_BIG, k, seed=0)
+packed["inst_cost"] = (fleets.NOW - packed["inst_start"]).astype(np.float32)
+big = tuple(torch.from_numpy(np.ascontiguousarray(packed[f])).to(DEV) for f in (
+    "free_f", "free_n", "schedulable", "domain", "slow", "inst_res", "inst_cost",
+    "inst_valid")) + (torch.from_numpy(preq).to(DEV), False, -1)
+del packed
+big_cp = kernels.sched_screen_consts_plain(*big, mult, True)
+big_tp = kernels.sched_screen_topm_plain(*big, big_cp, mult, True, M + 1)
+same(kernels.sched_screen_consts(*big, mult, True), big_cp, "2^20 sched_screen_consts",
+     "sched_screen_consts")
+big_t = kernels.sched_screen_topm(*big, big_cp, mult, True, M + 1)
+same(big_t[0], big_tp[0], "2^20 sched_screen_topm scores", "sched_screen_topm")
+same(big_t[1], big_tp[1], "2^20 sched_screen_topm idx", "sched_screen_topm")
+runs = [kernels.sched_screen(*big, mult, True, M + 1) for _ in range(2)]
+for got_, want_, what in zip(runs[0], (*big_tp, big_cp), ("scores", "idx", "consts")):
+    same(got_, want_, f"2^20 sched_screen {what}", "sched_screen")
+check(all(torch.equal(a_.view(torch.int32), b_.view(torch.int32)) for a_, b_ in zip(*runs)),
+      "2^20 sched_screen: two calls differ")
+big_bound = lambda extra_bytes: (N_BIG * host_bytes + extra_bytes) / HBM_BPS * 1e3
+emit("screen_2_20", card=smi, hosts=N_BIG, k=k, d=d, m=M, exact=True,
+     two_calls_bitwise_equal=True, distinct_top_scores=len(set(big_tp[0].tolist())),
+     sched_screen_consts=dict(
+         ms=device_ms(lambda: kernels.sched_screen_consts(*big, mult, True)),
+         plain_ms=device_ms(lambda: kernels.sched_screen_consts_plain(*big, mult, True), reps=5),
+         bound_ms=big_bound(40)),
+     sched_screen_topm=dict(
+         ms=device_ms(lambda: kernels.sched_screen_topm(*big, big_cp, mult, True, M + 1)),
+         plain_ms=device_ms(lambda: kernels.sched_screen_topm_plain(
+             *big, big_cp, mult, True, M + 1), reps=5),
+         bound_ms=big_bound(40 + (M + 1) * 8)),
+     sched_screen=dict(
+         ms=device_ms(lambda: kernels.sched_screen(*big, mult, True, M + 1)),
+         bound_ms=big_bound(40 + (M + 1) * 8), bound_note="a pass; the screen makes two"))
+del big, big_cp, big_tp, big_t, runs
 
 # ---------------------------------------------------------------------------
 # 4. main-path parity: the simulator on the card and on the CPU
@@ -679,8 +737,43 @@ record("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/
        device_ms(lambda: kernels.rmsnorm_plain(x, w, 1e-6)),
        2 * 2 * 4096 * 1536 + 2 * 1536, 4 * 4096 * 1536,
        library_ms=device_ms(lambda: F.rms_norm(x, (1536,), weight=w1, eps=1e-6)))
+FLUSH = torch.empty((64 << 20,), dtype=torch.uint8, device=DEV)
+
+
+def cold_ms(fn, reps: int = 25) -> float:
+    """``device_ms`` of ``fn`` with the L2 flushed before each call: 64 MiB
+    (more than the 50 MB L2) are written between calls, and the spans of
+    that fill are left out, so ``fn`` reads its inputs from HBM."""
+    def step():
+        FLUSH.fill_(1)
+        fn()
+    spans = [sp for sp in traced_spans(step, reps, 3) if "FillFunctor" not in sp[2]]
+    if spans and len(spans) % reps:             # a one-off span: the mean
+        return sum(b_ - a for a, b_, _ in spans) / reps / 1e3
+    if spans:
+        per = len(spans) // reps
+        return float(np.median([sum(b_ - a for a, b_, _ in spans[i * per:(i + 1) * per])
+                                for i in range(reps)])) / 1e3
+    EVENT_TIMED.append(f"chip_smoke.py:{fn.__code__.co_firstlineno} (L2 flushed)")
+    times = []
+    for _ in range(reps):
+        FLUSH.fill_(1)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+rms_cold = dict(ms=cold_ms(lambda: kernels.rmsnorm(x, w, 1e-6)),
+                library_ms=cold_ms(lambda: F.rms_norm(x, (1536,), weight=w1, eps=1e-6)),
+                bound_ms=records["rmsnorm"]["bound_ms"])
+del FLUSH
 xd = x[:8].contiguous()
 emit("model_kernel_times", card=smi, method="device time per call (trace), median of 25",
+     rmsnorm_l2_flushed=rms_cold,
      **{r: {key: records[r][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in ("flash_attention", "flash_attention_f32", "rmsnorm")},
      rmsnorm_decode_8x1536=dict(

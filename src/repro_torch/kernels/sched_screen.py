@@ -7,7 +7,8 @@ Port of ``repro.kernels.sched_screen`` (the Pallas TPU kernels ``_kernel``,
 ties at the lowest index; ``sched_screen`` runs the two in a row and returns
 ``(top_scores, top_idx, consts)`` with the contract of the JAX function
 (callers pass ``m_keep = M + 1`` and read entry M as the admissibility
-witness).  The kernels are in ``csrc/sched_screen.cu``.
+witness).  The kernels are in ``csrc/sched_screen.cu``: one launch a pass,
+any number of hosts, ``m_keep`` up to ``MAX_KEEP``.
 
 The plain versions are the JAX package's jnp screen (``_stage1_rows`` +
 ``consts_of`` + ``base_from_consts`` + ``omega_of``) with the top-M taken by
@@ -20,14 +21,11 @@ are python scalars (a CUDA kernel takes them as launch arguments).
 from __future__ import annotations
 
 import ctypes
-import struct
-from typing import Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
 from ..core.screen_math import (
-    NEG_INF,
-    POS_INF,
     ScreenConsts,
     base_terms,
     consts_of,
@@ -43,10 +41,49 @@ LAUNCHES = {"sched_screen_consts": 0, "sched_screen_topm": 0, "sched_screen": 0}
 
 MAX_K = 12
 MAX_D = 8
-#: hosts per block of the top-M kernel, and the most a block can keep.
-TOPM_BLOCK = 1024
-#: the merge sorts every block's top in one block's shared memory.
-MERGE_SMEM_BYTES = 232_448
+#: the most hosts the top-M pass keeps (its lists hold m_keep rounded up to a
+#: power of two)
+MAX_KEEP = 1024
+#: threads a block (one host each per tile), the largest whose tile fits
+THREADS = (512, 256, 128)
+#: dynamic shared memory a block may use: two tiles (the next is copied while
+#: the current one is scored), or in the top-M pass the larger of those and
+#: MERGE_GROUP lists, plus its own list and buffer
+SMEM_BUDGET = 200 * 1024
+#: lists one merge takes: the last block of each group of this many blocks
+#: merges the group's, the last group's the groups' (so at most its square)
+MERGE_GROUP = 16
+
+
+class Geometry(NamedTuple):
+    """Launch geometry of the two passes over ``n`` hosts."""
+
+    threads: int        # a block, one host each per tile
+    consts_blocks: int
+    topm_blocks: int    # = the lists merged, in groups of MERGE_GROUP
+    keep_pow2: int      # a list's length: m_keep rounded up to a power of two
+
+
+def _stage_bytes(threads: int, k: int, d: int) -> int:
+    """Bytes of a tile in shared memory (``stage_bytes`` in the kernel)."""
+    a16 = lambda x: -(-x // 16) * 16
+    rows = ((k * d) | 1) + (k | 1) + 2 * (d | 1)      # floats a host, odd strides
+    return a16(threads * 4 * rows) + a16(threads * k)
+
+
+def _geometry(n: int, k: int, d: int, m_keep: int, sms: int) -> Geometry:
+    """Threads and blocks of each pass on a card with ``sms`` SMs: one block
+    an SM scores (a block holds up to two tiles, so no second fits), with as
+    many threads as leave room for MERGE_GROUP lists of ``keep_pow2`` keys.
+    Any ``n`` is taken; raises on an ``m_keep`` out of range."""
+    if not 1 <= m_keep <= min(n, MAX_KEEP):
+        raise ValueError(f"sched_screen: m_keep={m_keep} out of range for "
+                         f"{n} hosts (kernel keeps at most {MAX_KEEP})")
+    p = 1 << (m_keep - 1).bit_length()
+    threads = next(t for t in THREADS if max(2 * _stage_bytes(t, k, d), MERGE_GROUP * 8 * p)
+                   + 8 * (p + t) <= SMEM_BUDGET)
+    tiles = -(-n // threads)
+    return Geometry(threads, min(tiles, sms), min(tiles, sms, MERGE_GROUP ** 2), p)
 
 
 class _ScreenArgs(ctypes.Structure):
@@ -60,17 +97,6 @@ class _ScreenArgs(ctypes.Structure):
             "has_thr")] + [
         (name, ctypes.c_float) for name in (
             "thr", "m_over", "m_term", "m_pack", "m_strag", "m_churn")]
-
-
-def _enc(x: float) -> int:
-    """Order-preserving uint32 encoding of an f32 (the kernel's enc_f), as a
-    signed int32 for ``fill_``."""
-    b = struct.unpack("<I", struct.pack("<f", x))[0]
-    e = (~b & 0xFFFFFFFF) if b & 0x80000000 else (b | 0x80000000)
-    return e - (1 << 32) if e >= (1 << 31) else e
-
-
-_ENC_POS, _ENC_NEG = _enc(POS_INF), _enc(NEG_INF)
 
 
 def _m_churn(mult: Sequence[float]) -> float:
@@ -191,64 +217,70 @@ def _count(counts: Sequence[str]) -> None:
         LAUNCHES[name] += 1
 
 
-def _consts_cuda(args: _ScreenArgs, device, counts: Sequence[str]) -> torch.Tensor:
-    """Launch the constants pass; adds one to each of ``counts``."""
+_SMS: Dict[int, int] = {}
+#: per (device, stream): the 32-bit counters that the kernels leave at 0
+#: (zeroed once: the constants pass's, the top-M pass's, one a merge group),
+#: then the partials and lists of the last launch.  Launches on one stream
+#: run in order, so they share it.
+_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+_COUNTER_WORDS = 1 + MERGE_GROUP // 2
+
+
+def _launch_setup(args: _ScreenArgs, device, m_keep: int):
+    """(geometry, stream, workspace of at least the words both passes use)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    geo = _geometry(args.n, args.k, args.d, m_keep, _SMS[index])
+    stream = torch.cuda.current_stream(index).cuda_stream
+    lists = (geo.topm_blocks + MERGE_GROUP) * geo.keep_pow2     # block and group lists
+    words = _COUNTER_WORDS + 5 * geo.consts_blocks + lists
+    ws = _WORKSPACE.get((index, stream))
+    if ws is None or ws.numel() < words:
+        ws = torch.zeros((words,), dtype=torch.int64, device=device)
+        _WORKSPACE[(index, stream)] = ws
+    return geo, stream, ws
+
+
+def _consts_cuda(args: _ScreenArgs, geo: Geometry, stream: int, ws: torch.Tensor,
+                 consts: torch.Tensor, counts: Sequence[str]) -> None:
+    """Launch the constants pass into ``consts``; adds one to each of
+    ``counts``."""
     fn = _build.entry("sched_screen", "sched_screen_consts_launch",
-                      [_ScreenArgs, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    enc = torch.empty((10,), dtype=torch.int32, device=device)
-    enc[0::2].fill_(_ENC_POS)
-    enc[1::2].fill_(_ENC_NEG)
-    consts = torch.empty((10,), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(fn(args, enc.data_ptr(), consts.data_ptr(), stream),
-                     "sched_screen_consts")
+                      [_ScreenArgs, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
+    base = ws.data_ptr()
+    _build.check(fn(args, geo.threads, geo.consts_blocks, base + 8 * _COUNTER_WORDS, base,
+                    consts.data_ptr(), stream), "sched_screen_consts")
     _count(counts)
-    return consts
 
 
-def _merge_size(n: int, m_keep: int) -> int:
-    """Keys the merge sorts (padded to a power of two); raises when one
-    block's shared memory cannot hold them."""
-    if not 1 <= m_keep <= min(n, TOPM_BLOCK):
-        raise ValueError(f"sched_screen: m_keep={m_keep} out of range for "
-                         f"{n} hosts (kernel keeps at most {TOPM_BLOCK})")
-    cand = -(-n // TOPM_BLOCK) * m_keep
-    pad = 1
-    while pad < cand:
-        pad *= 2
-    if pad * 8 > MERGE_SMEM_BYTES:
-        raise ValueError(
-            f"sched_screen: the merge of {cand} candidates ({pad} padded keys, "
-            f"{pad * 8} bytes) exceeds one block's {MERGE_SMEM_BYTES} bytes of "
-            "shared memory; use fewer hosts or a smaller m_keep"
-        )
-    return pad
-
-
-def _topm_cuda(args: _ScreenArgs, consts, m_keep: int, device,
-               counts: Sequence[str]):
-    """Launch the top-M pass (block sorts, then the merge); adds one to each
-    of ``counts``."""
+def _topm_cuda(args: _ScreenArgs, geo: Geometry, stream: int, ws: torch.Tensor, consts,
+               m_keep: int, scores: torch.Tensor, idx: torch.Tensor,
+               counts: Sequence[str]) -> None:
+    """Launch the top-M pass (block tops, then the two levels of merges)
+    into ``scores`` and ``idx``; adds one to each of ``counts``."""
     if tuple(consts.shape) != (10,) or consts.dtype != torch.float32 \
-            or consts.device != device or not consts.is_contiguous():
+            or consts.device != scores.device or not consts.is_contiguous():
         raise ValueError("sched_screen_topm: consts must be a contiguous "
-                         f"(10,) float32 tensor on {device}")
-    n_pad = _merge_size(args.n, m_keep)
+                         f"(10,) float32 tensor on {scores.device}")
     fn = _build.entry("sched_screen", "sched_screen_topm_launch",
-                      [_ScreenArgs, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    blocks = -(-args.n // TOPM_BLOCK)
-    scratch = torch.empty((blocks * m_keep,), dtype=torch.int64, device=device)
-    scores = torch.empty((m_keep,), dtype=torch.float32, device=device)
-    idx = torch.empty((m_keep,), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(fn(args, consts.data_ptr(), m_keep, scratch.data_ptr(),
-                        n_pad, scores.data_ptr(), idx.data_ptr(), stream),
-                     "sched_screen_topm")
+                      [_ScreenArgs, ctypes.c_void_p] + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p] * 7)
+    base = ws.data_ptr()
+    lists = base + 8 * (_COUNTER_WORDS + 5 * geo.consts_blocks)
+    group_lists = lists + 8 * geo.topm_blocks * geo.keep_pow2
+    _build.check(fn(args, consts.data_ptr(), m_keep, geo.keep_pow2, geo.threads,
+                    geo.topm_blocks, lists, group_lists, base + 4, base + 8,
+                    scores.data_ptr(), idx.data_ptr(), stream), "sched_screen_topm")
     _count(counts)
-    return scores, idx
+
+
+def _outputs(m_keep: int, with_consts: bool, device):
+    """``(consts or None, scores, idx)`` as views of one allocation."""
+    head = 10 if with_consts else 0
+    out = torch.empty((head + 2 * m_keep,), dtype=torch.int32, device=device)
+    consts = out[:head].view(torch.float32) if with_consts else None
+    return consts, out[head:head + m_keep].view(torch.float32), out[head + m_keep:]
 
 
 # ---------------------------------------------------------------------------
@@ -276,8 +308,11 @@ def sched_screen_consts(
                  host_zone=host_zone, exclude_zone=exclude_zone)
     if _device_of(free_f) == "cpu":
         return sched_screen_consts_plain(*fleet, **extra)
-    return _consts_cuda(_screen_args(*fleet, **extra), free_f.device,
-                        ("sched_screen_consts",))
+    args = _screen_args(*fleet, **extra)
+    geo, stream, ws = _launch_setup(args, free_f.device, 1)
+    consts = torch.empty((10,), dtype=torch.float32, device=free_f.device)
+    _consts_cuda(args, geo, stream, ws, consts, ("sched_screen_consts",))
+    return consts
 
 
 def _check_m_keep(m_keep: int, n: int) -> None:
@@ -302,7 +337,10 @@ def sched_screen_topm(
         return sched_screen_topm_plain(*head, consts, weigher_multipliers,
                                        require_free_slot, m_keep, **extra)
     args = _screen_args(*head, weigher_multipliers, require_free_slot, **extra)
-    return _topm_cuda(args, consts, m_keep, free_f.device, ("sched_screen_topm",))
+    geo, stream, ws = _launch_setup(args, free_f.device, m_keep)
+    _, scores, idx = _outputs(m_keep, False, free_f.device)
+    _topm_cuda(args, geo, stream, ws, consts, m_keep, scores, idx, ("sched_screen_topm",))
+    return scores, idx
 
 
 def sched_screen(
@@ -314,8 +352,9 @@ def sched_screen(
     """Stage-1 screen: ``(top_scores (m_keep,), top_idx (m_keep,), consts
     (10,))`` — the constants pass, then the top-M pass against them.
 
-    On the card that is two launches (the launch arguments are packed once),
-    each counted under its own kernel's name and under ``sched_screen``."""
+    On the card that is two launches (the launch arguments are packed once,
+    the outputs are one allocation), each counted under its own kernel's name
+    and under ``sched_screen``."""
     fleet = (free_f, free_n, schedulable, domain, slow, inst_res, inst_cost,
              inst_valid, req_res, req_preemptible, req_domain,
              weigher_multipliers, require_free_slot)
@@ -328,7 +367,9 @@ def sched_screen(
             *fleet[:11], consts, *fleet[11:], m_keep, **extra)
         return scores, idx, consts
     args = _screen_args(*fleet, **extra)
-    consts = _consts_cuda(args, free_f.device, ("sched_screen_consts", "sched_screen"))
-    scores, idx = _topm_cuda(args, consts, m_keep, free_f.device,
-                             ("sched_screen_topm", "sched_screen"))
+    geo, stream, ws = _launch_setup(args, free_f.device, m_keep)
+    consts, scores, idx = _outputs(m_keep, True, free_f.device)
+    _consts_cuda(args, geo, stream, ws, consts, ("sched_screen_consts", "sched_screen"))
+    _topm_cuda(args, geo, stream, ws, consts, m_keep, scores, idx,
+               ("sched_screen_topm", "sched_screen"))
     return scores, idx, consts

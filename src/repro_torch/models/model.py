@@ -46,7 +46,8 @@ from .layers import (
 
 #: weight of the experts' auxiliary loss (0 for the families the port runs)
 AUX_LOSS_WEIGHT = 0.01
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -87,6 +87,48 @@ def test_sched_screen_matches_plain(cuda_device, pre, churn_zone):
     _eq(got[1], idx)
 
 
+def _packed_head(n, device):
+    """``fleets.packed_arrays``'s fleet (every host alike, costs from the
+    start times: nearly every host tied) as the screen's leading arguments."""
+    packed, preq = fleets.packed_arrays(n, 8)
+    packed["inst_cost"] = (fleets.NOW - packed["inst_start"]).astype(np.float32)
+    cols = [torch.from_numpy(np.ascontiguousarray(packed[f])).to(device) for f in
+            ("free_f", "free_n", "schedulable", "domain", "slow", "inst_res", "inst_cost",
+             "inst_valid")]
+    return (*cols, torch.from_numpy(preq).to(device))
+
+
+@pytest.mark.parametrize("pre", [False, True])
+def test_sched_screen_2_20_hosts_matches_plain(cuda_device, pre):
+    """2^20 hosts, past the one-block merge's old ceiling of 258,048: the
+    constants, scores and indices (tie order) equal the plain versions."""
+    head = (*_packed_head(1 << 20, cuda_device), pre, -1)
+    mult = (1.0, 1.0, 0.0, 0.0)
+    got = kernels.sched_screen(*head, mult, True, 65)
+    consts = kernels.sched_screen_consts_plain(*head, mult, True)
+    scores, idx = kernels.sched_screen_topm_plain(*head, consts, mult, True, 65)
+    _eq(got[2], consts)
+    _eq(got[0], scores)
+    _eq(got[1], idx)
+    _eq(kernels.sched_screen_consts(*head, mult, True), consts)
+
+
+@pytest.mark.parametrize("m_keep", [1, 65, 300, 1024])
+def test_sched_screen_two_calls_same_bits(cuda_device, m_keep):
+    """The blocks finish in any order; the keys are unique, so two calls give
+    the same bits (and equal the plain version) at every list length."""
+    rng = np.random.default_rng(m_keep)
+    f = _rand_fleet(rng, 200_000, 8, cuda_device)
+    head = (*f, torch.tensor([5.0, 4.0, 6.0], device=cuda_device), False, -1)
+    runs = [kernels.sched_screen(*head, CHURN_MULT[:4], True, m_keep) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    consts = kernels.sched_screen_consts_plain(*head, CHURN_MULT[:4], True)
+    want = kernels.sched_screen_topm_plain(*head, consts, CHURN_MULT[:4], True, m_keep)
+    _eq(runs[0][0], want[0])
+    _eq(runs[0][1], want[1])
+
+
 def test_decisions_match_cpu(cuda_device):
     """The same 200 decisions on a 4,096-host saturated fleet, on the card
     (kernels) and on the CPU (plain versions): identical outcomes and state."""

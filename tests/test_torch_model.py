@@ -82,6 +82,40 @@ def test_forward_logits_matches_jax(arch, impl):
         _close(got, want)
 
 
+#: the primed cache's gap to JAX's in relative norm: f32 summation order
+#: (71 hash seeds x qwen2-1.5b and gemma-2b: at most 4.2e-6)
+KV_REL = 1e-5
+
+
+def _kv_close(tcfg, tp, toks, got, want):
+    """The primed cache within KV_REL of JAX's in norm, and within TOL of it
+    at every element that f32 resolves to TOL.  JAX's ``init_params`` folds
+    ``hash(path)`` into each leaf's key, so the weights change with the
+    interpreter's hash seed; at about one seed in twenty, an element of the
+    last layer's cache lands more than TOL from JAX's.  An f64 evaluation of
+    the same weights shows at every such element that one of the two f32
+    values (JAX's as often as the port's) is more than TOL/2 from the exact
+    value: the network amplifies summation-order rounding there.  Those
+    elements are the only ones excused."""
+    got, want = got.numpy(), np.asarray(want)
+    rel = np.linalg.norm(got.astype(np.float64) - want) / np.linalg.norm(want.astype(np.float64))
+    assert rel <= KV_REL, rel
+    off = ~np.isclose(got, want, **TOL)
+    if not off.any():
+        return
+    c64 = dataclasses.replace(tcfg, dtype="float64")
+    p64 = tm.Model(c64, device="meta")
+    p64.load_state_dict({k: t.double() for k, t in tp.state_dict().items()}, assign=True)
+    ref = tm.prefill(c64, p64, torch.from_numpy(toks), S + 1)[1].kv_k.numpy()
+    half = (TOL["atol"] + TOL["rtol"] * np.abs(ref)) / 2
+    unresolved = (np.abs(want - ref) > half) | (np.abs(got - ref) > half)
+    bad = off & ~unresolved
+    assert not bad.any(), (
+        f"{int(bad.sum())} cache elements outside TOL of JAX's where both f32 values are "
+        f"within TOL/2 of the f64 evaluation: port {got[bad][:4]}, JAX {want[bad][:4]}, "
+        f"f64 {ref[bad][:4]}")
+
+
 @pytest.mark.parametrize("layout", ["stacked", "per_layer"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_jax(arch, layout):
@@ -94,7 +128,7 @@ def test_prefill_and_decode_match_jax(arch, layout):
         tl_, ts = tm.prefill(tcfg, tp, torch.from_numpy(toks[:, :8]), S + 1)
         _close(tl_, jl)
         assert ts.length == int(js.length) == 8
-        np.testing.assert_allclose(ts.kv_k.numpy(), np.asarray(js.kv_k), **TOL)
+        _kv_close(tcfg, tp, toks[:, :8], ts.kv_k, js.kv_k)
         start = 8
     else:
         js = jm.init_decode_state(jcfg, batch=B, max_len=S + 1, dtype=jnp.float32)

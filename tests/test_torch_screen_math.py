@@ -341,8 +341,20 @@ def _mixed_multipliers(seed):
     return tuple(float(rng.choice(MIXED_VALUES)) for _ in range(4 + seed % 2))
 
 
+#: powers of two beyond 4 and below 0.25 (and a negative one) in the shapes
+#: the rule tells apart: shared by every term, by the base terms only, beside
+#: ±1 and inexact multipliers, and as the termination multiplier
+FAR_POW2 = [
+    tpl(v) for v in (8.0, 16.0, 0.125, -8.0) for tpl in (
+        lambda v: (1.0, 1.0, v, v), lambda v: (v, 1.0, v, v), lambda v: (v, v, v, v),
+        lambda v: (1.0, v, 0.5, 0.25), lambda v: (v, -1.0, v, 0.0, v),
+        lambda v: (-v, -1.7, -v, -v, 0.0), lambda v: (v, 0.7, 0.0, v, 1.3),
+        lambda v: (0.0, v, v, v, v))
+]
+
+
 @pytest.mark.parametrize("mult", REPO_POLICIES + [_random_multipliers(s) for s in range(12)]
-                         + [_mixed_multipliers(s) for s in range(48)])
+                         + [_mixed_multipliers(s) for s in range(48)] + FAR_POW2)
 def test_repo_policies_on_non_integer_inputs(mult):
     """consts → base → omega as one jitted program, on fractional inputs:
     bitwise equal for every policy the repo uses, for a seeded sweep of
