@@ -13,15 +13,19 @@ exits non-zero:
                of each tensor-core kernel, which must not be 0, and ptxas's
                registers and spill bytes of each; ptxas's registers, stack
                frame and spill bytes of every screen kernel, the K=8 ones
-               with no stack frame and no spills;
+               with no stack frame and no spills; of every RMSNorm and
+               sched_weigh instantiation, none with spills;
 3. kernels   — the decision path's kernels at the paper's saturated geometry
                (65,536 hosts, K=8, D=3, M=64; plus the enumeration at K=12),
                each against its plain PyTorch version on the same inputs:
                exactly equal on integer-valued inputs and on the non-integer
                cases (a fractional clock; the weigher vectors (2, 1, 0.7, 1)
-               and (8, 1, 8, 8)); kernel / plain / bound times (CUDA events,
-               medians); then the screen at 2^20 packed hosts, nearly all
-               tied: exactly equal, two calls the same bits, its times;
+               and (8, 1, 8, 8); the enumeration on fractional inputs at
+               K=1..12 and D=1..8, on 64 and 4,096 hosts), two calls of the
+               enumeration the same bits; kernel / plain / bound times
+               (medians) beside a one-element op's (the launch floor); then
+               the screen at 2^20 packed hosts, nearly all tied: exactly
+               equal, two calls the same bits, its times;
 4. parity    — the simulator on the card and on the CPU, 4,096 hosts, the
                same seed: identical placements, counters and final state;
 5. main path — ``SoAFleet`` on the card at 65,536 hosts, 2,048 decisions in
@@ -30,11 +34,14 @@ exits non-zero:
                the device's busy share, and every kernel's launch count;
 6. model_kernels — flash-attention forward and RMSNorm against their plain
                versions at qwen2-1.5b's and gemma-2b's shapes (plus a full,
-               a ragged and an f32 case; RMSNorm at the prefill and decode
-               shapes), each gap against a stated tolerance, and two calls
-               of the bf16 forward giving the same bits; kernel / plain /
-               bound / library times (bf16 tensor-core and f32 routes), and
-               RMSNorm's and the library's also with the L2 flushed;
+               a ragged and an f32 case; RMSNorm at the prefill, decode and
+               training shapes, both type mixes, an odd width and rows off
+               16-byte alignment), each gap against a stated tolerance, and
+               two calls of the bf16 forward and of RMSNorm giving the same
+               bits; kernel / plain / bound / library times (bf16
+               tensor-core and f32 routes), and RMSNorm's and the library's
+               at 8, 4,096 and 8,192 rows of 1,536, warm and with the L2
+               flushed;
 7. model_parity — reduced qwen2-1.5b in f32, the same weights on the card
                and on the CPU: flash ``forward_logits`` within 1e-4, and a
                ``ServingEngine`` run with identical tokens and step counts;
@@ -330,10 +337,32 @@ if "sched_screen" in _build.BUILD_LOG:
         if "ILi8E" in f:
             check(c["stack"] == 0 and c["spill_stores"] == 0 and c["spill_loads"] == 0,
                   f"build: {f} has a stack frame or spills: {c}")
+# and of every RMSNorm (x and w types x chunks a lane, and the edge kernel)
+# and sched_weigh (K = 1..12 x D = 1..8) instantiation: none spills; each
+# source's largest registers and stack, and the main path's instantiations
+# (sched_weigh K=8 D=3; RMSNorm bf16 at 6 chunks a lane, d = 1,536) in full
+small_ptxas = {}
+for src, tags, count, main in (
+        ("rmsnorm", ("rmsnorm_vec_kernel", "rmsnorm_edge_kernel"), 4 * 8 + 4,
+         ("rmsnorm_vec_kernelI13__nv_bfloat16S", "Li6E")),      # <bf16, bf16, 6>
+        ("sched_weigh", ("sched_weigh_kernel",), 12 * 8, ("sched_weigh_kernelILi8ELi3E",))):
+    if src not in _build.BUILD_LOG:
+        small_ptxas[src] = "library cached from an earlier build: no report"
+        continue
+    found = {f: c for f, c in _build.ptxas_report(src).items() if any(t in f for t in tags)}
+    check(len(found) == count, f"build: ptxas reported {len(found)} kernels of {src}.cu")
+    for f, c in found.items():
+        check(c["spill_stores"] == 0 and c["spill_loads"] == 0, f"build: {f} spills: {c}")
+    small_ptxas[src] = dict(
+        kernels=len(found), spill_bytes=0,
+        max_registers=max(c["registers"] for c in found.values()),
+        max_stack=max(c["stack"] for c in found.values()),
+        main_path={f: c for f, c in found.items() if all(m_ in f for m_ in main)})
+    check(len(small_ptxas[src]["main_path"]) == 1, f"build: {main} not found in {src}.cu")
 emit("build", seconds=build_s, seconds_by_source=dict(_build.BUILD_SECONDS),
      libraries=sorted(os.path.basename(p) for p in paths.values()),
      sass_hgmma_utmaldg=sass_counts, ptxas_registers_spills=ptxas,
-     ptxas_sched_screen=screen_ptxas)
+     ptxas_sched_screen=screen_ptxas, ptxas_rmsnorm_sched_weigh=small_ptxas)
 
 # ---------------------------------------------------------------------------
 # 3. kernels against their plain versions at the main path's shapes
@@ -405,6 +434,19 @@ rows12 = tuple(torch.from_numpy(packed[f]).to(DEV) for f in
 got12, want12 = kernels.sched_weigh_gathered(*rows12), kernels.sched_weigh_plain(*rows12)
 for g, w, what in zip(got12, want12, ("cost", "mask", "feasible")):
     same(g, w, f"sched_weigh_gathered K=12 {what}", "sched_weigh")
+runs = [kernels.sched_weigh(*full_args) for _ in range(2)]
+check(all(torch.equal(a_, b_) for a_, b_ in zip(*runs)), "sched_weigh full fleet: two calls differ")
+# off the integer grid at every K = 1..12 (D = 1..8 as K runs): fractional
+# resources and costs, exact ties, a tie at TIE_EPS, invalid slots, hosts
+# with none valid; on a shortlist of M hosts and on 4,096
+for kk in range(1, 13):
+    for n_ in (M, 4096):
+        case = tuple(torch.from_numpy(a_).to(DEV)
+                     for a_ in fleets.weigh_arrays(n_, kk, 1 + (kk - 1) % 8, seed=kk * n_))
+        for g, w, what in zip(kernels.sched_weigh(*case), kernels.sched_weigh_plain(*case),
+                              ("cost", "mask", "feasible")):
+            same(g, w, f"sched_weigh fractional K={kk} N={n_} {what}", "sched_weigh")
+del runs, case
 
 # one non-integer case: costs at a fractional clock
 costs_f = fleet_slot_costs(st, fleets.NOW + 0.3, policy)
@@ -437,7 +479,10 @@ for mixed in MIXED:
     same(mix[2], mix_c, f"sched_screen consts {mixed}", "sched_screen")
 emit("kernels_vs_plain", hosts=n, k=k, d=d, m=M, integer_cases="exact",
      non_integer_max_gap=frac_gap, non_integer_decisions_agree=frac_same,
-     mixed_multipliers=[list(m_) for m_ in MIXED], mixed_multipliers_case="exact")
+     mixed_multipliers=[list(m_) for m_ in MIXED], mixed_multipliers_case="exact",
+     sched_weigh="exact: the shortlist at K=8 and K=12, the full fleet (two calls the same "
+                 "bits), a fractional clock, fractional inputs at K=1..12 (D=1..8) on 64 and "
+                 "4,096 hosts")
 
 # times at the main path's shapes
 screen_ops = n * 400                        # compares/adds/mins per host and pass
@@ -463,7 +508,9 @@ w_pms = device_ms(lambda: kernels.sched_weigh_plain(*rows))
 record("sched_weigh", "src/repro_torch/kernels/csrc/sched_weigh.cu",
        "src/repro/kernels/sched_weigh.py:35", w_ms, w_pms,
        M * (4 * (d + k * d + k) + k) + d * 4 + M * 9, weigh_ops(M, k))
+one = torch.zeros(1, device=DEV)     # a one-element op: the least a launch shows
 extra = dict(
+    launch_floor_ms=device_ms(lambda: one.add_(1)),
     sched_weigh_full_fleet_ms=device_ms(lambda: kernels.sched_weigh(*full_args), reps=20),
     sched_weigh_full_fleet_plain_ms=device_ms(lambda: kernels.sched_weigh_plain(*full_args), reps=20),
     sched_weigh_full_fleet_bound_ms=weigh_ops(n, k) / FP32_FLOPS * 1e3,
@@ -696,12 +743,22 @@ for name, b_, s_, h_, g_, hd_, dt, causal in flash_cases:
               f"flash {name}: two calls differ")
         flash_rows[name]["two_calls_bitwise_equal"] = True
 rms_rows = {}
-for name, rows_, d_, dt in (("prefill bf16", 4096, 1536, BF16), ("prefill f32", 4096, 1536, F32),
-                            ("decode bf16", 8, 1536, BF16)):
-    x = torch.randn((rows_, d_), generator=gen, device=DEV).to(dt)
-    w = (0.1 * torch.randn((d_,), generator=gen, device=DEV)).to(dt)
-    rms_rows[name] = dict(gap=within(kernels.rmsnorm(x, w, 1e-6), kernels.rmsnorm_plain(x, w, 1e-6),
-                                     RMS_TOL[dt], f"rmsnorm {name}", "rmsnorm"), tol=RMS_TOL[dt])
+for name, rows_, d_, dt, wdt, off in (
+        ("prefill bf16", 4096, 1536, BF16, BF16, 0), ("prefill f32", 4096, 1536, F32, F32, 0),
+        ("decode bf16", 8, 1536, BF16, BF16, 0), ("train bf16", 8192, 1536, BF16, BF16, 0),
+        ("x bf16, w f32", 4096, 1536, BF16, F32, 0), ("x f32, w bf16", 64, 2048, F32, BF16, 0),
+        ("odd width 1001, bf16", 64, 1001, BF16, BF16, 0),
+        ("rows one element past 16 bytes, bf16", 37, 1536, BF16, BF16, 1)):
+    x = torch.randn((rows_ * d_ + off,), generator=gen, device=DEV).to(dt)[off:].view(rows_, d_)
+    w = (0.1 * torch.randn((d_,), generator=gen, device=DEV)).to(wdt)
+    got = kernels.rmsnorm(x, w, 1e-6)
+    rms_rows[name] = dict(gap=within(got, kernels.rmsnorm_plain(x, w, 1e-6), RMS_TOL[dt],
+                                     f"rmsnorm {name}", "rmsnorm"), tol=RMS_TOL[dt])
+    bits = torch.int16 if dt == BF16 else torch.int32
+    check(torch.equal(got.view(bits), kernels.rmsnorm(x, w, 1e-6).view(bits)),
+          f"rmsnorm {name}: two calls differ")
+    rms_rows[name]["two_calls_bitwise_equal"] = True
+del got
 emit("model_kernels_vs_plain", flash_attention=flash_rows, rmsnorm=rms_rows,
      tolerance="|kernel - plain| <= tol * (1 + |plain|): bf16 outputs 2e-2 (one bf16 ulp, "
                "tests/test_kernels.py:40), f32 by summation order; ||o - plain|| / ||plain|| "
@@ -767,21 +824,25 @@ def cold_ms(fn, reps: int = 25) -> float:
     return float(np.median(times))
 
 
-rms_cold = dict(ms=cold_ms(lambda: kernels.rmsnorm(x, w, 1e-6)),
-                library_ms=cold_ms(lambda: F.rms_norm(x, (1536,), weight=w1, eps=1e-6)),
-                bound_ms=records["rmsnorm"]["bound_ms"])
+# RMSNorm at the paths' shapes, bf16: decode (8 rows), prefill (4 x 1,024)
+# and a training microbatch (2 x 4,096), warm and with the L2 flushed, and
+# F.rms_norm beside each
+rms_shapes = {}
+for rows_ in (8, 4096, 8192):
+    xs = x if rows_ == 4096 else torch.randn((rows_, 1536), generator=gen, device=DEV).to(BF16)
+    rms_shapes[f"{rows_}x1536"] = dict(
+        ms=device_ms(lambda: kernels.rmsnorm(xs, w, 1e-6)),
+        library_ms=device_ms(lambda: F.rms_norm(xs, (1536,), weight=w1, eps=1e-6)),
+        ms_l2_flushed=cold_ms(lambda: kernels.rmsnorm(xs, w, 1e-6)),
+        library_ms_l2_flushed=cold_ms(lambda: F.rms_norm(xs, (1536,), weight=w1, eps=1e-6)),
+        plain_ms=device_ms(lambda: kernels.rmsnorm_plain(xs, w, 1e-6)),
+        bound_ms=(2 * 2 * rows_ * 1536 + 2 * 1536) / HBM_BPS * 1e3)
 del FLUSH
-xd = x[:8].contiguous()
 emit("model_kernel_times", card=smi, method="device time per call (trace), median of 25",
-     rmsnorm_l2_flushed=rms_cold,
+     launch_floor_ms=device_ms(lambda: one.add_(1)), rmsnorm_by_shape=rms_shapes,
      **{r: {key: records[r][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for r in ("flash_attention", "flash_attention_f32", "rmsnorm")},
-     rmsnorm_decode_8x1536=dict(
-         ms=device_ms(lambda: kernels.rmsnorm(xd, w, 1e-6)),
-         plain_ms=device_ms(lambda: kernels.rmsnorm_plain(xd, w, 1e-6)),
-         library_ms=device_ms(lambda: F.rms_norm(xd, (1536,), weight=w1, eps=1e-6)),
-         bound_ms=(2 * 2 * 8 * 1536 + 2 * 1536) / HBM_BPS * 1e3))
-del q, k, v, qt, kt, vt, x, w, w1, xd
+        for r in ("flash_attention", "flash_attention_f32", "rmsnorm")})
+del q, k, v, qt, kt, vt, x, w, w1, xs
 
 # ---------------------------------------------------------------------------
 # 7. model parity: reduced qwen2-1.5b, the card against the CPU, f32

@@ -93,3 +93,22 @@ def packed_arrays(n: int, k: int, seed: int = 0) -> Tuple[Dict[str, np.ndarray],
         disk_gb=40,
     )
     return arrays, np.asarray(req.vec, np.float32)
+
+
+def weigh_arrays(n: int, k: int, d: int, seed: int = 0) -> Tuple[np.ndarray, ...]:
+    """Seeded inputs of the stage-2 enumeration (``sched_weigh``) off the
+    integer grid: ``(free_f (n,d), inst_res (n,k,d), inst_cost (n,k),
+    inst_valid (n,k), req (d,))``.  Fractional resources and costs; every
+    other host's costs on a 0.5 grid (exact ties); on every fifth host with
+    k >= 3 slot 0 costs exactly TIE_EPS (f32) more than slots 1 and 2
+    together; a third of the slots invalid, and every 17th host none valid."""
+    rng = np.random.default_rng(seed)
+    cost = (rng.random((n, k)) * 3600).astype(np.float32)
+    cost[::2] = np.round(cost[::2] / 300) * np.float32(0.5)
+    if k >= 3:
+        cost[::5, 0] = cost[::5, 1] + cost[::5, 2] + np.float32(1e-3)
+    valid = rng.random((n, k)) < 0.67
+    valid[::17] = False
+    return ((rng.random((n, d)) * 8).astype(np.float32),
+            (rng.random((n, k, d)) * 4).astype(np.float32), cost, valid,
+            (rng.random(d) * 10 + 2).astype(np.float32))

@@ -11,143 +11,242 @@
 // any subset is feasible.
 //
 // What bounds it on this card: operations.  A host reads K*D + 2K + D floats
-// (about 130 bytes at K=8, D=3) and does about 2^K * K * (D + 1) adds and
-// compares (8 K at K=8, 200 K at K=12), so the work per byte is in the
-// hundreds: FP32 throughput, not HBM, is the limit.  On the main path the
-// kernel runs on the M=64 shortlisted hosts, where the launch itself (a few
-// microseconds) is the real cost.
+// (about 130 bytes at K=8, D=3) and the enumeration needs about
+// 2^(K-1) * K * (D + 1) adds and 2^K * (D + 3) compares and selects (5.6 K
+// at K=8, D=3), far more than HBM's 295 operations a byte would allow.  On
+// the main path the kernel runs on the M=64 shortlisted hosts, where that is
+// a few nanoseconds of the card's FP32 rate: the launch and one chain of
+// dependent loads, adds and shuffles set the time.
 //
-// What the design does about it: one block per host, the threads striding
-// over the 2^K masks, the host's slots in shared memory so every thread reads
-// them at shared-memory speed; two block reductions (min cost, then min
-// (popcount, mask) key among the ties).  Sums run in ascending slot order so
-// the result equals the plain PyTorch version bit for bit (compiled with
-// --fmad=false; there is no multiply-add here to contract).  The TPU kernel
-// did the enumeration as a matmul on the MXU; a wgmma formulation is later
-// work.
+// What the design does about it:
+// - One enumeration.  Every mask's cost stays in a register of the thread
+//   that scored it (at most 16 a thread), so the tie-break reads them back
+//   instead of enumerating again.
+// - A warp per host up to K = 8 (four hosts a block), a block of 256 threads
+//   per host above: lane t owns the masks whose low bits are t's low bits
+//   (5 bits up to K = 8, 8 above; t mod 2^K below K = 5, where lanes repeat
+//   masks, which changes no min) and whose high bits i run over the
+//   2^(K - low) values unrolled at compile time.
+// - Fewer adds, the same bits.  Each thread first sums its low slots once,
+//   in ascending slot order (its row of the table of partial sums over the
+//   low slots, kept in registers); each mask then starts from that partial
+//   sum and adds the slots of its high bits in ascending order, which the
+//   compiler knows per unrolled i.  That is the sequence of f32 additions of
+//   sched_weigh_plain minus the slots outside the mask, whose +0.0 leaves a
+//   partial sum unchanged (a sum that starts at +0.0 is never -0.0), so the
+//   results equal the plain version bit for bit.  Compiled with
+//   --fmad=false; there is no multiply here to contract anyway.
+// - K and D are template parameters (K <= 12, D <= 8; the C entry switches
+//   on them), so every loop unrolls and every array is registers.
+// - Reductions: warp shuffles (min cost, the OR of feasibility by
+//   __any_sync, the min (popcount, mask) key), plus one shared-memory step
+//   across the 8 warps of a host above K = 8.  The host's slots are copied
+//   into shared memory by its own threads (invalid slots masked there), and
+//   a warp-per-host block needs no block barrier at all.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define WEIGH_MAX_K 12
-#define WEIGH_MAX_D 8
-#define WEIGH_THREADS 256
+namespace {
 
-static __device__ __forceinline__ float warp_min_f(float v) {
+constexpr float kPosInf = 1e30f;
+
+template <int K>
+struct Geometry {
+    //: threads scoring one host: a warp up to K = 8, 8 warps above
+    static constexpr int kHostThreads = K <= 8 ? 32 : 256;
+    //: mask bits taken from the thread index
+    static constexpr int kLowBits = K <= 8 ? (K < 5 ? K : 5) : 8;
+    static constexpr int kMasksPerThread = 1 << (K - kLowBits);
+    static constexpr int kHostsPerBlock = K <= 8 ? 4 : 1;
+    static constexpr int kThreads = kHostThreads * kHostsPerBlock;
+};
+
+struct Args {
+    const float* free_f;      // (N, D)
+    const float* inst_res;    // (N, K, D)
+    const float* inst_cost;   // (N, K)
+    const uint8_t* inst_valid;  // (N, K) 0/1
+    const float* req;         // (D,)
+    int n;
+    float tie_eps;
+    float* best_cost;         // (N,)
+    int32_t* best_mask;       // (N,)
+    uint8_t* feasible;        // (N,) 0/1
+};
+
+__device__ __forceinline__ float warp_min_f(float v) {
+#pragma unroll
     for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
 }
 
-static __device__ __forceinline__ unsigned warp_min_u(unsigned v) {
+__device__ __forceinline__ unsigned warp_min_u(unsigned v) {
+#pragma unroll
     for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
 }
 
-static __device__ __forceinline__ int warp_or(int v) {
-    for (int o = 16; o > 0; o >>= 1) v |= __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
+// Four blocks an SM is all a kernel of 128 or 256 threads needs; left to
+// itself ptxas aims the 128-thread blocks at full occupancy (32 registers)
+// and spills at K=8, D=4.
+template <int K, int D>
+__global__ void __launch_bounds__(Geometry<K>::kThreads, 4)
+sched_weigh_kernel(const Args a) {
+    using G = Geometry<K>;
+    constexpr int kLow = G::kLowBits, kP = G::kMasksPerThread;
+    constexpr int kWarps = G::kHostThreads / 32;   // warps of one host
+    __shared__ float s_res[G::kHostsPerBlock][K * D];
+    __shared__ float s_cost[G::kHostsPerBlock][K];
+    __shared__ float s_free[G::kHostsPerBlock][D];
+    __shared__ float s_red_f[kWarps];
+    __shared__ int s_red_i[kWarps];
+    __shared__ unsigned s_red_u[kWarps];
 
-__global__ void __launch_bounds__(WEIGH_THREADS)
-sched_weigh_kernel(const float* __restrict__ free_f,      // (N, D)
-                   const float* __restrict__ inst_res,    // (N, K, D)
-                   const float* __restrict__ inst_cost,   // (N, K)
-                   const uint8_t* __restrict__ inst_valid,  // (N, K) 0/1
-                   const float* __restrict__ req,         // (D,)
-                   int k, int d, float tie_eps,
-                   float* __restrict__ best_cost,         // (N,)
-                   int32_t* __restrict__ best_mask,       // (N,)
-                   uint8_t* __restrict__ feasible) {      // (N,) 0/1
-    const int host = blockIdx.x;
-    const int tid = threadIdx.x;
-    __shared__ float s_res[WEIGH_MAX_K * WEIGH_MAX_D];
-    __shared__ float s_cost[WEIGH_MAX_K];
-    __shared__ float s_free[WEIGH_MAX_D];
-    __shared__ float s_need[WEIGH_MAX_D];
-    __shared__ float s_red_f[WEIGH_THREADS / 32];
-    __shared__ unsigned s_red_u[WEIGH_THREADS / 32];
-    __shared__ int s_red_i[WEIGH_THREADS / 32];
-    __shared__ float s_best;
+    const int g = threadIdx.x / G::kHostThreads;   // host within the block
+    const int t = threadIdx.x % G::kHostThreads;   // thread within the host
+    const int host = blockIdx.x * G::kHostsPerBlock + g;
+    // a whole warp (or the whole block above K = 8) shares the host
+    if (host >= a.n) return;
+    const size_t h = static_cast<size_t>(host);
 
     // Invalid slots free nothing and poison any subset they join.
-    for (int i = tid; i < k * d; i += blockDim.x) {
-        const int s = i / d;
-        const bool v = inst_valid[(size_t)host * k + s] != 0;
-        s_res[i] = v ? inst_res[(size_t)host * k * d + i] : 0.0f;
+    for (int e = t; e < K * D; e += G::kHostThreads) {
+        const bool v = a.inst_valid[h * K + e / D] != 0;
+        s_res[g][e] = v ? a.inst_res[h * K * D + e] : 0.0f;
     }
-    for (int s = tid; s < k; s += blockDim.x) {
-        const bool v = inst_valid[(size_t)host * k + s] != 0;
-        s_cost[s] = v ? inst_cost[(size_t)host * k + s] : 1e30f;
-    }
-    for (int j = tid; j < d; j += blockDim.x) {
-        s_free[j] = free_f[(size_t)host * d + j];
-        s_need[j] = req[j] - 1e-6f;
-    }
-    __syncthreads();
+    for (int s = t; s < K; s += G::kHostThreads)
+        s_cost[g][s] = a.inst_valid[h * K + s] != 0 ? a.inst_cost[h * K + s] : kPosInf;
+    for (int j = t; j < D; j += G::kHostThreads) s_free[g][j] = a.free_f[h * D + j];
+    if (kWarps == 1) __syncwarp(); else __syncthreads();
 
-    const int n_masks = 1 << k;
-    float t_best = 1e30f;
-    int t_feas = 0;
-    for (int m = tid; m < n_masks; m += blockDim.x) {
-        bool ok = true;
-        for (int j = 0; j < d; ++j) {
-            float freed = 0.0f;
-            for (int s = 0; s < k; ++s)
-                if ((m >> s) & 1) freed = freed + s_res[s * d + j];
-            ok = ok && (s_free[j] + freed >= s_need[j]);
+    // this thread's row of the low-slot table: slot sums over the low bits of
+    // t, in ascending slot order (tab[D] is the cost)
+    const int lo = t & ((1 << kLow) - 1);
+    float tab[D + 1];
+#pragma unroll
+    for (int j = 0; j <= D; ++j) tab[j] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kLow; ++s) {
+        if ((lo >> s) & 1) {
+#pragma unroll
+            for (int j = 0; j < D; ++j) tab[j] = tab[j] + s_res[g][s * D + j];
+            tab[D] = tab[D] + s_cost[g][s];
         }
-        float sub = 0.0f;
-        for (int s = 0; s < k; ++s)
-            if ((m >> s) & 1) sub = sub + s_cost[s];
-        sub = ok ? sub : 1e30f;
-        t_best = fminf(t_best, sub);
-        t_feas |= ok ? 1 : 0;
+    }
+    float free_j[D], need[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+        free_j[j] = s_free[g][j];
+        need[j] = a.req[j] - 1e-6f;
     }
 
-    const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
-    float wb = warp_min_f(t_best);
-    int wf = warp_or(t_feas);
-    if (lane == 0) { s_red_f[warp] = wb; s_red_i[warp] = wf; }
-    __syncthreads();
-    if (tid == 0) {
-        float b = s_red_f[0];
-        int f = s_red_i[0];
-        for (int w = 1; w < n_warps; ++w) { b = fminf(b, s_red_f[w]); f |= s_red_i[w]; }
-        s_best = b;
-        best_cost[host] = b;
-        feasible[host] = f ? 1 : 0;
+    // every mask (i << kLow) | lo: the high slots of i added in ascending order
+    float sub[kP];
+    float t_best = kPosInf;
+    bool t_ok = false;
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+        float f[D + 1];
+#pragma unroll
+        for (int j = 0; j <= D; ++j) f[j] = tab[j];
+#pragma unroll
+        for (int s = kLow; s < K; ++s) {
+            if ((i >> (s - kLow)) & 1) {
+#pragma unroll
+                for (int j = 0; j < D; ++j) f[j] = f[j] + s_res[g][s * D + j];
+                f[D] = f[D] + s_cost[g][s];
+            }
+        }
+        bool ok = true;
+#pragma unroll
+        for (int j = 0; j < D; ++j) ok &= free_j[j] + f[j] >= need[j];
+        sub[i] = ok ? f[D] : kPosInf;
+        t_best = fminf(t_best, sub[i]);
+        t_ok |= ok;
     }
-    __syncthreads();
+
+    float best = warp_min_f(t_best);
+    int feas = __any_sync(0xffffffffu, t_ok);
+    const int warp = t >> 5, lane = t & 31;
+    if (kWarps > 1) {
+        if (lane == 0) { s_red_f[warp] = best; s_red_i[warp] = feas; }
+        __syncthreads();
+        best = s_red_f[0];
+        feas = s_red_i[0];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) { best = fminf(best, s_red_f[w]); feas |= s_red_i[w]; }
+    }
 
     // Tie-break among masks within tie_eps of the best: fewest instances,
     // then lowest mask index (the plain version's argmin first hit).
-    const float bound = s_best + tie_eps;
-    unsigned t_key = 0xffffffffu;
-    for (int m = tid; m < n_masks; m += blockDim.x) {
-        bool ok = true;
-        for (int j = 0; j < d; ++j) {
-            float freed = 0.0f;
-            for (int s = 0; s < k; ++s)
-                if ((m >> s) & 1) freed = freed + s_res[s * d + j];
-            ok = ok && (s_free[j] + freed >= s_need[j]);
-        }
-        float sub = 0.0f;
-        for (int s = 0; s < k; ++s)
-            if ((m >> s) & 1) sub = sub + s_cost[s];
-        sub = ok ? sub : 1e30f;
-        if (sub <= bound) {
-            const unsigned key = ((unsigned)__popc(m) << 16) | (unsigned)m;
-            t_key = min(t_key, key);
-        }
+    const float bound = best + a.tie_eps;
+    const unsigned lo_pop = static_cast<unsigned>(__popc(lo));
+    unsigned key = 0xffffffffu;
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+        const unsigned m = (static_cast<unsigned>(i) << kLow) | static_cast<unsigned>(lo);
+        const unsigned k_i = ((lo_pop + static_cast<unsigned>(__popc(i))) << 16) | m;
+        if (sub[i] <= bound) key = min(key, k_i);
     }
-    unsigned wk = warp_min_u(t_key);
-    if (lane == 0) s_red_u[warp] = wk;
-    __syncthreads();
-    if (tid == 0) {
-        unsigned key = s_red_u[0];
-        for (int w = 1; w < n_warps; ++w) key = min(key, s_red_u[w]);
-        best_mask[host] = (int32_t)(key & 0xffffu);
+    key = warp_min_u(key);
+    if (kWarps > 1) {
+        if (lane == 0) s_red_u[warp] = key;
+        __syncthreads();
+        key = s_red_u[0];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) key = min(key, s_red_u[w]);
+    }
+    if (t == 0) {
+        a.best_cost[h] = best;
+        a.best_mask[h] = static_cast<int32_t>(key & 0xffffu);
+        a.feasible[h] = feas ? 1 : 0;
     }
 }
+
+using LaunchFn = void (*)(const Args&, cudaStream_t);
+
+template <int K, int D>
+void launch(const Args& a, cudaStream_t stream) {
+    using G = Geometry<K>;
+    const int blocks = (a.n + G::kHostsPerBlock - 1) / G::kHostsPerBlock;
+    sched_weigh_kernel<K, D><<<blocks, G::kThreads, 0, stream>>>(a);
+}
+
+template <int K>
+LaunchFn pick_d(int d) {
+    switch (d) {
+    case 1: return &launch<K, 1>;
+    case 2: return &launch<K, 2>;
+    case 3: return &launch<K, 3>;
+    case 4: return &launch<K, 4>;
+    case 5: return &launch<K, 5>;
+    case 6: return &launch<K, 6>;
+    case 7: return &launch<K, 7>;
+    case 8: return &launch<K, 8>;
+    default: return nullptr;
+    }
+}
+
+//: the instantiation for (K, D), K = 1..12 and D = 1..8
+LaunchFn pick(int k, int d) {
+    switch (k) {
+    case 1: return pick_d<1>(d);
+    case 2: return pick_d<2>(d);
+    case 3: return pick_d<3>(d);
+    case 4: return pick_d<4>(d);
+    case 5: return pick_d<5>(d);
+    case 6: return pick_d<6>(d);
+    case 7: return pick_d<7>(d);
+    case 8: return pick_d<8>(d);
+    case 9: return pick_d<9>(d);
+    case 10: return pick_d<10>(d);
+    case 11: return pick_d<11>(d);
+    case 12: return pick_d<12>(d);
+    default: return nullptr;
+    }
+}
+
+}  // namespace
 
 extern "C" int sched_weigh_launch(const void* free_f, const void* inst_res,
                                   const void* inst_cost, const void* inst_valid,
@@ -155,12 +254,12 @@ extern "C" int sched_weigh_launch(const void* free_f, const void* inst_res,
                                   float tie_eps, void* best_cost, void* best_mask,
                                   void* feasible, void* stream) {
     if (n <= 0) return 0;
-    int threads = 1 << k;
-    if (threads < 32) threads = 32;
-    if (threads > WEIGH_THREADS) threads = WEIGH_THREADS;
-    sched_weigh_kernel<<<n, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)free_f, (const float*)inst_res, (const float*)inst_cost,
-        (const uint8_t*)inst_valid, (const float*)req, k, d, tie_eps,
-        (float*)best_cost, (int32_t*)best_mask, (uint8_t*)feasible);
-    return (int)cudaGetLastError();
+    const LaunchFn fn = pick(k, d);
+    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const Args a{static_cast<const float*>(free_f), static_cast<const float*>(inst_res),
+                 static_cast<const float*>(inst_cost), static_cast<const uint8_t*>(inst_valid),
+                 static_cast<const float*>(req), n, tie_eps, static_cast<float*>(best_cost),
+                 static_cast<int32_t*>(best_mask), static_cast<uint8_t*>(feasible)};
+    fn(a, static_cast<cudaStream_t>(stream));
+    return static_cast<int>(cudaGetLastError());
 }

@@ -3,12 +3,15 @@
 Port of ``repro.kernels.rmsnorm`` (the Pallas TPU kernel ``_kernel``), which
 computes the formula of ``repro.models.layers.rms_norm``:
 ``x * rsqrt(mean(x^2) + eps) * (1 + w)`` in f32 over the last axis, cast
-back to x's type.  The kernel is ``csrc/rmsnorm.cu`` (CUDA C++, one block
-per row).  CUDA C++ and not Triton: the job is a row reduction and an
-elementwise pass, which either route writes in a few lines, and CUDA keeps
-one build path for every kernel of the port (``_build``: one ``nvcc`` per
-source, a plain C interface through ``ctypes``, the launch error checked by
-the wrapper), where Triton would add a second compiler and cache.
+back to x's type.  The kernel is ``csrc/rmsnorm.cu`` (CUDA C++: one warp,
+or a few, a row, 16-byte loads and stores, the row held in registers between
+the sum of squares and the scale; a scalar kernel for widths that are not a
+multiple of 16 bytes and rows that are not 16-byte aligned).  CUDA C++ and
+not Triton: the job is a row reduction and an elementwise pass, which either
+route writes in a few lines, and CUDA keeps one build path for every kernel
+of the port (``_build``: one ``nvcc`` per source, a plain C interface through
+``ctypes``, the launch error checked by the wrapper), where Triton would add
+a second compiler and cache.
 
 The tensor's device picks the version: a CPU tensor runs the plain version,
 a CUDA tensor launches the kernel or raises; nothing falls back.  On the

@@ -45,7 +45,7 @@ def _eq(got, want):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
-@pytest.mark.parametrize("k,n", [(8, 65536), (12, 64), (3, 1000)])
+@pytest.mark.parametrize("k,n", [(8, 65536), (12, 64), (3, 1000), (12, 4096)])
 def test_sched_weigh_matches_plain(cuda_device, k, n):
     rng = np.random.default_rng(k + n)
     f = _rand_fleet(rng, n, k, cuda_device)
@@ -156,6 +156,26 @@ def test_decisions_match_cpu(cuda_device):
 # ---------------------------------------------------------------------------
 # The model-serving kernels: flash-attention forward and RMSNorm
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", range(1, 13))
+def test_sched_weigh_fractional_matches_plain(cuda_device, k):
+    """Off the integer grid, bit for bit: fractional resources and costs,
+    exact ties, a tie at TIE_EPS, invalid slots, hosts with none valid; D runs
+    over 1..8 as K runs over 1..12."""
+    d = 1 + (k - 1) % 8
+    args = tuple(torch.from_numpy(a).to(cuda_device)
+                 for a in fleets.weigh_arrays(300, k, d, seed=k))
+    got = kernels.sched_weigh(*args)
+    for g, w in zip(got, kernels.sched_weigh_plain(*args)):
+        _eq(g, w)
+
+
+@pytest.mark.parametrize("k,n", [(8, 65536), (12, 4096)])
+def test_sched_weigh_two_calls_same_bits(cuda_device, k, n):
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in fleets.weigh_arrays(n, k, 3, seed=n))
+    for a, b in zip(kernels.sched_weigh(*args), kernels.sched_weigh(*args)):
+        assert torch.equal(a, b)
+
 
 #: bf16 outputs may round one ulp apart (2e-2, as the JAX package's kernel
 #: tests); f32 outputs differ by summation order only
@@ -268,7 +288,8 @@ def test_flash_bf16_kernels_are_deterministic(cuda_device, shape):
                            b_.view(torch.uint8) if b_.dtype == torch.bfloat16 else b_), name
 
 
-@pytest.mark.parametrize("rows,d", [(4096, 1536), (8, 1536), (100, 384), (3, 2048)])
+@pytest.mark.parametrize("rows,d", [(4096, 1536), (8, 1536), (100, 384), (3, 2048),
+                                    (8192, 1536), (64, 1001), (16, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_rmsnorm_matches_plain(cuda_device, rows, d, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(rows)
@@ -280,6 +301,35 @@ def test_rmsnorm_matches_plain(cuda_device, rows, d, dtype):
     assert kernels.launch_counts()["rmsnorm"] == 1
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     _close(got, kernels.rmsnorm_plain(x, w, 1e-6), tol)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "row_offset_1"])
+@pytest.mark.parametrize("x_dt,w_dt", [(torch.bfloat16, torch.bfloat16),
+                                       (torch.bfloat16, torch.float32),
+                                       (torch.float32, torch.bfloat16),
+                                       (torch.float32, torch.float32)], ids=str)
+def test_rmsnorm_types_and_misaligned_rows(cuda_device, x_dt, w_dt, offset):
+    """Every x / w type pair, and rows that start one element past a 16-byte
+    boundary (a contiguous view into a larger buffer)."""
+    rows, d = 37, 1536
+    gen = torch.Generator(device=cuda_device).manual_seed(offset)
+    flat = torch.randn((rows * d + offset,), generator=gen, device=cuda_device).to(x_dt)
+    x = flat[offset:].view(rows, d)
+    w = (0.1 * torch.randn((d,), generator=gen, device=cuda_device)).to(w_dt)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+    kernels.reset_launch_counts()
+    got = kernels.rmsnorm(x, w, 1e-6)
+    assert kernels.launch_counts()["rmsnorm"] == 1
+    _close(got, kernels.rmsnorm_plain(x, w, 1e-6), 2e-2 if x_dt == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("rows,d", [(8192, 1536), (64, 1001)])
+def test_rmsnorm_two_calls_same_bits(cuda_device, rows, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn((rows, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = (0.1 * torch.randn((d,), generator=gen, device=cuda_device)).to(torch.bfloat16)
+    a, b = kernels.rmsnorm(x, w, 1e-6), kernels.rmsnorm(x, w, 1e-6)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 def test_reduced_model_matches_cpu(cuda_device):

@@ -16,6 +16,7 @@ from repro.core.jax_scheduler import host_plan_terms, subset_masks
 from repro.kernels.sched_weigh import sched_weigh as jax_sched_weigh
 from repro.kernels.sched_weigh import sched_weigh_gathered as jax_gathered
 from repro_torch import kernels
+from repro_torch.core import fleets
 
 torch.set_num_threads(1)
 
@@ -110,3 +111,83 @@ def test_rejects_bad_input_on_cuda_path():
     arrays = _t(*_rand_soa(rng, 4, 4))
     with pytest.raises(ValueError, match="must be"):
         _check_cuda(arrays[0].double(), *arrays[1:])
+
+
+def _low_bits(k):
+    """Mask bits a thread of ``csrc/sched_weigh.cu`` takes from its index
+    (``Geometry<K>::kLowBits``): 5 up to K = 8 (fewer below K = 5), 8 above."""
+    return min(k, 5) if k <= 8 else 8
+
+
+def _weigh_emulated(free_f, inst_res, inst_cost, inst_valid, req, low):
+    """The kernel's order in numpy f32: each mask's slot sums start from the
+    table entry of its low ``low`` bits (slots summed in ascending order, the
+    ones outside the mask skipped) and add its high slots in ascending order;
+    then min cost, the min (popcount << 16 | mask) key among masks within
+    TIE_EPS of it, and the OR of feasibility."""
+    f32 = np.float32
+    n, k, d = inst_res.shape
+    vals = np.concatenate([np.where(inst_valid[..., None], inst_res, f32(0)),
+                           np.where(inst_valid, inst_cost, f32(1e30))[..., None]], axis=2)
+    table = np.zeros((n, 1 << low, d + 1), f32)
+    for t in range(1 << low):
+        for s in range(low):
+            if (t >> s) & 1:
+                table[:, t] = table[:, t] + vals[:, s]
+    m = np.arange(1 << k)
+    f = table[:, m & ((1 << low) - 1)]
+    for s in range(low, k):
+        bit = ((m >> s) & 1).astype(bool)
+        f[:, bit] = f[:, bit] + vals[:, s][:, None, :]
+    ok = np.all(free_f[:, None, :] + f[:, :, :d] >= req - f32(1e-6), axis=2)
+    sub = np.where(ok, f[:, :, d], f32(1e30))
+    best = sub.min(axis=1)
+    pop = np.array([bin(int(i)).count("1") for i in m])
+    keys = np.where(sub <= (best + f32(kernels.TIE_EPS))[:, None], (pop << 16) | m, 1 << 30)
+    return best, (keys.min(axis=1) & 0xFFFF).astype(np.int32), ok.any(axis=1)
+
+
+#: K at which XLA's CPU dot (the jitted ``host_plan_terms`` and the Pallas
+#: kernel in interpret mode) does not add a mask's slots in ascending order:
+#: K=4 adds ((c0 + c1) + (c2 + c3)) (``test_xla_dot_adds_k4_pairwise``), K=5
+#: in another tree.  Off a dyadic grid the JAX package's sums may then differ
+#: from the ascending order by an ulp; on the 1/4 grid every order gives the
+#: same sums.
+XLA_TREE_K = (4, 5)
+
+
+def _on_grid(arrays):
+    return tuple(a if a.dtype == bool else (np.round(a * 4) / 4).astype(np.float32)
+                 for a in arrays)
+
+
+@pytest.mark.parametrize("k", range(1, 13))
+def test_kernel_order_is_bitwise_plain_and_jax(k):
+    """The CUDA kernel's order of additions (a table over the low slots, then
+    the high slots in ascending order) gives the plain version's bits, and the
+    JAX package's wherever XLA adds in ascending order, off the integer grid:
+    fractional resources and costs, exact ties, a tie at TIE_EPS, invalid
+    slots, hosts with none valid; D = 1..8.  Every split of the mask bits
+    does, the kernel's own among them."""
+    d = 1 + (k - 1) % 8
+    arrays = fleets.weigh_arrays(48, k, d, seed=100 + k)
+    splits = sorted({0, k // 2, (k + 1) // 2, k, _low_bits(k)})
+    for case in (arrays, _on_grid(arrays)):
+        want = kernels.sched_weigh_plain(*_t(*case))
+        for low in splits:
+            _assert_same(want, _weigh_emulated(*case, low))
+        if k not in XLA_TREE_K or case is not arrays:
+            _assert_same(want, jax.jit(host_plan_terms)(*case, subset_masks(k)))
+            _assert_same(want, jax_sched_weigh(*case, subset_masks(k), interpret=True))
+        assert np.any(want[2].numpy()) and not np.all(want[2].numpy())
+
+
+def test_xla_dot_adds_k4_pairwise():
+    """Why XLA_TREE_K holds 4: XLA's CPU dot of K=4 slot costs against the
+    0/1 masks adds ((c0 + c1) + (c2 + c3)), not ((c0 + c1) + c2) + c3."""
+    arrays = fleets.weigh_arrays(400, 4, 3, seed=7)
+    cost = np.where(arrays[3], arrays[2], np.float32(1e30))
+    got = np.asarray(jax.jit(lambda c, m: c @ m.T)(cost, subset_masks(4)))
+    c = np.where(subset_masks(4)[None] > 0.5, cost[:, None, :], np.float32(0))
+    np.testing.assert_array_equal(got, (c[..., 0] + c[..., 1]) + (c[..., 2] + c[..., 3]))
+    assert not np.array_equal(got, ((c[..., 0] + c[..., 1]) + c[..., 2]) + c[..., 3])

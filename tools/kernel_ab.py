@@ -1,0 +1,174 @@
+"""Time this checkout's RMSNorm and ``sched_weigh`` CUDA kernels against
+another checkout's, on one NVIDIA GPU, in turns (other, this, this, other).
+
+    python3 tools/kernel_ab.py --other DIR
+
+``DIR`` is the root of another checkout of this repository (for example an
+earlier commit unpacked with ``git archive``).  Both trees'
+``src/repro_torch/kernels/csrc/rmsnorm.cu`` and ``sched_weigh.cu`` are
+compiled with this checkout's ``nvcc`` flags, all four at once, and called
+through their C entries (``rmsnorm_launch``, ``sched_weigh_launch``), whose
+signatures both trees must share.  Each case prints one JSON line: the
+device time of one call (``torch.profiler`` spans, median of ``--reps``) for
+each turn, warm and, for RMSNorm, with the L2 flushed before every call;
+``F.rms_norm`` beside RMSNorm; the device time of a one-element PyTorch op
+(the launch floor); and whether the two trees' outputs agree (bit for bit
+for ``sched_weigh``; RMSNorm's largest gap between the trees).  Nothing
+here imports JAX or the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch.core.fleets import weigh_arrays  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.rmsnorm import _LAUNCH_ARGTYPES as RMS_ARGTYPES  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.sched_weigh import _LAUNCH_ARGTYPES as WEIGH_ARGTYPES  # noqa: E402
+from repro_torch.kernels.sched_weigh import TIE_EPS, sched_weigh_plain  # noqa: E402
+
+SOURCES = {"rmsnorm": ("rmsnorm_launch", RMS_ARGTYPES),
+           "sched_weigh": ("sched_weigh_launch", WEIGH_ARGTYPES)}
+
+
+def build(trees, out_dir):
+    """One library per (tree, source), all ``nvcc`` runs started together;
+    returns {(tree, source): C entry} and this tree's ptxas reports."""
+    procs = {}
+    for tree in trees:
+        for name in SOURCES:
+            lib = os.path.join(out_dir, f"{tree}-{name}.so")
+            src = os.path.join(trees[tree], "src/repro_torch/kernels/csrc", f"{name}.cu")
+            procs[tree, name] = (lib, subprocess.Popen(
+                [_build.nvcc_path(), *_build._flags(name), "-o", lib, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    entries, logs = {}, {}
+    for (tree, name), (lib, proc) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode:
+            sys.exit(f"nvcc failed for {tree} {name}:\n{log}")
+        symbol, argtypes = SOURCES[name]
+        fn = getattr(ctypes.CDLL(lib), symbol)
+        fn.restype, fn.argtypes = ctypes.c_int, list(argtypes)
+        entries[tree, name] = fn
+        logs[tree, name] = log
+    return entries, logs
+
+
+def device_ms(fn, reps, flush=None):
+    """Median device time of one call of ``fn`` from a profiler trace (the
+    spans of ``flush``'s fill left out)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.fill_(1)
+            fn()
+            torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "FillFunctor" not in e.name)
+    if not spans:
+        raise RuntimeError(f"no device spans in {reps} calls")
+    if len(spans) % reps:                       # a span lost or one-off: the mean
+        return sum(b - a for a, b in spans) / reps / 1e3
+    per = len(spans) // reps
+    return float(np.median([sum(b - a for a, b in spans[i * per:(i + 1) * per])
+                            for i in range(reps)])) / 1e3
+
+
+def turns(fns, reps, flush=None):
+    """other, this, this, other: each turn's time."""
+    return {f"{tree}_{i}": device_ms(fns[tree], reps, flush)
+            for i, tree in enumerate(("other", "this", "this", "other"))}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True, help="root of the other checkout")
+    ap.add_argument("--reps", type=int, default=50)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("kernel_ab.py: no CUDA device visible")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": smi, "torch": torch.__version__, "other": args.other}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        entries, logs = build({"other": os.path.abspath(args.other), "this": ROOT}, tmp)
+        for name in SOURCES:
+            _build.BUILD_LOG[name] = logs["this", name]
+            report = _build.ptxas_report(name)
+            print(json.dumps({"ptxas": name, "kernels": len(report),
+                              "max_registers": max(c.get("registers", 0) for c in report.values()),
+                              "max_stack": max(c.get("stack", 0) for c in report.values()),
+                              "spill_bytes": sum(c.get("spill_stores", 0) + c.get("spill_loads", 0)
+                                                 for c in report.values()),
+                              "with_stack_or_spills": {f: c for f, c in report.items()
+                                                       if c.get("stack") or c.get("spill_stores")}}),
+                  flush=True)
+        one = torch.zeros(1, device="cuda")
+        print(json.dumps({"launch_floor_ms": device_ms(lambda: one.add_(1), args.reps)}), flush=True)
+        stream = torch.cuda.current_stream().cuda_stream
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for rows, d, dt in ((8, 1536, torch.bfloat16), (4096, 1536, torch.bfloat16),
+                            (8192, 1536, torch.bfloat16), (4096, 1536, torch.float32)):
+            x = torch.randn((rows, d), generator=gen, device="cuda").to(dt)
+            w = (0.1 * torch.randn((d,), generator=gen, device="cuda")).to(dt)
+            w1 = 1.0 + w
+            outs = {tree: torch.empty_like(x) for tree in ("other", "this")}
+            bf = int(dt == torch.bfloat16)
+            fns = {tree: (lambda t=tree: _build.check(entries[t, "rmsnorm"](
+                x.data_ptr(), w.data_ptr(), outs[t].data_ptr(), rows, d, 1e-6, bf, bf, stream),
+                t)) for tree in outs}
+            for fn in fns.values():
+                fn()
+            plain = rmsnorm_plain(x, w, 1e-6).double()
+            lib = lambda: F.rms_norm(x, (d,), weight=w1, eps=1e-6)  # noqa: E731
+            print(json.dumps({
+                "case": f"rmsnorm {rows}x{d} {str(dt)[6:]}",
+                "gap_this_other": float((outs["this"].double() - outs["other"].double()).abs().max()),
+                "gap_this_plain": float((outs["this"].double() - plain).abs().max()),
+                "bound_ms": (2 * x.element_size() * rows * d + w.element_size() * d) / 3.35e12 * 1e3,
+                "warm": turns(fns, args.reps), "library_warm": device_ms(lib, args.reps),
+                "l2_flushed": turns(fns, args.reps, flush),
+                "library_l2_flushed": device_ms(lib, args.reps, flush)}), flush=True)
+
+        for n, k in ((64, 8), (64, 12), (65536, 8), (4096, 12), (65536, 12)):
+            d = 3
+            inp = tuple(torch.from_numpy(a).cuda() for a in weigh_arrays(n, k, d, seed=n + k))
+            outs = {tree: (torch.empty(n, device="cuda"),
+                           torch.empty(n, dtype=torch.int32, device="cuda"),
+                           torch.empty(n, dtype=torch.bool, device="cuda")) for tree in ("other", "this")}
+            fns = {tree: (lambda t=tree: _build.check(entries[t, "sched_weigh"](
+                *(a.data_ptr() for a in inp), n, k, d, TIE_EPS,
+                *(o.data_ptr() for o in outs[t]), stream), t)) for tree in outs}
+            for fn in fns.values():
+                fn()
+            plain = sched_weigh_plain(*inp)
+            print(json.dumps({
+                "case": f"sched_weigh n={n} k={k} d={d}",
+                "this_equals_other": all(torch.equal(a, b) for a, b in zip(outs["this"], outs["other"])),
+                "this_equals_plain": all(torch.equal(a, b) for a, b in zip(outs["this"], plain)),
+                "bound_ms": n * ((1 << (k - 1)) * k * (d + 1) + (1 << k) * (d + 3)) / 67e12 * 1e3,
+                "warm": turns(fns, args.reps)}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
