@@ -11,7 +11,9 @@ exits non-zero:
                started together): seconds per source, and the count of
                HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS
                of each tensor-core kernel, which must not be 0, and ptxas's
-               registers and spill bytes of each; ptxas's registers, stack
+               registers and spill bytes of each; the f32 backward kernels'
+               SASS, which must hold no HMMA or HGMMA, and their ptxas
+               registers, stack and spills; ptxas's registers, stack
                frame and spill bytes of every screen kernel, the K=8 ones
                with no stack frame and no spills; of every RMSNorm and
                sched_weigh instantiation, none with spills;
@@ -21,7 +23,8 @@ exits non-zero:
                exactly equal on integer-valued inputs and on the non-integer
                cases (a fractional clock; the weigher vectors (2, 1, 0.7, 1)
                and (8, 1, 8, 8); the enumeration on fractional inputs at
-               K=1..12 and D=1..8, on 64 and 4,096 hosts), two calls of the
+               K=1..12 and D=1..8, on 64 and 4,096 hosts, and at K=4 and 5,
+               whose sums follow XLA's trees, on 1 and 2), two calls of the
                enumeration the same bits; kernel / plain / bound times
                (medians) beside a one-element op's (the launch floor); then
                the screen at 2^20 packed hosts, nearly all tied: exactly
@@ -58,17 +61,19 @@ exits non-zero:
                on the CUDA cores) against
                ``flash_attention_bwd_plain`` on the same inputs at
                qwen2-1.5b's training shape (B=2, S=4,096, bf16), gemma-2b's
-               (hd=256, MQA), a ragged (S=1,000), a full and an f32 case,
-               each gap against a stated tolerance, two calls giving the
-               same bits, the reduction exactly equal to its plain version;
+               (hd=256, MQA), a ragged (S=1,000), a full and three f32
+               cases (S=77; 1 x 2,048 at qwen2's heads; gemma-2b's), each
+               gap against a stated tolerance, two calls giving the same
+               bits, both reductions exactly equal to their plain versions;
                kernel / plain / bound / library times, the forward's too,
-               and the f32 routes' (dq at phase 10's shape);
+               and the f32 route's dq, dk/dv and reduction at 1 x 2,048,
+               2 x 4,096 and phase 10's shape;
 10. train_parity — reduced qwen2-1.5b in f32, flash attention, full remat,
                the same weights on the card and on the CPU: three
                ``make_train_step`` steps agree; then a ``Trainer`` run of 8
                steps against one preempted after 4 and resumed by a fresh
                ``Trainer``, which must end bitwise equal; the launches of
-               the f32 flash routes this path runs;
+               the f32 flash kernels this path runs;
 11. train    — full-width qwen2-1.5b (f32 master weights and AdamW state,
                bf16 compute, flash attention, full remat, 4 x 4,096 tokens a
                step as 2 microbatches): 3 steps, a preemption through the
@@ -78,7 +83,8 @@ exits non-zero:
                drain and restore seconds, launch counts checked against the
                path, the device's busy share and time by kernel class over
                one traced step, and the first step against reference
-               attention on the same batch;
+               attention on the same batch (its f32 half runs the f32 flash
+               kernels, whose launches are counted against the path);
 12. the ``kernels`` line, then the card's name and power limit, then the
     result line.
 
@@ -257,7 +263,8 @@ def max_gap(a, b) -> float:
 GAPS = {"sched_screen_consts": 0.0, "sched_screen_topm": 0.0, "sched_screen": 0.0,
         "sched_weigh": 0.0, "flash_attention": 0.0, "flash_attention_f32": 0.0, "rmsnorm": 0.0,
         "flash_attention_dq": 0.0, "flash_attention_dq_f32": 0.0, "flash_attention_dkv": 0.0,
-        "flash_attention_dkv_reduce": 0.0, "flash_attention_dkv_f32": 0.0}
+        "flash_attention_dkv_reduce": 0.0, "flash_attention_dkv_f32": 0.0,
+        "flash_attention_dkv_reduce_f32": 0.0}
 
 
 def same(a, b, what: str, kernel: str) -> None:
@@ -302,7 +309,7 @@ build_s = time.perf_counter() - t0
 # the tensor-core kernels reach the tensor cores (HGMMA: wgmma) and TMA
 # (UTMALDG), read from the SASS of each library
 cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-sass_counts = {}
+sass_counts, f32_sass = {}, {}
 for src in ("flash_attention", "flash_attention_bwd"):
     sass = subprocess.run([cuobjdump, "--dump-sass", paths[src]], capture_output=True, text=True,
                           check=True).stdout
@@ -310,6 +317,15 @@ for src in ("flash_attention", "flash_attention_bwd"):
         fn_name = chunk.split(None, 1)[0]
         if "wgmma_kernel" in fn_name:
             sass_counts[fn_name] = dict(HGMMA=chunk.count("HGMMA"), UTMALDG=chunk.count("UTMALDG"))
+        if src == "flash_attention_bwd" and "f32_kernel" in fn_name:
+            f32_sass[fn_name] = dict(HMMA=chunk.count("HMMA"), HGMMA=chunk.count("HGMMA"),
+                                     FFMA=chunk.count("FFMA"))
+# the f32 backward kernels (dq and dk/dv at each head dim, the reduction)
+# stay on the CUDA cores in full f32: no tensor-core instruction at all
+check(len(f32_sass) == 2 * len(HEAD_DIMS) + 1, f"build: {len(f32_sass)} f32 backward kernels in the SASS")
+for f, c in f32_sass.items():
+    check(c["HMMA"] == 0 and c["HGMMA"] == 0 and (c["FFMA"] > 0 or "reduce" in f),
+          f"build: {f} has {c} in its SASS")
 for kernel_name in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
     found = {f: c for f, c in sass_counts.items() if kernel_name in f}
     check(len(found) == len(HEAD_DIMS), f"build: {len(found)} instantiations of {kernel_name}")
@@ -326,6 +342,13 @@ for src in ("flash_attention", "flash_attention_bwd"):
     check(len(found) == (1 if src == "flash_attention" else 2) * len(HEAD_DIMS),
           f"build: ptxas reported {len(found)} tensor-core kernels of {src}.cu")
     ptxas.update(found)
+# and of the f32 backward kernels
+f32_ptxas = "library cached from an earlier build: no report"
+if "flash_attention_bwd" in _build.BUILD_LOG:
+    f32_ptxas = {f: c for f, c in _build.ptxas_report("flash_attention_bwd").items()
+                 if "f32_kernel" in f}
+    check(len(f32_ptxas) == 2 * len(HEAD_DIMS) + 1,
+          f"build: ptxas reported {len(f32_ptxas)} f32 backward kernels")
 # and of every screen kernel (a template instantiation for each K <= 12):
 # the K=8 ones, the main path's, keep every value in registers
 screen_ptxas = "library cached from an earlier build: no report"
@@ -362,6 +385,7 @@ for src, tags, count, main in (
 emit("build", seconds=build_s, seconds_by_source=dict(_build.BUILD_SECONDS),
      libraries=sorted(os.path.basename(p) for p in paths.values()),
      sass_hgmma_utmaldg=sass_counts, ptxas_registers_spills=ptxas,
+     sass_f32_backward_hmma_hgmma_ffma=f32_sass, ptxas_f32_backward=f32_ptxas,
      ptxas_sched_screen=screen_ptxas, ptxas_rmsnorm_sched_weigh=small_ptxas)
 
 # ---------------------------------------------------------------------------
@@ -438,11 +462,15 @@ runs = [kernels.sched_weigh(*full_args) for _ in range(2)]
 check(all(torch.equal(a_, b_) for a_, b_ in zip(*runs)), "sched_weigh full fleet: two calls differ")
 # off the integer grid at every K = 1..12 (D = 1..8 as K runs): fractional
 # resources and costs, exact ties, a tie at TIE_EPS, invalid slots, hosts
-# with none valid; on a shortlist of M hosts and on 4,096
+# with none valid; on a shortlist of M hosts and on 4,096; at K = 4 and 5,
+# where the sums follow XLA's trees on two or more hosts and slot order on
+# one, also on 1 (host 1; host 0 has no valid slot) and 2
 for kk in range(1, 13):
-    for n_ in (M, 4096):
-        case = tuple(torch.from_numpy(a_).to(DEV)
-                     for a_ in fleets.weigh_arrays(n_, kk, 1 + (kk - 1) % 8, seed=kk * n_))
+    for n_ in (M, 4096) + ((1, 2) if kk in (4, 5) else ()):
+        *per_host, req_ = fleets.weigh_arrays(max(n_, M), kk, 1 + (kk - 1) % 8, seed=kk * n_)
+        rows_n = slice(1, 2) if n_ == 1 else slice(0, n_)
+        case = tuple(torch.from_numpy(a_[rows_n]).to(DEV) for a_ in per_host) \
+            + (torch.from_numpy(req_).to(DEV),)
         for g, w, what in zip(kernels.sched_weigh(*case), kernels.sched_weigh_plain(*case),
                               ("cost", "mask", "feasible")):
             same(g, w, f"sched_weigh fractional K={kk} N={n_} {what}", "sched_weigh")
@@ -482,7 +510,7 @@ emit("kernels_vs_plain", hosts=n, k=k, d=d, m=M, integer_cases="exact",
      mixed_multipliers=[list(m_) for m_ in MIXED], mixed_multipliers_case="exact",
      sched_weigh="exact: the shortlist at K=8 and K=12, the full fleet (two calls the same "
                  "bits), a fractional clock, fractional inputs at K=1..12 (D=1..8) on 64 and "
-                 "4,096 hosts")
+                 "4,096 hosts, and at K=4 and 5 (XLA's summation trees) on 1 and 2")
 
 # times at the main path's shapes
 screen_ops = n * 400                        # compares/adds/mins per host and pass
@@ -1066,11 +1094,14 @@ bwd_cases = [  # name, B, S, H, G, hd, dtype, causal
     ("ragged S=1000", 2, 1000, 12, 2, 128, BF16, True),
     ("full", 2, 512, 12, 2, 128, BF16, False),
     ("f32 S=77", 2, 77, 4, 2, 64, F32, True),
+    ("f32 1x2048", 1, 2048, 12, 2, 128, F32, True),
+    ("f32 gemma-2b", 1, 1024, 8, 1, 256, F32, True),
 ]
-#: the dq and dk/dv kernels each type routes to: bf16 the tensor cores (and
-#: the reduction over grouped heads), f32 the CUDA cores
+#: the dq and dk/dv kernels (and the reduction over grouped heads) each type
+#: routes to: bf16 the tensor cores, f32 the CUDA cores
 DQ_ROUTE = {BF16: "flash_attention_dq", F32: "flash_attention_dq_f32"}
-DKV_ROUTE = {BF16: ("flash_attention_dkv", "flash_attention_dkv_reduce"), F32: ("flash_attention_dkv_f32",)}
+DKV_ROUTE = {BF16: ("flash_attention_dkv", "flash_attention_dkv_reduce"),
+             F32: ("flash_attention_dkv_f32", "flash_attention_dkv_reduce_f32")}
 bwd_rows = {}
 for name, b_, s_, h_, g_, hd_, dt, causal in bwd_cases:
     q, k, v, do = (torch.randn((b_, s_, n_, hd_), generator=gen, device=DEV).to(dt)
@@ -1079,17 +1110,18 @@ for name, b_, s_, h_, g_, hd_, dt, causal in bwd_cases:
     kernels.reset_launch_counts()
     got = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     counts = kernels.launch_counts()
-    route = (DQ_ROUTE[dt],) + DKV_ROUTE[dt]
-    check(all(counts[key] == 1 for key in route) and counts[DQ_ROUTE[F32 if dt == BF16 else BF16]] == 0,
+    route, other = ((DQ_ROUTE[t_],) + DKV_ROUTE[t_] for t_ in (dt, F32 if dt == BF16 else BF16))
+    check(all(counts[key] == 1 for key in route) and all(counts[key] == 0 for key in other),
           f"backward {name}: not the route {route}")
     want = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     row = {}
-    if dt == BF16:                   # no atomics: a second call gives the same bits
-        again = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-        check(all(torch.equal(a_.view(torch.int16), b_.view(torch.int16)) for a_, b_ in zip(got, again)),
-              f"backward {name}: two calls differ")
-        row["two_calls_bitwise_equal"] = True
-        del again
+    # no atomics: a second call gives the same bits
+    again = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    bits = torch.int16 if dt == BF16 else torch.int32
+    check(all(torch.equal(a_.view(bits), b_.view(bits)) for a_, b_ in zip(got, again)),
+          f"backward {name}: two calls differ")
+    row["two_calls_bitwise_equal"] = True
+    del again
     for grad, kname, g_k, g_p in zip(("dq", "dk", "dv"), (DQ_ROUTE[dt],) + (DKV_ROUTE[dt][0],) * 2,
                                      got, want):
         check(g_k.dtype == dt and g_k.shape == g_p.shape, f"backward {name} {grad}: type or shape")
@@ -1170,53 +1202,68 @@ emit("train_kernel_times", card=smi, shape="B=2, S=4,096, H=12, G=2, hd=128, bf1
      forward_bound_ms=4 * 128 * pairs_t / BF16_FLOPS * 1e3)
 del q, k, v, do, o, lse, qt, kt, vt, sdpa_o, dot
 
-# the f32 routes of dq and dk/dv (CUDA cores) at 1 x 2,048, bound by the f32 rate
-S_F = 2048
-q, k, v, do = (torch.randn((1, S_F, n_, 128), generator=gen, device=DEV) for n_ in (12, 2, 2, 12))
-o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
-F32_BWD_NAMES = {"dq": ("flash_bwd_dq_kernel", "flash_attention_dq_f32_launch"),
-                 "dkv": ("flash_bwd_dkv_kernel", "flash_attention_dkv_f32_launch")}
-f32_ms = kernel_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True), F32_BWD_NAMES)
-qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-dot = do.transpose(1, 2)
-pairs_f = 12 * S_F * (S_F + 1) // 2
-record("flash_attention_dkv_f32", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-       "src/repro/kernels/flash_attention.py:191", f32_ms["dkv"],
-       device_ms(lambda: kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True), reps=5),
-       4 * S_F * 128 * (2 * 12 + 2 * 2 + 2 * 2) + 2 * 4 * 12 * S_F, 8 * 128 * pairs_f,
-       library_ms=device_ms(lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), dot, retain_graph=True),
-                            reps=5))
-del q, k, v, do, o, lse, qt, kt, vt, sdpa_o, dot
-# the f32 dq at the shape of phase 10, the path that runs it: one step of
-# reduced qwen2-1.5b (4 x 128 tokens, H=4, G=2, hd=32)
-B_P, S_P, H_P, G_P, HD_P = 4, 128, rcfg.n_heads, rcfg.n_kv_heads, rcfg.head_dim
-q, k, v, do = (torch.randn((B_P, S_P, n_, HD_P), generator=gen, device=DEV) for n_ in (H_P, G_P, G_P, H_P))
-o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
-qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-dot = do.transpose(1, 2)
-record("flash_attention_dq_f32", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-       "src/repro/kernels/flash_attention.py:152",
-       kernel_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-                 {"dq": F32_BWD_NAMES["dq"]})["dq"],
-       device_ms(lambda: kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True), reps=10),
-       4 * B_P * S_P * HD_P * (3 * H_P + 2 * G_P) + 2 * 4 * B_P * H_P * S_P,
-       6 * HD_P * B_P * H_P * S_P * (S_P + 1) // 2,
-       library_ms=device_ms(lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), dot, retain_graph=True),
-                            reps=10))
+# the f32 route (CUDA cores, full f32; bound by the f32 rate): dq, dk/dv
+# and its reduction at 1 x 2,048 (the kernels line's shape) and at 2 x 4,096
+# (phase 11's f32 first step), each against one library call for the same
+# function, the backward of scaled_dot_product_attention with TF32 off
+F32_BWD_NAMES = {"dq": ("flash_bwd_dq_f32", "flash_attention_dq_f32_launch"),
+                 "dkv": ("flash_bwd_dkv_f32", "flash_attention_dkv_f32_launch"),
+                 "reduce": ("dkv_reduce_f32", "flash_attention_dkv_reduce_f32_launch")}
+F32_BWD = {"dq": "flash_attention_dq_f32", "dkv": "flash_attention_dkv_f32",
+           "reduce": "flash_attention_dkv_reduce_f32"}
+F32_SHAPES = ((1, 2048, 12, 2, 128), (2, 4096, 12, 2, 128),
+              # phase 10's: one step of reduced qwen2-1.5b, 4 x 128 tokens
+              (4, 128, rcfg.n_heads, rcfg.n_kv_heads, rcfg.head_dim))
+f32_times = {}
+for b_, s_, h_, g_, hd_ in F32_SHAPES:
+    q, k, v, do = (torch.randn((b_, s_, n_, hd_), generator=gen, device=DEV) for n_ in (h_, g_, g_, h_))
+    o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
+    reps_ = 5 if s_ > 2048 else 10
+    ms = kernel_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True), F32_BWD_NAMES,
+                   reps=reps_)
+    plain_ms = device_ms(lambda: kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
+                         reps=reps_)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_ms = device_ms(lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), do.transpose(1, 2),
+                                                   retain_graph=True), reps=reps_)
+    # the reduction alone, on the plain dk/dv partials of these inputs,
+    # against its plain version (the same sums in the same order: exactly
+    # equal), beside two torch.sum calls (dk and dv) over the same partials
+    parts = kernels.flash_attention_dkv_partials_plain(q, k, v, o, lse, do, causal=True)
+    red = kernels.flash_attention_dkv_reduce(*parts, b_ * g_, F32)
+    for a_, w_, what in zip(red, kernels.flash_attention_dkv_reduce_plain(*parts, b_ * g_, F32), ("dk", "dv")):
+        same(a_, w_, f"f32 dk/dv reduction {what} at {b_} x {s_}", "flash_attention_dkv_reduce_f32")
+    red_pms = device_ms(lambda: kernels.flash_attention_dkv_reduce_plain(*parts, b_ * g_, F32), reps=reps_)
+    sum_ms = device_ms(lambda: [p_.view(b_ * g_, h_ // g_, s_, hd_).sum(1) for p_ in parts], reps=reps_)
+    pairs_ = b_ * h_ * s_ * (s_ + 1) // 2           # (query, key) pairs the causal mask keeps
+    head = 4 * b_ * s_ * hd_                         # bytes of one head's f32 (S, hd) rows, per batch
+    rows_ = 2 * 4 * b_ * h_ * s_                     # lse and delta
+    bound = {  # (bytes, operations): each input read once, each output written once
+        "dq": (head * (3 * h_ + 2 * g_) + rows_, 6 * hd_ * pairs_),
+        "dkv": (head * (2 * h_ + 2 * g_ + 2 * h_) + rows_, 8 * hd_ * pairs_),
+        "reduce": (head * (2 * h_ + 2 * g_), 2 * b_ * (h_ - g_) * s_ * hd_)}
+    row = {}
+    for key, (bytes_, ops_) in bound.items():
+        t_bytes, t_ops = bytes_ / HBM_BPS * 1e3, ops_ / FP32_FLOPS * 1e3
+        row[key] = dict(ms=ms[key], bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations")
+    f32_times[f"B={b_}, S={s_}, H={h_}, G={g_}, hd={hd_}"] = dict(
+        row, plain_ms_dq_dk_dv=plain_ms, library_ms_dq_dk_dv=lib_ms, reduce_plain_ms=red_pms,
+        reduce_library_two_torch_sum_ms=sum_ms, dq_dkv_reduce_ms=ms["dq"] + ms["dkv"] + ms["reduce"])
+    if s_ == 2048:                                   # the kernels line
+        for key, name in F32_BWD.items():
+            record(name, "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention.py:" + ("152" if key == "dq" else "191"),
+                   ms[key], red_pms if key == "reduce" else plain_ms, *bound[key],
+                   library_ms=None if key == "reduce" else lib_ms)
+    del q, k, v, do, o, lse, qt, kt, vt, sdpa_o, parts, red
 emit("train_kernel_times_f32", card=smi,
-     method="device time per call (trace), median of 10 calls (5 for the dk/dv row's plain "
-            "and library); plain_ms and library_ms compute dq, dk and dv together",
-     flash_attention_dq_f32=dict(shape=f"B={B_P}, S={S_P}, H={H_P}, G={G_P}, hd={HD_P}, f32, causal",
-                                 **{key: records["flash_attention_dq_f32"][key]
-                                    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
-     flash_attention_dkv_f32=dict(shape=f"B=1, S={S_F}, H=12, G=2, hd=128, f32, causal",
-                                  **{key: records["flash_attention_dkv_f32"][key]
-                                     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
-     flash_attention_dq_f32_ms_at_1x2048=f32_ms["dq"],
-     flash_attention_dq_f32_bound_ms_at_1x2048=6 * 128 * pairs_f / FP32_FLOPS * 1e3)
-del q, k, v, do, o, lse, qt, kt, vt, sdpa_o, dot
+     method="device time per call (trace), median of 10 calls (5 at 2 x 4,096); plain_ms and "
+            "library_ms compute dq, dk and dv together (the plain backward; the backward of "
+            "scaled_dot_product_attention, TF32 off); the reduction's own plain version, and two "
+            "torch.sum calls (dk, dv) over the same partials",
+     **f32_times)
 torch.cuda.empty_cache()
 
 # ---------------------------------------------------------------------------
@@ -1326,10 +1373,13 @@ res_t.init_or_restore()
 check(res_t.step == 4, f"train parity: resumed at step {res_t.step}")
 res_t.run(until_step=8)
 counts = kernels.launch_counts()          # the f32 flash routes of this path
-for name in ("flash_attention_f32", "flash_attention_dq_f32", "flash_attention_dkv_f32"):
+F32_FLASH = ("flash_attention_f32", "flash_attention_dq_f32", "flash_attention_dkv_f32",
+             "flash_attention_dkv_reduce_f32")
+BF16_FLASH = ("flash_attention", "flash_attention_dq", "flash_attention_dkv", "flash_attention_dkv_reduce")
+for name in F32_FLASH:
     records[name]["launches"] = counts[name]
     check(counts[name] > 0, f"train parity: kernel {name} was never launched")
-for name in ("flash_attention", "flash_attention_dq", "flash_attention_dkv"):
+for name in BF16_FLASH:
     check(counts[name] == 0, f"train parity: f32 launched the bf16 kernel {name} {counts[name]} times")
 want_st, got_st = state_tensors(ref_t.params, ref_t.opt_state), state_tensors(res_t.params, res_t.opt_state)
 check(sorted(want_st) == sorted(got_st), "train parity: state names differ")
@@ -1338,8 +1388,7 @@ check(not unequal, f"train parity: resumed state differs from the uninterrupted 
 emit("train_parity", config="qwen2-1.5b reduced (4 layers, d=128, f32), flash, remat full",
      resume=dict(uninterrupted_steps=8, preempted_after=4, tensors=len(want_st),
                  bitwise_equal=True, final_loss=ref_t.history[-1]["loss"]),
-     launches={name: counts[name] for name in ("flash_attention_f32", "flash_attention_dq_f32",
-                                               "flash_attention_dkv_f32")})
+     launches={name: counts[name] for name in F32_FLASH})
 del ref_t, pre_t, res_t, want_st, got_st
 shutil.rmtree(ptmp, ignore_errors=True)
 torch.cuda.empty_cache()
@@ -1436,7 +1485,19 @@ def flash_and_reference(cfg_, n_mb, key):
 
 
 bf16_pair = flash_and_reference(tcfg_, N_MB, "bf16")
+kernels.reset_launch_counts()
 f32_pair = flash_and_reference(dataclasses.replace(tcfg_, dtype="float32"), 1, "f32")
+# the f32 first step runs the f32 flash route: per layer the forward once and
+# again in the backward (remat), the backward kernels once; the kernels line
+# counts these launches beside phase 10's
+f32_counts = kernels.launch_counts()
+want_f32 = dict(zip(F32_FLASH, (2 * tcfg_.n_layers,) + (tcfg_.n_layers,) * 3))
+for name, n_ in want_f32.items():
+    check(f32_counts[name] == n_, f"train: the f32 first step launched {name} {f32_counts[name]} times, "
+                                  f"the path implies {n_}")
+    records[name]["launches"] += f32_counts[name]
+for name in BF16_FLASH:
+    check(f32_counts[name] == 0, f"train: the f32 first step launched the bf16 kernel {name}")
 torch.cuda.empty_cache()
 torch.cuda.synchronize()
 
@@ -1492,7 +1553,7 @@ want_counts = dict(flash_attention=STEPS * N_MB * 2 * L_, flash_attention_dq=STE
 for name, n_ in want_counts.items():
     records[name]["launches"] = counts[name]
     check(counts[name] == n_, f"train: {counts[name]} launches of {name}, the path implies {n_}")
-for name in ("flash_attention_f32", "flash_attention_dq_f32", "flash_attention_dkv_f32"):
+for name in F32_FLASH:
     check(counts[name] == 0, f"train: bf16 launched the f32 kernel {name} {counts[name]} times")
 #: the stated bounds, relative, each a few times what an H100 reads (the run
 #: is deterministic: seeded weights and batch, deterministic kernels).  f32
@@ -1548,6 +1609,7 @@ emit("train", config="qwen2-1.5b full width: 28 layers, d=1536, 12/2 heads, hd=1
      restore_seconds=restore_s, losses=[h_["loss"] for h_ in history],
      grad_norms=[h_["grad_norm"] for h_ in history],
      launches=counts, launches_implied=want_counts,
+     f32_first_step_launches={name: f32_counts[name] for name in F32_FLASH},
      traced_step_s=traced_s, device_busy_s=busy / 1e6,
      device_busy_share=(busy / 1e6) / traced_s if busy else "not measured (empty trace)",
      device_ms_per_step_by_class={key: v_ / 1e3 for key, v_ in sorted(by_class.items())})

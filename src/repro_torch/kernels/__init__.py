@@ -22,6 +22,7 @@ from .flash_attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
+    flash_attention_dkv_partials_plain,
     flash_attention_dkv_reduce,
     flash_attention_dkv_reduce_plain,
     flash_attention_fwd,
@@ -64,6 +65,7 @@ __all__ = [
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_plain",
+    "flash_attention_dkv_partials_plain",
     "flash_attention_dkv_reduce",
     "flash_attention_dkv_reduce_plain",
     "flash_attention_fwd",

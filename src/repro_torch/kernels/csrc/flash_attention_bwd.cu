@@ -1,10 +1,11 @@
 // Flash-attention backward (causal or full, grouped-query) for NVIDIA Hopper
 // (sm_90a).  Replaces the two Pallas TPU kernels of
 // src/repro/kernels/flash_attention.py::_flash_bwd:
-//   * _dq_kernel  -> flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel
+//   * _dq_kernel  -> flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_f32_kernel
 //                    (f32): dq = sum over KV tiles of ds.k
-//   * _dkv_kernel -> flash_bwd_dkv_wgmma_kernel + flash_bwd_dkv_reduce_kernel
-//                    (bf16), flash_bwd_dkv_kernel (f32): dv = sum p^T.do,
+//   * _dkv_kernel -> flash_bwd_dkv_wgmma_kernel (bf16), flash_bwd_dkv_f32_kernel
+//                    (f32), each + its reduction (flash_bwd_dkv_reduce_kernel,
+//                    flash_bwd_dkv_reduce_f32_kernel): dv = sum p^T.do,
 //                    dk = sum ds^T.q over the rep grouped heads and every q
 //                    tile
 //
@@ -22,14 +23,46 @@
 // along its innermost axis.  Hopper blocks run in any order, so each block
 // owns its output tile and loops over the other axis itself, and no block
 // writes another's rows: no atomics, so the gradients are the same bits on
-// every run (a preempted training run resumes bit-exactly).
+// every run (a preempted training run resumes bit-exactly).  On both routes
+// dk/dv is a block per (key tile, q head) writing f32 partials of its head;
+// a second kernel sums each group's rep heads in head order.
 //
 // Bound on this card: operations.  dq does 3 products of 2*hd flops per
 // kept (query, key) pair (s, dp, ds.k), dk/dv 4 (s, dp, p^T.do, ds^T.q), on
-// the bf16 tensor cores (989 TFLOP/s).  The bf16 kernels run every product
-// on wgmma and stream their tiles by TMA; the f32 kernels stay on the CUDA
-// cores, since f32 on wgmma would be TF32 and the f32 checks (the card
-// against the CPU, the bitwise resume) need full f32.
+// the bf16 tensor cores (989 TFLOP/s) or, in f32, the CUDA cores (67
+// TFLOP/s).  The bf16 kernels run every product on wgmma and stream their
+// tiles by TMA; the f32 kernels stay on the CUDA cores in full f32 (FFMA),
+// since f32 on wgmma would be TF32 and the f32 checks (the card against the
+// CPU, the bitwise resume) need full f32.
+//
+// dq and dk/dv, f32 (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel):
+// register-tiled products on the CUDA cores, tiles streamed by cp.async.
+//   * One block of 256 threads per (tile of B rows, q head): B = 64 (32 at
+//     hd 256) queries for dq, keys for dk/dv; at 1 x 2,048, H = 12, 384
+//     blocks, the heaviest (when causal) issued first.  The block's own Q
+//     and dO (dq) or K and V (dk/dv) stay in shared memory; tiles of B keys
+//     and values (dq) or of B queries and upstream gradients with their lse
+//     and delta (dk/dv) stream through a ring of 2 stages (cp.async, zero
+//     fill past the ragged edge), so the next tile is in flight during the
+//     math.  Shared memory: 6 tiles of B x hd f32 and the B x B tiles of
+//     dS (and P): 225 KB of dk/dv's 227 at hd 128, one block an SM.
+//   * Scores: a thread owns a TS x TS micro-tile (4 x 4; 2 x 2 at hd 256) of
+//     S and dP (S^T and dP^T for dk/dv), rows 16 apart, and sums each over
+//     the head dim in order from float4 shared-memory fragments: 16 FFMA a
+//     fragment instead of one load per FFMA.  A warp holds 4 own rows by 8
+//     streamed, so each of its loads is one 128-byte wavefront.
+//   * P and dS (dS alone for dq) go to shared memory once, transposed; then
+//     dV += P^T.dO and dK += dS^T.Q (dQ += dS.K) run as register-tiled
+//     outer products, a thread owning TR consecutive rows by TC columns of
+//     each accumulator (4 x 8 at hd 128: dK and dV 64 f32 registers, dQ
+//     32), the sum over the tile's rows in order.  Only diagonal and ragged
+//     tiles mask.
+//   * Every shared tile is XOR-swizzled by 16-byte chunk (chunk ^ row & 7),
+//     so 8 consecutive rows at one column, or 8 chunks of one row, are
+//     conflict-free without padding (padding would not fit dk/dv at hd
+//     128).
+//   * Determinism: every sum has one order, fixed by the tiling; no
+//     atomics.
 //
 // dq, bf16 (flash_bwd_dq_wgmma_kernel): the forward kernel's shape with a
 // second score product and no online softmax.
@@ -60,8 +93,7 @@
 // streamed tiles by TMA.
 //   * One block per (128-key tile, q head): at qwen2's training shape 768
 //     blocks, the heaviest (key tile 0, causal) walking 4,096 queries of one
-//     head, 1/6 of what the f32 kernel's heaviest walks over the 6 grouped
-//     heads; the grid issues the low (heaviest) key tiles first.  Two
+//     head; the grid issues the low (heaviest) key tiles first.  Two
 //     consumer warpgroups own 64 keys each, with their dK and dV in f32
 //     registers; a producer warpgroup, one warp of which loads (registers
 //     moved to the consumers by setmaxnreg).
@@ -83,17 +115,6 @@
 //   * Each block writes f32 partials of its q head; the reduce kernel sums
 //     the rep heads of a group in head order and casts to k's type.
 //
-// f32 dk/dv (flash_bwd_dkv_kernel): one block per (32-key tile, KV head);
-// eight warps own 4 keys each; the block walks the rep grouped heads and,
-// for each, the q tiles that can see its keys, staging q, do, lse and
-// delta; a lane scores one query row against the warp's key.
-// f32 dq (flash_bwd_dq_kernel): one block per (32-query tile, head).  Four
-// warps own 8 query rows each, with the rows' dq in registers (hd/32
-// values a lane).  The block stages each tile of 32 keys and values in
-// shared memory (row stride hd+1: 32 lanes reading 32 keys hit 32 banks);
-// a lane scores one key, and ds.k broadcasts each lane's ds over the warp.
-// Causal tiles wholly above the block's last row are never loaded.
-//
 // C interface (loaded with ctypes); each entry returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,270 +123,409 @@
 
 namespace {
 
-constexpr int kTile = 32;       // queries per dq tile, keys per dk/dv tile
-constexpr int kDqWarps = 4;
-constexpr int kDqRows = kTile / kDqWarps;
-constexpr int kDkvWarps = 8;
-constexpr int kDkvKeys = kTile / kDkvWarps;
+// ---------------------------------------------------------------------------
+// dq and dk/dv, f32: register-tiled FFMA on the CUDA cores, cp.async rings
+// ---------------------------------------------------------------------------
+namespace f32 {
 
-// dq, f32: q, do [kTile][HD] (broadcast reads); k, v [kTile][HD + 1]
+constexpr int kThreads = 256;
+
 template <int HD>
-constexpr size_t dq_smem_bytes() {
-    return sizeof(float) * (2 * kTile * HD + 2 * kTile * (HD + 1));
+struct Cfg {
+    static constexpr int B = HD == 256 ? 32 : 64;  // rows of the block's tile and of a streamed tile
+    static constexpr int T = B * HD;               // floats of one such tile
+    // scores: a 16 x 16 grid of threads, each TS x TS outputs (rows 16 apart)
+    static constexpr int TS = B / 16;
+    // accumulation: out[B][HD] over (B / TR) x NCG threads, each TR
+    // consecutive rows by TC columns (TC / 4 chunks of 4, NCG chunks apart)
+    static constexpr int TC = HD >= 128 ? 8 : 4;
+    static constexpr int NCG = HD / TC;
+    static constexpr int TR = B * NCG / kThreads;
+    static_assert(TS * 16 == B && TR * kThreads == B * NCG && (TR == 2 || TR == 4) &&
+                  NCG % 8 == 0 && NCG / 8 * B / TR / 4 == kThreads / 32, "tiling");
+};
+
+// element (row, col) of a [rows][W] f32 tile in shared memory: 16-byte
+// chunks XOR-swizzled by the row's low 3 bits, so 8 consecutive rows at one
+// column, or one row at 8 consecutive chunks, hit 8 distinct bank groups
+template <int W>
+__device__ __forceinline__ int swz(int row, int col) {
+    return row * W + ((((col >> 2) ^ (row & 7))) << 2) + (col & 3);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
+                 "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_u32(dst)),
+                 "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// start copying rows 0 .. B-1 of a [rows][HD] tile (rows past `valid` read
+// as zeros) into its swizzled place
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int valid) {
+    constexpr int CH = HD / 4, B = Cfg<HD>::B;
+#pragma unroll
+    for (int idx = threadIdx.x; idx < B * CH; idx += kThreads) {
+        const int row = idx / CH, c = idx % CH;
+        const bool in = row < valid;
+        cp_async16(dst + swz<HD>(row, 4 * c), in ? src + static_cast<size_t>(row) * HD + 4 * c : src, in);
+    }
+}
+
+// s1[i][j] = A1[a0 + 16i] . B1[b0 + 16j] and s2 likewise from A2, B2 (rows
+// of swizzled [B][HD] tiles), each summed over the head dim in order
+template <int HD, int TS>
+__device__ __forceinline__ void scores(const float* A1, const float* B1, const float* A2,
+                                       const float* B2, int a0, int b0, float (&s1)[TS][TS],
+                                       float (&s2)[TS][TS]) {
+#pragma unroll
+    for (int i = 0; i < TS; ++i)
+#pragma unroll
+        for (int j = 0; j < TS; ++j) s1[i][j] = s2[i][j] = 0.0f;
+    // rows 16 apart share their low 3 bits, so one swizzle serves a thread's rows
+    const int sa = a0 & 7, sb = b0 & 7;
+#pragma unroll 4
+    for (int c = 0; c < HD / 4; ++c) {
+        float4 a[TS], b[TS];
+#pragma unroll
+        for (int i = 0; i < TS; ++i) {
+            a[i] = *reinterpret_cast<const float4*>(A1 + (a0 + 16 * i) * HD + ((c ^ sa) << 2));
+            b[i] = *reinterpret_cast<const float4*>(B1 + (b0 + 16 * i) * HD + ((c ^ sb) << 2));
+        }
+#pragma unroll
+        for (int i = 0; i < TS; ++i)
+#pragma unroll
+            for (int j = 0; j < TS; ++j) {
+                s1[i][j] = fmaf(a[i].x, b[j].x, s1[i][j]);
+                s1[i][j] = fmaf(a[i].y, b[j].y, s1[i][j]);
+                s1[i][j] = fmaf(a[i].z, b[j].z, s1[i][j]);
+                s1[i][j] = fmaf(a[i].w, b[j].w, s1[i][j]);
+            }
+#pragma unroll
+        for (int i = 0; i < TS; ++i) {
+            a[i] = *reinterpret_cast<const float4*>(A2 + (a0 + 16 * i) * HD + ((c ^ sa) << 2));
+            b[i] = *reinterpret_cast<const float4*>(B2 + (b0 + 16 * i) * HD + ((c ^ sb) << 2));
+        }
+#pragma unroll
+        for (int i = 0; i < TS; ++i)
+#pragma unroll
+            for (int j = 0; j < TS; ++j) {
+                s2[i][j] = fmaf(a[i].x, b[j].x, s2[i][j]);
+                s2[i][j] = fmaf(a[i].y, b[j].y, s2[i][j]);
+                s2[i][j] = fmaf(a[i].z, b[j].z, s2[i][j]);
+                s2[i][j] = fmaf(a[i].w, b[j].w, s2[i][j]);
+            }
+    }
+}
+
+// TR consecutive values of row j of a swizzled [B][B] tile, from column r0
+template <int B, int TR>
+__device__ __forceinline__ void load_row(const float* M, int j, int r0, float (&m)[TR]) {
+    const float* at = M + swz<B>(j, r0);
+    if constexpr (TR == 4) {
+        const float4 x = *reinterpret_cast<const float4*>(at);
+        m[0] = x.x; m[1] = x.y; m[2] = x.z; m[3] = x.w;
+    } else {
+        const float2 x = *reinterpret_cast<const float2*>(at);
+        m[0] = x.x; m[1] = x.y;
+    }
+}
+
+// acc1[r][.] += sum over j of M1[j][r0 + r] * T1[j][the thread's columns],
+// j in order, and acc2 likewise from M2, T2 when TWO (M: swizzled [B][B],
+// T: swizzled [B][HD]; the thread's columns are the chunks cg + NCG*t)
+template <int HD, bool TWO>
+__device__ __forceinline__ void accumulate(const float* M1, const float* T1, const float* M2,
+                                           const float* T2, int r0, int cg,
+                                           float (&acc1)[Cfg<HD>::TR][Cfg<HD>::TC],
+                                           float (&acc2)[Cfg<HD>::TR][Cfg<HD>::TC]) {
+    using C = Cfg<HD>;
+    constexpr int TR = C::TR, NCH = C::TC / 4;
+#pragma unroll 8
+    for (int j = 0; j < C::B; ++j) {
+        float m[TR];
+        float4 x[NCH];
+        load_row<C::B, TR>(M1, j, r0, m);
+#pragma unroll
+        for (int t = 0; t < NCH; ++t)
+            x[t] = *reinterpret_cast<const float4*>(T1 + j * HD + (((cg + C::NCG * t) ^ (j & 7)) << 2));
+#pragma unroll
+        for (int r = 0; r < TR; ++r)
+#pragma unroll
+            for (int t = 0; t < NCH; ++t) {
+                acc1[r][4 * t] = fmaf(m[r], x[t].x, acc1[r][4 * t]);
+                acc1[r][4 * t + 1] = fmaf(m[r], x[t].y, acc1[r][4 * t + 1]);
+                acc1[r][4 * t + 2] = fmaf(m[r], x[t].z, acc1[r][4 * t + 2]);
+                acc1[r][4 * t + 3] = fmaf(m[r], x[t].w, acc1[r][4 * t + 3]);
+            }
+        if constexpr (TWO) {
+            load_row<C::B, TR>(M2, j, r0, m);
+#pragma unroll
+            for (int t = 0; t < NCH; ++t)
+                x[t] = *reinterpret_cast<const float4*>(T2 + j * HD + (((cg + C::NCG * t) ^ (j & 7)) << 2));
+#pragma unroll
+            for (int r = 0; r < TR; ++r)
+#pragma unroll
+                for (int t = 0; t < NCH; ++t) {
+                    acc2[r][4 * t] = fmaf(m[r], x[t].x, acc2[r][4 * t]);
+                    acc2[r][4 * t + 1] = fmaf(m[r], x[t].y, acc2[r][4 * t + 1]);
+                    acc2[r][4 * t + 2] = fmaf(m[r], x[t].z, acc2[r][4 * t + 2]);
+                    acc2[r][4 * t + 3] = fmaf(m[r], x[t].w, acc2[r][4 * t + 3]);
+                }
+        }
+    }
+}
+
+// A thread's places.  Scores: the 16 x 16 grid, own-tile rows `own` + 16i
+// and streamed-tile rows `str` + 16j, a warp holding 4 own by 8 streamed
+// (each of its loads reads 4 or 8 rows: one 128-byte wavefront).
+// Accumulation: rows r0 .. r0+TR-1 and the column chunks cg + NCG*t, a warp
+// holding 4 row groups by 8 consecutive chunks (again one wavefront a load).
+template <int HD>
+struct Place {
+    int own, str, r0, cg;
+    __device__ __forceinline__ Place() {
+        using C = Cfg<HD>;
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        own = 4 * (warp >> 1) + (lane >> 3);
+        str = 8 * (warp & 1) + (lane & 7);
+        cg = 8 * (warp % (C::NCG / 8)) + (lane & 7);
+        r0 = (4 * (warp / (C::NCG / 8)) + (lane >> 3)) * C::TR;
+    }
+};
+
+// rows r0 .. r0+TR-1 of out[rows][HD] from acc (rows at or past `valid` are not stored)
+template <int HD>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[Cfg<HD>::TR][Cfg<HD>::TC],
+                                           int r0, int cg, int valid) {
+    using C = Cfg<HD>;
+#pragma unroll
+    for (int r = 0; r < C::TR; ++r) {
+        if (r0 + r >= valid) continue;
+#pragma unroll
+        for (int t = 0; t < C::TC / 4; ++t)
+            *reinterpret_cast<float4*>(out + static_cast<size_t>(r0 + r) * HD + 4 * (cg + C::NCG * t)) =
+                make_float4(acc[r][4 * t], acc[r][4 * t + 1], acc[r][4 * t + 2], acc[r][4 * t + 3]);
+    }
+}
+
+// dk/dv: K, V [B][HD]; per stage Q, dO [B][HD]; P^T and dS^T by query row
+// [B][B]; per stage lse, delta [B]
+template <int HD>
+constexpr int dkv_smem_bytes() {
+    using C = Cfg<HD>;
+    return static_cast<int>(sizeof(float)) * (6 * C::T + 2 * C::B * C::B + 4 * C::B);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kDqWarps * 32)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int rep, int sq, int skv, int causal, float scale) {
-    constexpr int C = HD / 32;
-    extern __shared__ float smem[];
-    float* qs = smem;                          // [kTile][HD]
-    float* dos = qs + kTile * HD;              // [kTile][HD]
-    float* ks = dos + kTile * HD;              // [kTile][HD + 1]
-    float* vs = ks + kTile * (HD + 1);         // [kTile][HD + 1]
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk_part, float* __restrict__ dv_part, int rep, int sq,
+                         int skv, int causal, float scale) {
+    using C = Cfg<HD>;
+    constexpr int B = C::B, T = C::T, TS = C::TS;
+    extern __shared__ float4 smem4[];
+    float* ks = reinterpret_cast<float*>(smem4);
+    float* vs = ks + T;
+    float* qdo = vs + T;              // stage st: Q at qdo + 2*st*T, dO after it
+    float* ps = qdo + 4 * T;          // P^T, [query][key]
+    float* dss = ps + B * B;          // dS^T, [query][key]
+    float* rows = dss + B * B;        // stage st: lse at rows + 2*st*B, delta after it
 
-    const int bh = blockIdx.y;
-    const int q0 = blockIdx.x * kTile;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const size_t qoff = static_cast<size_t>(bh) * sq * HD;
-    const size_t kvoff = static_cast<size_t>(bh / rep) * skv * HD;
+    const int bh = blockIdx.x;
+    const int k0 = blockIdx.y * B;    // the low (heaviest, when causal) key tiles first
+    // with the causal mask, query rows before k0 see none of these keys
+    // (k0 is a multiple of the q tile's height)
+    const int q_begin = causal ? k0 : 0;
+    const int n_qt = q_begin < sq ? (sq - q_begin + B - 1) / B : 0;
+    const float* qh = q + static_cast<size_t>(bh) * sq * HD;
+    const float* doh = dout + static_cast<size_t>(bh) * sq * HD;
+    const size_t kvoff = (static_cast<size_t>(bh / rep) * skv + k0) * HD;
 
-    for (int i = threadIdx.x; i < kTile * HD; i += blockDim.x) {
-        const bool in = q0 + i / HD < sq;
-        const size_t g = qoff + static_cast<size_t>(q0) * HD + i;
-        qs[i] = in ? q[g] : 0.0f;
-        dos[i] = in ? dout[g] : 0.0f;
-    }
-    float row_lse[kDqRows], row_delta[kDqRows], acc[kDqRows][C];
+    load_tile<HD>(ks, k + kvoff, skv - k0);
+    load_tile<HD>(vs, v + kvoff, skv - k0);
+    auto load_q = [&](int it) {
+        const int st = it & 1, q0 = q_begin + it * B;
+        load_tile<HD>(qdo + 2 * st * T, qh + static_cast<size_t>(q0) * HD, sq - q0);
+        load_tile<HD>(qdo + (2 * st + 1) * T, doh + static_cast<size_t>(q0) * HD, sq - q0);
+        for (int i = threadIdx.x; i < 2 * B; i += kThreads) {
+            const int r = i % B;
+            const bool in = q0 + r < sq;
+            const size_t at = static_cast<size_t>(bh) * sq + q0 + r;
+            cp_async4(rows + 2 * st * B + i, in ? (i < B ? lse : delta) + at : lse, in);
+        }
+    };
+    if (n_qt > 0) load_q(0);
+    cp_async_commit();
+    if (n_qt > 1) load_q(1);
+    cp_async_commit();
+
+    const Place<HD> pl;
+    const int kg = pl.own, qg = pl.str, r0 = pl.r0, cg = pl.cg;
+    float dk[C::TR][C::TC], dv[C::TR][C::TC];
 #pragma unroll
-    for (int i = 0; i < kDqRows; ++i) {
-        const int row = q0 + warp * kDqRows + i;
+    for (int r = 0; r < C::TR; ++r)
+#pragma unroll
+        for (int c = 0; c < C::TC; ++c) dk[r][c] = dv[r][c] = 0.0f;
+
+    for (int it = 0; it < n_qt; ++it) {
+        const int st = it & 1, q0 = q_begin + it * B;
+        cp_async_wait<1>();           // this tile's copies (this thread's) landed
+        __syncthreads();              // and everyone's
+        const float* qs = qdo + 2 * st * T;
+        const float* dos = qs + T;
+        const float* lse_s = rows + 2 * st * B;
+        const float* dlt = lse_s + B;
+        float s[TS][TS], dp[TS][TS];
+        scores<HD, TS>(ks, qs, vs, dos, kg, qg, s, dp);  // S^T = K.Q^T, dP^T = V.dO^T
+        const bool masked = (causal && q0 < k0 + B - 1) || q0 + B > sq;
+#pragma unroll
+        for (int i = 0; i < TS; ++i)
+#pragma unroll
+            for (int j = 0; j < TS; ++j) {
+                const int qr = qg + 16 * j, key = kg + 16 * i;
+                float p = expf(s[i][j] * scale - lse_s[qr]);
+                if (masked && (q0 + qr >= sq || (causal && k0 + key > q0 + qr))) p = 0.0f;
+                ps[swz<B>(qr, key)] = p;
+                dss[swz<B>(qr, key)] = p * (dp[i][j] - dlt[qr]) * scale;
+            }
+        __syncthreads();
+        accumulate<HD, true>(ps, dos, dss, qs, r0, cg, dv, dk);  // dV += P^T.dO, dK += dS^T.Q
+        __syncthreads();              // the stage and P, dS are consumed
+        if (it + 2 < n_qt) load_q(it + 2);
+        cp_async_commit();
+    }
+    cp_async_wait<0>();
+
+    const size_t out = (static_cast<size_t>(bh) * skv + k0) * HD;
+    store_rows<HD>(dk_part + out, dk, r0, cg, skv - k0);
+    store_rows<HD>(dv_part + out, dv, r0, cg, skv - k0);
+}
+
+// dq: Q, dO [B][HD]; per stage K, V [B][HD]; dS^T by key row [B][B]
+template <int HD>
+constexpr int dq_smem_bytes() {
+    using C = Cfg<HD>;
+    return static_cast<int>(sizeof(float)) * (6 * C::T + C::B * C::B);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, int rep, int sq, int skv, int causal, float scale) {
+    using C = Cfg<HD>;
+    constexpr int B = C::B, T = C::T, TS = C::TS;
+    extern __shared__ float4 smem4[];
+    float* qs = reinterpret_cast<float*>(smem4);
+    float* dos = qs + T;
+    float* kvs = dos + T;             // stage st: K at kvs + 2*st*T, V after it
+    float* dss = kvs + 4 * T;         // dS^T, [key][query]
+
+    const int bh = blockIdx.x;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * B;  // the last (heaviest, when causal) tiles first
+    const int kv_end = causal ? min(skv, q0 + B) : skv;  // keys the block's rows see
+    const int n_kt = (kv_end + B - 1) / B;
+    const size_t qoff = (static_cast<size_t>(bh) * sq + q0) * HD;
+    const float* kh = k + static_cast<size_t>(bh / rep) * skv * HD;
+    const float* vh = v + static_cast<size_t>(bh / rep) * skv * HD;
+
+    load_tile<HD>(qs, q + qoff, sq - q0);
+    load_tile<HD>(dos, dout + qoff, sq - q0);
+    auto load_kv = [&](int it) {
+        const int st = it & 1, kv0 = it * B;
+        load_tile<HD>(kvs + 2 * st * T, kh + static_cast<size_t>(kv0) * HD, skv - kv0);
+        load_tile<HD>(kvs + (2 * st + 1) * T, vh + static_cast<size_t>(kv0) * HD, skv - kv0);
+    };
+    if (n_kt > 0) load_kv(0);
+    cp_async_commit();
+    if (n_kt > 1) load_kv(1);
+    cp_async_commit();
+
+    const Place<HD> pl;
+    const int qg = pl.own, kg = pl.str, r0 = pl.r0, cg = pl.cg;
+    // lse and delta of the thread's score rows; rows past Sq read zeros and
+    // are never stored
+    float row_lse[TS], row_delta[TS];
+#pragma unroll
+    for (int i = 0; i < TS; ++i) {
+        const int row = q0 + qg + 16 * i;
         const size_t at = static_cast<size_t>(bh) * sq + row;
         row_lse[i] = row < sq ? lse[at] : 0.0f;
         row_delta[i] = row < sq ? delta[at] : 0.0f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
     }
+    float acc[C::TR][C::TC];
+#pragma unroll
+    for (int r = 0; r < C::TR; ++r)
+#pragma unroll
+        for (int c = 0; c < C::TC; ++c) acc[r][c] = 0.0f;
 
-    const int q_last = min(q0 + kTile, sq) - 1;
-    const int kv_end = causal ? min(skv, q_last + 1) : skv;
-    for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {
-        __syncthreads();  // the previous tile is consumed (and qs, dos written)
-        for (int i = threadIdx.x; i < kTile * HD; i += blockDim.x) {
-            const int j = i / HD, d = i - j * HD;
-            const bool in = kv0 + j < skv;
-            const size_t g = kvoff + static_cast<size_t>(kv0) * HD + i;
-            ks[j * (HD + 1) + d] = in ? k[g] : 0.0f;
-            vs[j * (HD + 1) + d] = in ? v[g] : 0.0f;
-        }
+    for (int it = 0; it < n_kt; ++it) {
+        const int st = it & 1, kv0 = it * B;
+        cp_async_wait<1>();
         __syncthreads();
-        const int key = kv0 + lane;
-        const float* kr = ks + lane * (HD + 1);
-        const float* vr = vs + lane * (HD + 1);
+        const float* ks = kvs + 2 * st * T;
+        const float* vs = ks + T;
+        float s[TS][TS], dp[TS][TS];
+        scores<HD, TS>(qs, ks, dos, vs, qg, kg, s, dp);  // S = Q.K^T, dP = dO.V^T
+        const bool masked = (causal && kv0 + B - 1 > q0) || kv0 + B > skv;
 #pragma unroll
-        for (int i = 0; i < kDqRows; ++i) {
-            const int r = warp * kDqRows + i;
-            const float* qr = qs + r * HD;
-            const float* dr = dos + r * HD;
-            float s = 0.0f, dp = 0.0f;
-#pragma unroll 8
-            for (int d = 0; d < HD; ++d) {
-                s += qr[d] * kr[d];
-                dp += dr[d] * vr[d];
+        for (int i = 0; i < TS; ++i)
+#pragma unroll
+            for (int j = 0; j < TS; ++j) {
+                const int row = qg + 16 * i, key = kg + 16 * j;
+                float p = expf(s[i][j] * scale - row_lse[i]);
+                if (masked && (kv0 + key >= skv || (causal && kv0 + key > q0 + row))) p = 0.0f;
+                dss[swz<B>(key, row)] = p * (dp[i][j] - row_delta[i]) * scale;
             }
-            const bool kept = key < skv && !(causal && key > q0 + r);
-            const float p = kept ? expf(s * scale - row_lse[i]) : 0.0f;
-            const float ds = p * (dp - row_delta[i]) * scale;
-#pragma unroll 4
-            for (int j = 0; j < kTile; ++j) {
-                const float dsj = __shfl_sync(0xffffffffu, ds, j);
-                const float* kj = ks + j * (HD + 1) + lane;
-#pragma unroll
-                for (int c = 0; c < C; ++c) acc[i][c] += dsj * kj[32 * c];
-            }
-        }
+        __syncthreads();
+        accumulate<HD, false>(dss, ks, nullptr, nullptr, r0, cg, acc, acc);  // dQ += dS.K
+        __syncthreads();
+        if (it + 2 < n_kt) load_kv(it + 2);
+        cp_async_commit();
     }
-
-#pragma unroll
-    for (int i = 0; i < kDqRows; ++i) {
-        const int row = q0 + warp * kDqRows + i;
-        if (row >= sq) continue;
-        float* out = dq + qoff + static_cast<size_t>(row) * HD;
-#pragma unroll
-        for (int c = 0; c < C; ++c) out[lane + 32 * c] = acc[i][c];
-    }
-}
-
-// dk/dv: k, v [kTile][HD] (broadcast reads); q, do [kTile][HD + 1]; lse, delta [kTile]
-template <int HD>
-constexpr size_t dkv_smem_bytes() {
-    return sizeof(float) * (2 * kTile * HD + 2 * kTile * (HD + 1) + 2 * kTile);
+    cp_async_wait<0>();
+    store_rows<HD>(dq + qoff, acc, r0, cg, sq - q0);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kDkvWarps * 32)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int rep, int sq, int skv,
-                     int causal, float scale) {
-    constexpr int C = HD / 32;
-    extern __shared__ float smem[];
-    float* ks = smem;                          // [kTile][HD]
-    float* vs = ks + kTile * HD;               // [kTile][HD]
-    float* qs = vs + kTile * HD;               // [kTile][HD + 1]
-    float* dos = qs + kTile * (HD + 1);        // [kTile][HD + 1]
-    float* lses = dos + kTile * (HD + 1);      // [kTile]
-    float* deltas = lses + kTile;              // [kTile]
-
-    const int bg = blockIdx.y;
-    const int kv0 = blockIdx.x * kTile;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const size_t kvoff = static_cast<size_t>(bg) * skv * HD;
-
-    for (int i = threadIdx.x; i < kTile * HD; i += blockDim.x) {
-        const bool in = kv0 + i / HD < skv;
-        const size_t g = kvoff + static_cast<size_t>(kv0) * HD + i;
-        ks[i] = in ? k[g] : 0.0f;
-        vs[i] = in ? v[g] : 0.0f;
-    }
-    float dk_acc[kDkvKeys][C], dv_acc[kDkvKeys][C];
-#pragma unroll
-    for (int jj = 0; jj < kDkvKeys; ++jj) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) dk_acc[jj][c] = dv_acc[jj][c] = 0.0f;
-    }
-
-    // with the causal mask, query rows before kv0 see none of these keys
-    // (kv0 is a multiple of kTile, the q tile's height)
-    const int q_start = causal ? kv0 : 0;
-    for (int r = 0; r < rep; ++r) {
-        const int bh = bg * rep + r;
-        const size_t qoff = static_cast<size_t>(bh) * sq * HD;
-        for (int q0 = q_start; q0 < sq; q0 += kTile) {
-            __syncthreads();  // the previous tile is consumed (and ks, vs written)
-            for (int i = threadIdx.x; i < kTile * HD; i += blockDim.x) {
-                const int rr = i / HD, d = i - rr * HD;
-                const bool in = q0 + rr < sq;
-                const size_t g = qoff + static_cast<size_t>(q0) * HD + i;
-                qs[rr * (HD + 1) + d] = in ? q[g] : 0.0f;
-                dos[rr * (HD + 1) + d] = in ? dout[g] : 0.0f;
-            }
-            if (threadIdx.x < kTile) {
-                const int row = q0 + threadIdx.x;
-                const size_t at = static_cast<size_t>(bh) * sq + row;
-                lses[threadIdx.x] = row < sq ? lse[at] : 0.0f;
-                deltas[threadIdx.x] = row < sq ? delta[at] : 0.0f;
-            }
-            __syncthreads();
-            const int row = q0 + lane;
-            const float* qr = qs + lane * (HD + 1);
-            const float* dr = dos + lane * (HD + 1);
-#pragma unroll
-            for (int jj = 0; jj < kDkvKeys; ++jj) {
-                const int j = warp * kDkvKeys + jj;
-                const int key = kv0 + j;
-                const float* kj = ks + j * HD;
-                const float* vj = vs + j * HD;
-                float s = 0.0f, dp = 0.0f;
-#pragma unroll 8
-                for (int d = 0; d < HD; ++d) {
-                    s += qr[d] * kj[d];
-                    dp += dr[d] * vj[d];
-                }
-                const bool kept = row < sq && key < skv && !(causal && key > row);
-                const float p = kept ? expf(s * scale - lses[lane]) : 0.0f;
-                const float ds = p * (dp - deltas[lane]) * scale;
-#pragma unroll 4
-                for (int l = 0; l < kTile; ++l) {
-                    const float pl = __shfl_sync(0xffffffffu, p, l);
-                    const float dsl = __shfl_sync(0xffffffffu, ds, l);
-                    const float* dol = dos + l * (HD + 1) + lane;
-                    const float* ql = qs + l * (HD + 1) + lane;
-#pragma unroll
-                    for (int c = 0; c < C; ++c) {
-                        dv_acc[jj][c] += pl * dol[32 * c];
-                        dk_acc[jj][c] += dsl * ql[32 * c];
-                    }
-                }
-            }
-        }
-    }
-
-#pragma unroll
-    for (int jj = 0; jj < kDkvKeys; ++jj) {
-        const int key = kv0 + warp * kDkvKeys + jj;
-        if (key >= skv) continue;
-        const size_t at = kvoff + static_cast<size_t>(key) * HD;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-            dk[at + lane + 32 * c] = dk_acc[jj][c];
-            dv[at + lane + 32 * c] = dv_acc[jj][c];
-        }
-    }
-}
-
-struct Args {
-    const void *q, *k, *v, *dout;
-    const float *lse, *delta;
-    int rep, sq, skv, causal;
-    float scale;
-    cudaStream_t stream;
-};
-
-template <int HD>
-int launch_dq(const Args& a, void* dq, int bh) {
-    constexpr size_t bytes = dq_smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(bytes));
+int launch_dq(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+              const float* delta, float* dq, int bh, int bg, int sq, int skv, int causal,
+              float scale, cudaStream_t stream) {
+    constexpr int bytes = dq_smem_bytes<HD>();
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((a.sq + kTile - 1) / kTile, bh);
-    flash_bwd_dq_kernel<HD><<<grid, kDqWarps * 32, bytes, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-        static_cast<float*>(dq), a.rep, a.sq, a.skv, a.causal, a.scale);
+    const dim3 grid(bh, (sq + Cfg<HD>::B - 1) / Cfg<HD>::B);
+    flash_bwd_dq_f32_kernel<HD><<<grid, kThreads, bytes, stream>>>(q, k, v, dout, lse, delta, dq,
+                                                                   bh / bg, sq, skv, causal, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
-int launch_dkv(const Args& a, void* dk, void* dv, int bg) {
-    constexpr size_t bytes = dkv_smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(bytes));
+int launch_dkv(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+               const float* delta, float* dk_part, float* dv_part, int bh, int bg, int sq, int skv,
+               int causal, float scale, cudaStream_t stream) {
+    constexpr int bytes = dkv_smem_bytes<HD>();
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((a.skv + kTile - 1) / kTile, bg);
-    flash_bwd_dkv_kernel<HD><<<grid, kDkvWarps * 32, bytes, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-        static_cast<float*>(dk), static_cast<float*>(dv), a.rep, a.sq, a.skv, a.causal,
-        a.scale);
+    const dim3 grid(bh, (skv + Cfg<HD>::B - 1) / Cfg<HD>::B);
+    flash_bwd_dkv_f32_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+        q, k, v, dout, lse, delta, dk_part, dv_part, bh / bg, sq, skv, causal, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_dq(const Args& a, void* dq, int bh, int hd) {
-    switch (hd) {
-        case 32: return launch_dq<32>(a, dq, bh);
-        case 64: return launch_dq<64>(a, dq, bh);
-        case 128: return launch_dq<128>(a, dq, bh);
-        case 256: return launch_dq<256>(a, dq, bh);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-}
-
-int dispatch_dkv(const Args& a, void* dk, void* dv, int bg, int hd) {
-    switch (hd) {
-        case 32: return launch_dkv<32>(a, dk, dv, bg);
-        case 64: return launch_dkv<64>(a, dk, dv, bg);
-        case 128: return launch_dkv<128>(a, dk, dv, bg);
-        case 256: return launch_dkv<256>(a, dk, dv, bg);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-}
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // dk/dv, bf16: wgmma fed by TMA
@@ -734,30 +894,6 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
     return static_cast<int>(cudaGetLastError());
 }
 
-// dk[g] = sum over r < rep of dk_part[g*rep + r], in that order (and dv),
-// cast to bf16; four values a thread
-__global__ void flash_bwd_dkv_reduce_kernel(const float4* __restrict__ dk_part,
-                                            const float4* __restrict__ dv_part,
-                                            __nv_bfloat162* __restrict__ dk,
-                                            __nv_bfloat162* __restrict__ dv, int rep,
-                                            long long per_head, long long n) {
-    for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
-         i += static_cast<long long>(gridDim.x) * blockDim.x) {
-        const long long g = i / per_head, off = i - g * per_head;
-        float4 a = dk_part[g * rep * per_head + off], b = dv_part[g * rep * per_head + off];
-        for (int r = 1; r < rep; ++r) {
-            const float4 x = dk_part[(g * rep + r) * per_head + off];
-            const float4 y = dv_part[(g * rep + r) * per_head + off];
-            a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
-            b.x += y.x; b.y += y.y; b.z += y.z; b.w += y.w;
-        }
-        dk[2 * i] = __floats2bfloat162_rn(a.x, a.y);
-        dk[2 * i + 1] = __floats2bfloat162_rn(a.z, a.w);
-        dv[2 * i] = __floats2bfloat162_rn(b.x, b.y);
-        dv[2 * i + 1] = __floats2bfloat162_rn(b.z, b.w);
-    }
-}
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, float* dk_part, float* dv_part, int bh, int bg, int sq, int skv,
@@ -778,6 +914,68 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// the dk/dv partials per q head, summed over each group
+// ---------------------------------------------------------------------------
+// dk[g] = sum over r < rep of dk_part[g*rep + r], in that order (and dv), for
+// the four values at float4 `off` of a head's partials
+__device__ __forceinline__ void sum_heads(const float4* __restrict__ dk_part,
+                                          const float4* __restrict__ dv_part, int rep,
+                                          long long per_head, long long i, float4& a, float4& b) {
+    const long long g = i / per_head, off = i - g * per_head;
+    a = dk_part[g * rep * per_head + off];
+    b = dv_part[g * rep * per_head + off];
+    for (int r = 1; r < rep; ++r) {
+        const float4 x = dk_part[(g * rep + r) * per_head + off];
+        const float4 y = dv_part[(g * rep + r) * per_head + off];
+        a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+        b.x += y.x; b.y += y.y; b.z += y.z; b.w += y.w;
+    }
+}
+
+// the bf16 route's: cast to bf16; four values a thread
+__global__ void flash_bwd_dkv_reduce_kernel(const float4* __restrict__ dk_part,
+                                            const float4* __restrict__ dv_part,
+                                            __nv_bfloat162* __restrict__ dk,
+                                            __nv_bfloat162* __restrict__ dv, int rep,
+                                            long long per_head, long long n) {
+    for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<long long>(gridDim.x) * blockDim.x) {
+        float4 a, b;
+        sum_heads(dk_part, dv_part, rep, per_head, i, a, b);
+        dk[2 * i] = __floats2bfloat162_rn(a.x, a.y);
+        dk[2 * i + 1] = __floats2bfloat162_rn(a.z, a.w);
+        dv[2 * i] = __floats2bfloat162_rn(b.x, b.y);
+        dv[2 * i + 1] = __floats2bfloat162_rn(b.z, b.w);
+    }
+}
+
+// the f32 route's: f32 out; four values a thread
+__global__ void flash_bwd_dkv_reduce_f32_kernel(const float4* __restrict__ dk_part,
+                                                const float4* __restrict__ dv_part,
+                                                float4* __restrict__ dk, float4* __restrict__ dv,
+                                                int rep, long long per_head, long long n) {
+    for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<long long>(gridDim.x) * blockDim.x) {
+        float4 a, b;
+        sum_heads(dk_part, dv_part, rep, per_head, i, a, b);
+        dk[i] = a;
+        dv[i] = b;
+    }
+}
+
+// the reductions' grid: a thread per four values, 16 blocks an SM at most
+// (the kernels stride over the rest)
+int reduce_blocks(long long n, int* blocks) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long cap = 16LL * sms;
+    *blocks = static_cast<int>(n / 256 + 1 < cap ? n / 256 + 1 : cap);
+    return 0;
+}
+
 }  // namespace
 
 extern "C" int flash_attention_dq_f32_launch(const void* q, const void* k, const void* v,
@@ -785,10 +983,18 @@ extern "C" int flash_attention_dq_f32_launch(const void* q, const void* k, const
                                              const void* delta, void* dq, int bh, int bg,
                                              int sq, int skv, int hd, int causal, float scale,
                                              void* stream) {
-    const Args a{q, k, v, dout, static_cast<const float*>(lse),
-                 static_cast<const float*>(delta), bh / bg, sq, skv, causal, scale,
-                 static_cast<cudaStream_t>(stream)};
-    return dispatch_dq(a, dq, bh, hd);
+    const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k);
+    const float *fv = static_cast<const float*>(v), *fd = static_cast<const float*>(dout);
+    const float *l = static_cast<const float*>(lse), *d = static_cast<const float*>(delta);
+    float* o = static_cast<float*>(dq);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (hd) {
+        case 32: return f32::launch_dq<32>(fq, fk, fv, fd, l, d, o, bh, bg, sq, skv, causal, scale, s);
+        case 64: return f32::launch_dq<64>(fq, fk, fv, fd, l, d, o, bh, bg, sq, skv, causal, scale, s);
+        case 128: return f32::launch_dq<128>(fq, fk, fv, fd, l, d, o, bh, bg, sq, skv, causal, scale, s);
+        case 256: return f32::launch_dq<256>(fq, fk, fv, fd, l, d, o, bh, bg, sq, skv, causal, scale, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 extern "C" int flash_attention_dq_bf16_launch(const void* q, const void* k, const void* v,
@@ -809,15 +1015,26 @@ extern "C" int flash_attention_dq_bf16_launch(const void* q, const void* k, cons
     }
 }
 
+// dk_part, dv_part: f32 partials per q head (B*H, Skv, hd), summed over each
+// group by flash_attention_dkv_reduce_f32_launch
 extern "C" int flash_attention_dkv_f32_launch(const void* q, const void* k, const void* v,
                                               const void* dout, const void* lse,
-                                              const void* delta, void* dk, void* dv, int bh,
-                                              int bg, int sq, int skv, int hd, int causal,
+                                              const void* delta, void* dk_part, void* dv_part,
+                                              int bh, int bg, int sq, int skv, int hd, int causal,
                                               float scale, void* stream) {
-    const Args a{q, k, v, dout, static_cast<const float*>(lse),
-                 static_cast<const float*>(delta), bh / bg, sq, skv, causal, scale,
-                 static_cast<cudaStream_t>(stream)};
-    return dispatch_dkv(a, dk, dv, bg, hd);
+    const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k);
+    const float *fv = static_cast<const float*>(v), *fd = static_cast<const float*>(dout);
+    const float *l = static_cast<const float*>(lse), *d = static_cast<const float*>(delta);
+    float* pk = static_cast<float*>(dk_part);
+    float* pv = static_cast<float*>(dv_part);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (hd) {
+        case 32: return f32::launch_dkv<32>(fq, fk, fv, fd, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
+        case 64: return f32::launch_dkv<64>(fq, fk, fv, fd, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
+        case 128: return f32::launch_dkv<128>(fq, fk, fv, fd, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
+        case 256: return f32::launch_dkv<256>(fq, fk, fv, fd, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 extern "C" int flash_attention_dkv_bf16_launch(const void* q, const void* k, const void* v,
@@ -844,15 +1061,25 @@ extern "C" int flash_attention_dkv_reduce_launch(const void* dk_part, const void
                                                  int hd, void* stream) {
     const long long per_head = static_cast<long long>(skv) * hd / 4;
     const long long n = per_head * bg;
-    // 16 blocks an SM at most: the kernel strides over the rest
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long cap = 16LL * sms;
-    const int blocks = static_cast<int>(n / 256 + 1 < cap ? n / 256 + 1 : cap);
-    wg::flash_bwd_dkv_reduce_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+    int blocks = 0;
+    const int err = reduce_blocks(n, &blocks);
+    if (err != 0) return err;
+    flash_bwd_dkv_reduce_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(dk_part), static_cast<const float4*>(dv_part),
         static_cast<__nv_bfloat162*>(dk), static_cast<__nv_bfloat162*>(dv), bh / bg, per_head, n);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flash_attention_dkv_reduce_f32_launch(const void* dk_part, const void* dv_part,
+                                                     void* dk, void* dv, int bh, int bg, int skv,
+                                                     int hd, void* stream) {
+    const long long per_head = static_cast<long long>(skv) * hd / 4;
+    const long long n = per_head * bg;
+    int blocks = 0;
+    const int err = reduce_blocks(n, &blocks);
+    if (err != 0) return err;
+    flash_bwd_dkv_reduce_f32_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(dk_part), static_cast<const float4*>(dv_part),
+        static_cast<float4*>(dk), static_cast<float4*>(dv), bh / bg, per_head, n);
     return static_cast<int>(cudaGetLastError());
 }

@@ -36,6 +36,12 @@
 //   partial sum unchanged (a sum that starts at +0.0 is never -0.0), so the
 //   results equal the plain version bit for bit.  Compiled with
 //   --fmad=false; there is no multiply here to contract anyway.
+// - XLA's order at K = 4 and 5.  The reference sums a mask's slots with a
+//   CPU dot against the 0/1 masks, which on two or more hosts adds
+//   (c0 + c1) + (c2 + c3) at K = 4 and ((c0 + c2) + (c1 + c3)) + c4 at
+//   K = 5 (slot order at every other K, and at one host).  There every mask
+//   is one lane's low bits, so the table row is that tree over all K slots,
+//   with an exact 0 for a slot outside the mask, as in sched_weigh_plain.
 // - K and D are template parameters (K <= 12, D <= 8; the C entry switches
 //   on them), so every loop unrolls and every array is registers.
 // - Reductions: warp shuffles (min cost, the OR of feasibility by
@@ -120,17 +126,35 @@ sched_weigh_kernel(const Args a) {
     if (kWarps == 1) __syncwarp(); else __syncthreads();
 
     // this thread's row of the low-slot table: slot sums over the low bits of
-    // t, in ascending slot order (tab[D] is the cost)
+    // t, in ascending slot order (tab[D] is the cost); at K = 4 and 5 on two
+    // or more hosts, XLA's trees over every slot (kLow = K there)
     const int lo = t & ((1 << kLow) - 1);
     float tab[D + 1];
+    bool xla_tree = false;
+    if constexpr (K == 4 || K == 5) {
+        xla_tree = a.n >= 2;
+        if (xla_tree) {
 #pragma unroll
-    for (int j = 0; j <= D; ++j) tab[j] = 0.0f;
+            for (int j = 0; j <= D; ++j) {
+                float c[K];
 #pragma unroll
-    for (int s = 0; s < kLow; ++s) {
-        if ((lo >> s) & 1) {
+                for (int s = 0; s < K; ++s)
+                    c[s] = (lo >> s) & 1 ? (j < D ? s_res[g][s * D + j] : s_cost[g][s]) : 0.0f;
+                tab[j] = K == 4 ? (c[0] + c[1]) + (c[2] + c[3])
+                                : ((c[0] + c[2]) + (c[1] + c[3])) + c[K - 1];
+            }
+        }
+    }
+    if (!xla_tree) {
 #pragma unroll
-            for (int j = 0; j < D; ++j) tab[j] = tab[j] + s_res[g][s * D + j];
-            tab[D] = tab[D] + s_cost[g][s];
+        for (int j = 0; j <= D; ++j) tab[j] = 0.0f;
+#pragma unroll
+        for (int s = 0; s < kLow; ++s) {
+            if ((lo >> s) & 1) {
+#pragma unroll
+                for (int j = 0; j < D; ++j) tab[j] = tab[j] + s_res[g][s * D + j];
+                tab[D] = tab[D] + s_cost[g][s];
+            }
         }
     }
     float free_j[D], need[D];

@@ -15,9 +15,10 @@ softmax.
 The tensor's device picks the version: a CPU tensor runs the plain version,
 a CUDA tensor launches the kernel or raises; nothing falls back.  On the
 card the inputs' type picks the route before launch: bf16 runs the forward,
-dq and dk/dv on the tensor cores (``wgmma`` fed by TMA; dk/dv as f32
-partials per q head, summed over each group by a second kernel), f32 the
-CUDA-core kernels, whose products stay full f32.
+dq and dk/dv on the tensor cores (``wgmma`` fed by TMA), f32 the CUDA-core
+kernels, whose products stay full f32.  On both routes dk/dv writes f32
+partials per q head, which a second kernel sums over each group in head
+order.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ from . import _build
 #: cores) and the dk/dv reduction over grouped heads, and their f32 routes.
 LAUNCHES = {"flash_attention": 0, "flash_attention_f32": 0, "flash_attention_dq": 0,
             "flash_attention_dq_f32": 0, "flash_attention_dkv": 0,
-            "flash_attention_dkv_reduce": 0, "flash_attention_dkv_f32": 0}
+            "flash_attention_dkv_reduce": 0, "flash_attention_dkv_f32": 0,
+            "flash_attention_dkv_reduce_f32": 0}
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
@@ -46,13 +48,13 @@ _LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
 #: bg, sq, skv, hd, causal, scale, stream
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] \
     + [ctypes.c_void_p]
-#: ``flash_attention_dkv_{bf16,f32}_launch``: q, k, v, do, lse, delta, dk (or
-#: its f32 partials per q head), dv (or partials), bh, bg, sq, skv, hd,
-#: causal, scale, stream
+#: ``flash_attention_dkv_{bf16,f32}_launch``: q, k, v, do, lse, delta, the
+#: f32 partials per q head of dk and of dv, bh, bg, sq, skv, hd, causal,
+#: scale, stream
 _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] \
     + [ctypes.c_void_p]
-#: ``flash_attention_dkv_reduce_launch``: dk partials, dv partials, dk, dv, bh,
-#: bg, skv, hd, stream
+#: ``flash_attention_dkv_reduce{,_f32}_launch``: dk partials, dv partials, dk,
+#: dv, bh, bg, skv, hd, stream
 _REDUCE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
@@ -166,15 +168,9 @@ def _delta(of: torch.Tensor, dof: torch.Tensor) -> torch.Tensor:
     return torch.sum(dof.to(torch.float32) * of.to(torch.float32), dim=-1)
 
 
-def flash_attention_bwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-    do: torch.Tensor, causal: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` of the flash forward (the plain version of
-    ``_dq_kernel`` and ``_dkv_kernel``): p recomputed from the saved ``lse``,
-    ``ds = p * (do.v^T - delta) * scale`` with ``delta = rowsum(do*o)``, f32
-    math; dq in q's type, dk and dv in k's type.  q, o, do (B,S,H,hd); k, v
-    (B,S,G,hd); lse (B*H,S)."""
+def _bwd_plain_f32(q, k, v, o, lse, do, causal):
+    """dq (B*H, Sq, hd) and the dk and dv partials per q head (B*H, Skv,
+    hd), all f32."""
     _check_shapes(q, k, v)
     b, sq, h, hd = q.shape
     g, skv = k.shape[2], k.shape[1]
@@ -193,12 +189,36 @@ def flash_attention_bwd_plain(
     p = torch.exp(s - lse[..., None])
     dp = torch.matmul(dof, vx.transpose(1, 2))
     ds = p * (dp - _delta(of, dof)[..., None]) * scale
-    dq = torch.matmul(ds, kx)
-    dk = torch.matmul(ds.transpose(1, 2), qf).reshape(b * g, rep, skv, hd).sum(1)
-    dv = torch.matmul(p.transpose(1, 2), dof).reshape(b * g, rep, skv, hd).sum(1)
+    return (torch.matmul(ds, kx), torch.matmul(ds.transpose(1, 2), qf),
+            torch.matmul(p.transpose(1, 2), dof))
+
+
+def flash_attention_dkv_partials_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk and dv of each q head, f32 (B*H, Skv, hd): what the dk/dv kernels
+    of both routes write, before the sum over each group."""
+    return _bwd_plain_f32(q, k, v, o, lse, do, causal)[1:]
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of the flash forward (the plain version of
+    ``_dq_kernel`` and ``_dkv_kernel``): p recomputed from the saved ``lse``,
+    ``ds = p * (do.v^T - delta) * scale`` with ``delta = rowsum(do*o)``, f32
+    math, dk and dv summed over each group's q heads in head order; dq in
+    q's type, dk and dv in k's type.  q, o, do (B,S,H,hd); k, v (B,S,G,hd);
+    lse (B*H,S)."""
+    dq, dk_part, dv_part = _bwd_plain_f32(q, k, v, o, lse, do, causal)
+    b, sq, h, hd = q.shape
+    g, skv = k.shape[2], k.shape[1]
+    dk, dv = flash_attention_dkv_reduce_plain(dk_part, dv_part, b * g, k.dtype)
     return (dq.reshape(b, h, sq, hd).transpose(1, 2).to(q.dtype),
-            dk.reshape(b, g, skv, hd).transpose(1, 2).to(k.dtype),
-            dv.reshape(b, g, skv, hd).transpose(1, 2).to(k.dtype))
+            dk.reshape(b, g, skv, hd).transpose(1, 2),
+            dv.reshape(b, g, skv, hd).transpose(1, 2))
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal):
@@ -220,78 +240,78 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal):
         common = (qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
                   lse.data_ptr(), delta.data_ptr())
         shape = (b * h, b * g, sq, skv, hd, int(causal), 1.0 / math.sqrt(hd))
-        bf16 = q.dtype == torch.bfloat16
-        dq_key, dq_symbol = (("flash_attention_dq", "flash_attention_dq_bf16_launch") if bf16 else
-                             ("flash_attention_dq_f32", "flash_attention_dq_f32_launch"))
-        fn_dq = _build.entry("flash_attention_bwd", dq_symbol, _DQ_ARGTYPES)
+        route = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        dq_key, dkv_key = (("flash_attention_dq", "flash_attention_dkv") if route == "bf16" else
+                           ("flash_attention_dq_f32", "flash_attention_dkv_f32"))
+        fn_dq = _build.entry("flash_attention_bwd", f"flash_attention_dq_{route}_launch",
+                             _DQ_ARGTYPES)
+        fn_dkv = _build.entry("flash_attention_bwd", f"flash_attention_dkv_{route}_launch",
+                              _DKV_ARGTYPES)
+        # f32 partials per q head, summed over each group in head order
+        dk_part = torch.empty((b * h, skv, hd), dtype=torch.float32, device=q.device)
+        dv_part = torch.empty_like(dk_part)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
             _build.check(fn_dq(*common, dq.data_ptr(), *shape, stream), dq_key)
             LAUNCHES[dq_key] += 1
-            if bf16:
-                # f32 partials per q head, summed over each group in head order
-                dk_part = torch.empty((b * h, skv, hd), dtype=torch.float32, device=q.device)
-                dv_part = torch.empty_like(dk_part)
-                fn = _build.entry("flash_attention_bwd", "flash_attention_dkv_bf16_launch",
-                                  _DKV_ARGTYPES)
-                _build.check(fn(*common, dk_part.data_ptr(), dv_part.data_ptr(), *shape, stream),
-                             "flash_attention_dkv")
-                LAUNCHES["flash_attention_dkv"] += 1
-                dk, dv = flash_attention_dkv_reduce(dk_part, dv_part, b * g)
-            else:
-                dk, dv = torch.empty_like(kf), torch.empty_like(vf)
-                fn = _build.entry("flash_attention_bwd", "flash_attention_dkv_f32_launch",
-                                  _DKV_ARGTYPES)
-                _build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *shape, stream),
-                             "flash_attention_dkv_f32")
-                LAUNCHES["flash_attention_dkv_f32"] += 1
+            _build.check(fn_dkv(*common, dk_part.data_ptr(), dv_part.data_ptr(), *shape, stream),
+                         dkv_key)
+            LAUNCHES[dkv_key] += 1
+            dk, dv = flash_attention_dkv_reduce(dk_part, dv_part, b * g, q.dtype)
     return (dq.reshape(b, h, sq, hd).transpose(1, 2),
             dk.reshape(b, g, skv, hd).transpose(1, 2),
             dv.reshape(b, g, skv, hd).transpose(1, 2))
 
 
+#: the reductions' output types, each with its launch entry and counter
+_REDUCE = {torch.bfloat16: ("flash_attention_dkv_reduce_launch", "flash_attention_dkv_reduce"),
+           torch.float32: ("flash_attention_dkv_reduce_f32_launch",
+                           "flash_attention_dkv_reduce_f32")}
+
+
 def flash_attention_dkv_reduce_plain(
-    dk_part: torch.Tensor, dv_part: torch.Tensor, groups: int
+    dk_part: torch.Tensor, dv_part: torch.Tensor, groups: int,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 dk/dv kernel's partials per q head (B*H, S, hd) f32, summed
-    over the rep = B*H / groups heads of each group in head order and cast
-    to bf16: (groups, S, hd) each."""
+    """The dk/dv kernels' partials per q head (B*H, S, hd) f32, summed over
+    the rep = B*H / groups heads of each group in head order and cast to
+    ``dtype`` (bf16 or f32, the route's): (groups, S, hd) each."""
     out = []
     for part in (dk_part, dv_part):
         heads = part.reshape(groups, part.shape[0] // groups, *part.shape[1:])
         acc = heads[:, 0]
         for r in range(1, heads.shape[1]):
             acc = acc + heads[:, r]
-        out.append(acc.to(torch.bfloat16))
+        out.append(acc.to(dtype))
     return out[0], out[1]
 
 
 def flash_attention_dkv_reduce(
-    dk_part: torch.Tensor, dv_part: torch.Tensor, groups: int
+    dk_part: torch.Tensor, dv_part: torch.Tensor, groups: int,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``flash_attention_dkv_reduce_plain``: the reduction kernel on CUDA
-    tensors (the same sums in the same order), the plain version on CPU
-    tensors."""
+    """``flash_attention_dkv_reduce_plain``: the reduction kernel of
+    ``dtype``'s route on CUDA tensors (the same sums in the same order), the
+    plain version on CPU tensors."""
     if dk_part.device.type == "cpu":
-        return flash_attention_dkv_reduce_plain(dk_part, dv_part, groups)
+        return flash_attention_dkv_reduce_plain(dk_part, dv_part, groups, dtype)
     bh, skv, hd = dk_part.shape
-    if (dv_part.shape != dk_part.shape or bh % groups or hd % 4 or dk_part.dtype != torch.float32
-            or dv_part.dtype != torch.float32 or not dk_part.is_contiguous()
-            or not dv_part.is_contiguous()):
+    if (dtype not in _REDUCE or dv_part.shape != dk_part.shape or bh % groups or hd % 4
+            or dk_part.dtype != torch.float32 or dv_part.dtype != torch.float32
+            or not dk_part.is_contiguous() or not dv_part.is_contiguous()):
         raise ValueError(f"flash_attention_dkv_reduce: expected two contiguous f32 (B*H, S, hd) "
-                         f"partials, hd a multiple of 4, B*H a multiple of {groups}; got "
-                         f"{tuple(dk_part.shape)} {dk_part.dtype}, {tuple(dv_part.shape)} "
-                         f"{dv_part.dtype}")
-    dk = torch.empty((groups, skv, hd), dtype=torch.bfloat16, device=dk_part.device)
+                         f"partials, hd a multiple of 4, B*H a multiple of {groups}, and a bf16 "
+                         f"or f32 output; got {tuple(dk_part.shape)} {dk_part.dtype}, "
+                         f"{tuple(dv_part.shape)} {dv_part.dtype}, {dtype}")
+    symbol, key = _REDUCE[dtype]
+    dk = torch.empty((groups, skv, hd), dtype=dtype, device=dk_part.device)
     dv = torch.empty_like(dk)
     if dk.numel():
-        fn = _build.entry("flash_attention_bwd", "flash_attention_dkv_reduce_launch",
-                          _REDUCE_ARGTYPES)
+        fn = _build.entry("flash_attention_bwd", symbol, _REDUCE_ARGTYPES)
         with torch.cuda.device(dk_part.device):
             _build.check(fn(dk_part.data_ptr(), dv_part.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                            bh, groups, skv, hd, torch.cuda.current_stream().cuda_stream),
-                         "flash_attention_dkv_reduce")
-        LAUNCHES["flash_attention_dkv_reduce"] += 1
+                            bh, groups, skv, hd, torch.cuda.current_stream().cuda_stream), key)
+        LAUNCHES[key] += 1
     return dk, dv
 
 

@@ -37,6 +37,28 @@ def subset_masks(k: int) -> np.ndarray:
     return ((m[:, None] >> np.arange(k)[None, :]) & 1).astype(np.float32)
 
 
+def _subset_sums(vals: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """(N, K) slot values -> (N, 2^K) sums over each mask's slots (an exact
+    zero for a slot outside the mask), in the order of XLA's CPU dot
+    ``(N, K) @ (K, 2^K)`` against the 0/1 masks, which the reference's
+    ``host_plan_terms`` runs: on two or more hosts (c0 + c1) + (c2 + c3)
+    at K = 4 and ((c0 + c2) + (c1 + c3)) + c4 at K = 5; slot order at every
+    other K, and at every K on one host."""
+    n, k = vals.shape
+
+    def c(s):
+        return torch.where(bits[:, s][None, :], vals[:, s][:, None], 0.0)
+
+    if n >= 2 and k == 4:
+        return (c(0) + c(1)) + (c(2) + c(3))
+    if n >= 2 and k == 5:
+        return ((c(0) + c(2)) + (c(1) + c(3))) + c(4)
+    acc = torch.zeros((n, bits.shape[0]), dtype=vals.dtype, device=vals.device)
+    for s in range(k):
+        acc = acc + c(s)
+    return acc
+
+
 def sched_weigh_plain(
     free_f: torch.Tensor,
     inst_res: torch.Tensor,
@@ -46,8 +68,8 @@ def sched_weigh_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-host Alg. 5 terms ``(best_cost, best_mask, feasible)``, each (N,).
 
-    Subset sums run over the slots in ascending order (adding an exact zero
-    for a slot outside the mask), the order the kernel uses."""
+    Subset sums run in XLA's order (``_subset_sums``), the order the kernel
+    uses."""
     n, k, d = inst_res.shape
     bits = torch.from_numpy(subset_masks(k) > 0.5).to(free_f.device)  # (M, K)
     valid = inst_valid.to(torch.bool)
@@ -55,15 +77,9 @@ def sched_weigh_plain(
     cost = torch.where(valid, inst_cost, POS_INF)
     ok = None
     for j in range(d):
-        freed = torch.zeros((n, bits.shape[0]), dtype=free_f.dtype, device=free_f.device)
-        for s in range(k):
-            freed = freed + torch.where(bits[:, s][None, :], res[:, s, j][:, None], 0.0)
-        cond = free_f[:, j][:, None] + freed >= req_res[j] - EPS
+        cond = free_f[:, j][:, None] + _subset_sums(res[:, :, j], bits) >= req_res[j] - EPS
         ok = cond if ok is None else ok & cond
-    sub = torch.zeros((n, bits.shape[0]), dtype=free_f.dtype, device=free_f.device)
-    for s in range(k):
-        sub = sub + torch.where(bits[:, s][None, :], cost[:, s][:, None], 0.0)
-    sub = torch.where(ok, sub, POS_INF)
+    sub = torch.where(ok, _subset_sums(cost, bits), POS_INF)
     best_cost = torch.amin(sub, dim=1)
     size = bits.sum(dim=1)
     is_tie = sub <= best_cost[:, None] + TIE_EPS

@@ -170,6 +170,20 @@ def test_sched_weigh_fractional_matches_plain(cuda_device, k):
         _eq(g, w)
 
 
+@pytest.mark.parametrize("n", [1, 2, 64, 4096])
+@pytest.mark.parametrize("k", [4, 5])
+def test_sched_weigh_xla_tree_matches_plain(cuda_device, k, n):
+    """At K = 4 and 5 the kernel adds a mask's slots in XLA's trees on two or
+    more hosts and in slot order on one, bit for bit as the plain version,
+    on fractional inputs."""
+    *per_host, req = fleets.weigh_arrays(max(n, 48), k, 3, seed=k * n)
+    rows = slice(1, 2) if n == 1 else slice(0, n)
+    args = tuple(torch.from_numpy(a[rows]).to(cuda_device) for a in per_host) \
+        + (torch.from_numpy(req).to(cuda_device),)
+    for g, w in zip(kernels.sched_weigh(*args), kernels.sched_weigh_plain(*args)):
+        _eq(g, w)
+
+
 @pytest.mark.parametrize("k,n", [(8, 65536), (12, 4096)])
 def test_sched_weigh_two_calls_same_bits(cuda_device, k, n):
     args = tuple(torch.from_numpy(a).to(cuda_device) for a in fleets.weigh_arrays(n, k, 3, seed=n))
@@ -190,7 +204,7 @@ def _close(got, want, tol):
 #: the bf16 route (tensor cores) launches these, the f32 route its own
 FWD_KEY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention"}
 DQ_KEY = {torch.float32: "flash_attention_dq_f32", torch.bfloat16: "flash_attention_dq"}
-DKV_KEYS = {torch.float32: ("flash_attention_dkv_f32",),
+DKV_KEYS = {torch.float32: ("flash_attention_dkv_f32", "flash_attention_dkv_reduce_f32"),
             torch.bfloat16: ("flash_attention_dkv", "flash_attention_dkv_reduce")}
 #: several key tiles of every width, ragged tails against the 128-row tiles
 #: (S=1,000; S=640 with hd 256's 64-key tiles), MQA at hd 256
@@ -262,13 +276,38 @@ def test_flash_backward_matches_plain(cuda_device, shape, dtype, causal):
         [1] * (1 + len(DKV_KEYS[dtype]))
     other = torch.bfloat16 if dtype == torch.float32 else torch.float32
     assert counts[DQ_KEY[other]] == counts[FWD_KEY[other]] == 0
-    want = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    assert all(counts[key] == 0 for key in DKV_KEYS[other])
+    _assert_backward_close(got, kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal),
+                           dtype)
+
+
+def _assert_backward_close(got, want, dtype):
     for name, a, w in zip("qkv", got, want):
         assert a.dtype == dtype and a.shape == w.shape, name
         _close(a, w, BWD_TOL[dtype])
         a64, w64 = a.double(), w.double()
         rel = float(torch.linalg.vector_norm(a64 - w64) / torch.linalg.vector_norm(w64))
         assert rel <= BWD_REL[dtype], (name, rel)
+
+
+#: the f32 route at the shapes it is timed at: qwen2-1.5b's heads at
+#: 1 x 2,048, and gemma-2b's hd 256 MQA at 1 x 1,024
+F32_PATH_SHAPES = [(1, 2048, 12, 2, 128), (1, 1024, 8, 1, 256)]
+
+
+@pytest.mark.parametrize("shape", F32_PATH_SHAPES, ids=str)
+def test_flash_f32_backward_at_path_shapes(cuda_device, shape):
+    b, s, h, g, hd = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(3 * s + hd)
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device) for n in (h, g, g, h))
+    o, lse = kernels.flash_attention_plain(q, k, v, causal=True)
+    kernels.reset_launch_counts()
+    got = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert [counts[key] for key in (DQ_KEY[torch.float32],) + DKV_KEYS[torch.float32]] == [1, 1, 1]
+    _assert_backward_close(got, kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
+                           torch.float32)
 
 
 @pytest.mark.parametrize("shape", [(2, 1000, 12, 2, 128), (1, 640, 8, 1, 256)], ids=str)
@@ -286,6 +325,20 @@ def test_flash_bf16_kernels_are_deterministic(cuda_device, shape):
     for name, a, b_ in zip(("o", "lse", "dq", "dk", "dv"), *runs):
         assert torch.equal(a.view(torch.uint8) if a.dtype == torch.bfloat16 else a,
                            b_.view(torch.uint8) if b_.dtype == torch.bfloat16 else b_), name
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 12, 2, 128), (1, 640, 8, 1, 256)], ids=str)
+def test_flash_f32_backward_is_deterministic(cuda_device, shape):
+    """Two calls of the f32 backward on the same inputs give the same bits
+    of dq, dk and dv (no atomics; dk/dv sums its grouped heads in head
+    order)."""
+    b, s, h, g, hd = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(s + 1)
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device) for n in (h, g, g, h))
+    o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
+    runs = [kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True) for _ in range(2)]
+    for name, a, b_ in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b_), name
 
 
 @pytest.mark.parametrize("rows,d", [(4096, 1536), (8, 1536), (100, 384), (3, 2048),

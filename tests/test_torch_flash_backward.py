@@ -123,3 +123,46 @@ def test_dkv_reduce_plain_sums_each_group_in_head_order():
         want = ((heads[:, 0] + heads[:, 1]) + heads[:, 2]).to(torch.bfloat16)
         assert out.dtype == torch.bfloat16 and out.shape == (2, 40, 32)
         assert torch.equal(out, want)
+
+
+def test_dkv_reduce_plain_f32_sums_each_group_in_head_order():
+    """The f32 route's reduction: the same sums in head order, kept in f32,
+    bit for bit the left-to-right sum (MQA: all 4 heads of one group)."""
+    from repro_torch.kernels import flash_attention_dkv_reduce
+
+    rng = np.random.default_rng(11)
+    parts = [torch.from_numpy(rng.standard_normal((2 * 4, 33, 64)).astype(np.float32))
+             for _ in range(2)]
+    for groups in (2, 8):
+        got = flash_attention_dkv_reduce(*parts, groups, torch.float32)
+        for part, out in zip(parts, got):
+            heads = part.reshape(groups, 8 // groups, 33, 64)
+            want = heads[:, 0]
+            for r in range(1, heads.shape[1]):
+                want = want + heads[:, r]
+            assert out.dtype == torch.float32 and out.shape == (groups, 33, 64)
+            assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_f32_route_pieces_match_pallas_grad(case):
+    """The f32 route's dk/dv in its two steps, as the card runs them: the
+    partials per q head (the dk/dv kernel's plain version), then their sum
+    over each group in head order (the f32 reduction's), against ``jax.grad``
+    of the Pallas kernel in interpret mode, at the tolerance of
+    ``test_backward_matches_pallas_grad`` (2e-3)."""
+    from repro_torch.kernels import flash_attention_dkv_partials_plain, flash_attention_dkv_reduce
+
+    *shape, causal = case
+    b, s, h, g, hd = shape
+    q, k, v, do = _inputs(sum(shape), *shape)
+    want = _jax_grads(q, k, v, do, causal)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = flash_attention_plain(tq, tk, tv, causal=causal)
+    parts = flash_attention_dkv_partials_plain(tq, tk, tv, o, lse, tdo, causal=causal)
+    assert all(p.shape == (b * h, s, hd) and p.dtype == torch.float32 for p in parts)
+    dk, dv = flash_attention_dkv_reduce(*parts, b * g, torch.float32)
+    for name, got, w in (("k", dk, want[1]), ("v", dv, want[2])):
+        got = got.reshape(b, g, s, hd).transpose(1, 2)
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=2e-3, rtol=2e-3,
+                                   err_msg=f"d{name}")

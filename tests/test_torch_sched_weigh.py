@@ -123,22 +123,29 @@ def _weigh_emulated(free_f, inst_res, inst_cost, inst_valid, req, low):
     """The kernel's order in numpy f32: each mask's slot sums start from the
     table entry of its low ``low`` bits (slots summed in ascending order, the
     ones outside the mask skipped) and add its high slots in ascending order;
-    then min cost, the min (popcount << 16 | mask) key among masks within
-    TIE_EPS of it, and the OR of feasibility."""
+    at K = 4 and 5 on two or more hosts, XLA's trees over all K slots (an
+    exact 0 for a slot outside the mask), whatever ``low``; then min cost,
+    the min (popcount << 16 | mask) key among masks within TIE_EPS of it, and
+    the OR of feasibility."""
     f32 = np.float32
     n, k, d = inst_res.shape
     vals = np.concatenate([np.where(inst_valid[..., None], inst_res, f32(0)),
                            np.where(inst_valid, inst_cost, f32(1e30))[..., None]], axis=2)
-    table = np.zeros((n, 1 << low, d + 1), f32)
-    for t in range(1 << low):
-        for s in range(low):
-            if (t >> s) & 1:
-                table[:, t] = table[:, t] + vals[:, s]
     m = np.arange(1 << k)
-    f = table[:, m & ((1 << low) - 1)]
-    for s in range(low, k):
-        bit = ((m >> s) & 1).astype(bool)
-        f[:, bit] = f[:, bit] + vals[:, s][:, None, :]
+    if k in XLA_TREE_K and n >= 2:
+        c = [np.where(((m >> s) & 1).astype(bool)[None, :, None], vals[:, s][:, None, :], f32(0))
+             for s in range(k)]
+        f = (c[0] + c[1]) + (c[2] + c[3]) if k == 4 else ((c[0] + c[2]) + (c[1] + c[3])) + c[4]
+    else:
+        table = np.zeros((n, 1 << low, d + 1), f32)
+        for t in range(1 << low):
+            for s in range(low):
+                if (t >> s) & 1:
+                    table[:, t] = table[:, t] + vals[:, s]
+        f = table[:, m & ((1 << low) - 1)]
+        for s in range(low, k):
+            bit = ((m >> s) & 1).astype(bool)
+            f[:, bit] = f[:, bit] + vals[:, s][:, None, :]
     ok = np.all(free_f[:, None, :] + f[:, :, :d] >= req - f32(1e-6), axis=2)
     sub = np.where(ok, f[:, :, d], f32(1e30))
     best = sub.min(axis=1)
@@ -148,11 +155,11 @@ def _weigh_emulated(free_f, inst_res, inst_cost, inst_valid, req, low):
 
 
 #: K at which XLA's CPU dot (the jitted ``host_plan_terms`` and the Pallas
-#: kernel in interpret mode) does not add a mask's slots in ascending order:
-#: K=4 adds ((c0 + c1) + (c2 + c3)) (``test_xla_dot_adds_k4_pairwise``), K=5
-#: in another tree.  Off a dyadic grid the JAX package's sums may then differ
-#: from the ascending order by an ulp; on the 1/4 grid every order gives the
-#: same sums.
+#: kernel in interpret mode) does not add a mask's slots in ascending order
+#: when it has two or more hosts: K=4 adds ((c0 + c1) + (c2 + c3)), K=5
+#: (((c0 + c2) + (c1 + c3)) + c4) (``test_xla_dot_slot_order``).  The port
+#: (plain version and kernel) adds in those trees there, so it equals the
+#: JAX package bit for bit off a dyadic grid at every K.
 XLA_TREE_K = (4, 5)
 
 
@@ -161,14 +168,25 @@ def _on_grid(arrays):
                  for a in arrays)
 
 
+def _hosts(k, d, n, seed):
+    """``fleets.weigh_arrays`` cut to ``n`` hosts; one host is host 1 (host 0
+    has no valid slot)."""
+    *per_host, req = fleets.weigh_arrays(max(n, 48), k, d, seed=seed)
+    rows = slice(1, 2) if n == 1 else slice(0, n)
+    return tuple(a[rows] for a in per_host) + (req,)
+
+
 @pytest.mark.parametrize("k", range(1, 13))
 def test_kernel_order_is_bitwise_plain_and_jax(k):
     """The CUDA kernel's order of additions (a table over the low slots, then
-    the high slots in ascending order) gives the plain version's bits, and the
-    JAX package's wherever XLA adds in ascending order, off the integer grid:
-    fractional resources and costs, exact ties, a tie at TIE_EPS, invalid
-    slots, hosts with none valid; D = 1..8.  Every split of the mask bits
-    does, the kernel's own among them."""
+    the high slots in ascending order; XLA's trees at K = 4 and 5 on two or
+    more hosts) gives the plain version's bits, and the plain version the
+    JAX package's, off the integer grid: fractional resources and costs,
+    exact ties, a tie at TIE_EPS, invalid slots, hosts with none valid;
+    D = 1..8.  Every split of the mask bits does, the kernel's own among
+    them; on 48 hosts, on and off the 1/4 grid, against the jitted
+    ``host_plan_terms`` and the Pallas kernel in interpret mode; off the
+    grid on 1, 2, 64 and 400 hosts against the jitted ``host_plan_terms``."""
     d = 1 + (k - 1) % 8
     arrays = fleets.weigh_arrays(48, k, d, seed=100 + k)
     splits = sorted({0, k // 2, (k + 1) // 2, k, _low_bits(k)})
@@ -176,10 +194,14 @@ def test_kernel_order_is_bitwise_plain_and_jax(k):
         want = kernels.sched_weigh_plain(*_t(*case))
         for low in splits:
             _assert_same(want, _weigh_emulated(*case, low))
-        if k not in XLA_TREE_K or case is not arrays:
-            _assert_same(want, jax.jit(host_plan_terms)(*case, subset_masks(k)))
-            _assert_same(want, jax_sched_weigh(*case, subset_masks(k), interpret=True))
+        _assert_same(want, jax.jit(host_plan_terms)(*case, subset_masks(k)))
+        _assert_same(want, jax_sched_weigh(*case, subset_masks(k), interpret=True))
         assert np.any(want[2].numpy()) and not np.all(want[2].numpy())
+    for n in (1, 2, 64, 400):
+        case = _hosts(k, d, n, 100 + k)
+        want = kernels.sched_weigh_plain(*_t(*case))
+        _assert_same(want, _weigh_emulated(*case, _low_bits(k)))
+        _assert_same(want, jax.jit(host_plan_terms)(*case, subset_masks(k)))
 
 
 def test_xla_dot_adds_k4_pairwise():
@@ -191,3 +213,23 @@ def test_xla_dot_adds_k4_pairwise():
     c = np.where(subset_masks(4)[None] > 0.5, cost[:, None, :], np.float32(0))
     np.testing.assert_array_equal(got, (c[..., 0] + c[..., 1]) + (c[..., 2] + c[..., 3]))
     assert not np.array_equal(got, ((c[..., 0] + c[..., 1]) + c[..., 2]) + c[..., 3])
+
+
+@pytest.mark.parametrize("n", [1, 2, 64, 400])
+@pytest.mark.parametrize("k", [4, 5])
+def test_xla_dot_slot_order(k, n):
+    """XLA's CPU dot of fractional slot costs against the 0/1 masks, bit for
+    bit: on one host in slot order, on two or more the trees the port adds
+    in ((c0 + c1) + (c2 + c3) at K=4, ((c0 + c2) + (c1 + c3)) + c4 at
+    K=5)."""
+    cost = (np.random.default_rng(10 * k + n).random((n, k)) * 3600).astype(np.float32)
+    got = np.asarray(jax.jit(lambda c, m: c @ m.T)(cost, subset_masks(k)))
+    c = [np.where(subset_masks(k)[None, :, s] > 0.5, cost[:, s][:, None], np.float32(0))
+         for s in range(k)]
+    in_order = c[0]
+    for t in c[1:]:
+        in_order = in_order + t
+    tree = ((c[0] + c[1]) + (c[2] + c[3]) if k == 4 else ((c[0] + c[2]) + (c[1] + c[3])) + c[4])
+    np.testing.assert_array_equal(got, tree if n >= 2 else in_order)
+    if n >= 64:   # enough fractional sums that the two orders part somewhere
+        assert not np.array_equal(tree, in_order)

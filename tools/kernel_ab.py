@@ -1,26 +1,34 @@
-"""Time this checkout's RMSNorm and ``sched_weigh`` CUDA kernels against
-another checkout's, on one NVIDIA GPU, in turns (other, this, this, other).
+"""Time this checkout's RMSNorm, ``sched_weigh`` and f32 flash-attention
+backward CUDA kernels against another checkout's, on one NVIDIA GPU, in
+turns (other, this, this, other).
 
     python3 tools/kernel_ab.py --other DIR
 
 ``DIR`` is the root of another checkout of this repository (for example an
 earlier commit unpacked with ``git archive``).  Both trees'
-``src/repro_torch/kernels/csrc/rmsnorm.cu`` and ``sched_weigh.cu`` are
-compiled with this checkout's ``nvcc`` flags, all four at once, and called
-through their C entries (``rmsnorm_launch``, ``sched_weigh_launch``), whose
-signatures both trees must share.  Each case prints one JSON line: the
-device time of one call (``torch.profiler`` spans, median of ``--reps``) for
-each turn, warm and, for RMSNorm, with the L2 flushed before every call;
-``F.rms_norm`` beside RMSNorm; the device time of a one-element PyTorch op
-(the launch floor); and whether the two trees' outputs agree (bit for bit
-for ``sched_weigh``; RMSNorm's largest gap between the trees).  Nothing
-here imports JAX or the JAX package.
+``src/repro_torch/kernels/csrc/rmsnorm.cu``, ``sched_weigh.cu`` and
+``flash_attention_bwd.cu`` are compiled with this checkout's ``nvcc``
+flags, all six at once, and called through their C entries
+(``rmsnorm_launch``, ``sched_weigh_launch``,
+``flash_attention_{dq,dkv}_f32_launch``), whose signatures both trees must
+share.  A tree whose library has ``flash_attention_dkv_reduce_f32_launch``
+writes f32 dk/dv partials per q head and sums them with it; an older one
+writes dk and dv at once.  Each case prints one JSON line: the device time
+of one call (``torch.profiler`` spans, median of ``--reps``) for each turn,
+warm and, for RMSNorm, with the L2 flushed before every call; ``F.rms_norm``
+beside RMSNorm, the backward of ``scaled_dot_product_attention`` (TF32 off)
+beside the flash backward; the device time of a one-element PyTorch op (the
+launch floor); and whether the two trees' outputs agree (bit for bit for
+``sched_weigh``; the largest gap between the trees and to the plain version
+for RMSNorm and the flash backward).  Nothing here imports JAX or the JAX
+package.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -35,18 +43,26 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core.fleets import weigh_arrays  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    _DKV_ARGTYPES, _DQ_ARGTYPES, _REDUCE_ARGTYPES, _delta, _flatten, flash_attention_bwd_plain,
+    flash_attention_plain)
 from repro_torch.kernels.rmsnorm import _LAUNCH_ARGTYPES as RMS_ARGTYPES  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.sched_weigh import _LAUNCH_ARGTYPES as WEIGH_ARGTYPES  # noqa: E402
 from repro_torch.kernels.sched_weigh import TIE_EPS, sched_weigh_plain  # noqa: E402
 
-SOURCES = {"rmsnorm": ("rmsnorm_launch", RMS_ARGTYPES),
-           "sched_weigh": ("sched_weigh_launch", WEIGH_ARGTYPES)}
+#: each source's C entries (a tree may lack the optional ones) and their types
+SOURCES = {"rmsnorm": {"rmsnorm_launch": RMS_ARGTYPES},
+           "sched_weigh": {"sched_weigh_launch": WEIGH_ARGTYPES},
+           "flash_attention_bwd": {"flash_attention_dq_f32_launch": _DQ_ARGTYPES,
+                                   "flash_attention_dkv_f32_launch": _DKV_ARGTYPES,
+                                   "flash_attention_dkv_reduce_f32_launch": _REDUCE_ARGTYPES}}
+OPTIONAL = {"flash_attention_dkv_reduce_f32_launch"}
 
 
 def build(trees, out_dir):
     """One library per (tree, source), all ``nvcc`` runs started together;
-    returns {(tree, source): C entry} and this tree's ptxas reports."""
+    returns {(tree, symbol): C entry} and each library's compiler output."""
     procs = {}
     for tree in trees:
         for name in SOURCES:
@@ -60,10 +76,13 @@ def build(trees, out_dir):
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode:
             sys.exit(f"nvcc failed for {tree} {name}:\n{log}")
-        symbol, argtypes = SOURCES[name]
-        fn = getattr(ctypes.CDLL(lib), symbol)
-        fn.restype, fn.argtypes = ctypes.c_int, list(argtypes)
-        entries[tree, name] = fn
+        loaded = ctypes.CDLL(lib)
+        for symbol, argtypes in SOURCES[name].items():
+            if symbol in OPTIONAL and not hasattr(loaded, symbol):
+                continue
+            fn = getattr(loaded, symbol)
+            fn.restype, fn.argtypes = ctypes.c_int, list(argtypes)
+            entries[tree, symbol] = fn
         logs[tree, name] = log
     return entries, logs
 
@@ -113,6 +132,9 @@ def main():
         for name in SOURCES:
             _build.BUILD_LOG[name] = logs["this", name]
             report = _build.ptxas_report(name)
+            if name == "flash_attention_bwd":      # the f32 kernels, in full
+                report = {f: c for f, c in report.items() if "f32_kernel" in f}
+                print(json.dumps({"ptxas_f32_backward": report}), flush=True)
             print(json.dumps({"ptxas": name, "kernels": len(report),
                               "max_registers": max(c.get("registers", 0) for c in report.values()),
                               "max_stack": max(c.get("stack", 0) for c in report.values()),
@@ -134,7 +156,7 @@ def main():
             w1 = 1.0 + w
             outs = {tree: torch.empty_like(x) for tree in ("other", "this")}
             bf = int(dt == torch.bfloat16)
-            fns = {tree: (lambda t=tree: _build.check(entries[t, "rmsnorm"](
+            fns = {tree: (lambda t=tree: _build.check(entries[t, "rmsnorm_launch"](
                 x.data_ptr(), w.data_ptr(), outs[t].data_ptr(), rows, d, 1e-6, bf, bf, stream),
                 t)) for tree in outs}
             for fn in fns.values():
@@ -156,7 +178,7 @@ def main():
             outs = {tree: (torch.empty(n, device="cuda"),
                            torch.empty(n, dtype=torch.int32, device="cuda"),
                            torch.empty(n, dtype=torch.bool, device="cuda")) for tree in ("other", "this")}
-            fns = {tree: (lambda t=tree: _build.check(entries[t, "sched_weigh"](
+            fns = {tree: (lambda t=tree: _build.check(entries[t, "sched_weigh_launch"](
                 *(a.data_ptr() for a in inp), n, k, d, TIE_EPS,
                 *(o.data_ptr() for o in outs[t]), stream), t)) for tree in outs}
             for fn in fns.values():
@@ -168,6 +190,61 @@ def main():
                 "this_equals_plain": all(torch.equal(a, b) for a, b in zip(outs["this"], plain)),
                 "bound_ms": n * ((1 << (k - 1)) * k * (d + 1) + (1 << k) * (d + 3)) / 67e12 * 1e3,
                 "warm": turns(fns, args.reps)}), flush=True)
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for b, s, h, g, hd in ((1, 2048, 12, 2, 128), (2, 4096, 12, 2, 128)):
+            flash_bwd_case(entries, stream, args.reps if s <= 2048 else max(args.reps // 5, 5),
+                           gen, b, s, h, g, hd)
+
+
+def flash_bwd_case(entries, stream, reps, gen, b, s, h, g, hd):
+    """The f32 dq and dk/dv (with the reduction, where the tree has one) of
+    both trees at (B, S, H, G, hd), causal."""
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=gen, device="cuda") for n in (h, g, g, h))
+    o, lse = flash_attention_plain(q, k, v, causal=True)
+    qf, kf, vf = _flatten(q, k, v)
+    dof = do.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    delta = _delta(o.transpose(1, 2).reshape(b * h, s, hd), dof).contiguous()
+    common = (qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(), lse.data_ptr(),
+              delta.data_ptr())
+    shape = (b * h, b * g, s, s, hd, 1, 1.0 / math.sqrt(hd))
+    outs = {tree: [torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)]
+            for tree in ("other", "this")}
+    parts = [torch.empty((b * h, s, hd), device="cuda") for _ in range(2)]
+
+    def dq(t):
+        _build.check(entries[t, "flash_attention_dq_f32_launch"](*common, outs[t][0].data_ptr(), *shape,
+                                                                 stream), t)
+
+    def dkv(t):
+        reduce = entries.get((t, "flash_attention_dkv_reduce_f32_launch"))
+        dst = parts if reduce else outs[t][1:]
+        _build.check(entries[t, "flash_attention_dkv_f32_launch"](
+            *common, dst[0].data_ptr(), dst[1].data_ptr(), *shape, stream), t)
+        if reduce:
+            _build.check(reduce(parts[0].data_ptr(), parts[1].data_ptr(), outs[t][1].data_ptr(),
+                                outs[t][2].data_ptr(), b * h, b * g, s, hd, stream), t)
+
+    for t in outs:
+        dq(t)
+        dkv(t)
+    plain = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    plain = [p.transpose(1, 2).reshape(-1, s, hd).double() for p in plain]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    pairs = b * h * s * (s + 1) // 2
+    print(json.dumps({
+        "case": f"flash backward f32 B={b} S={s} H={h} G={g} hd={hd} causal",
+        "gap_this_other": [float((x.double() - y.double()).abs().max())
+                           for x, y in zip(outs["this"], outs["other"])],
+        "gap_this_plain": [float((x.double() - p).abs().max()) for x, p in zip(outs["this"], plain)],
+        "gap_other_plain": [float((x.double() - p).abs().max()) for x, p in zip(outs["other"], plain)],
+        "bound_ms": {"dq": 6 * hd * pairs / 67e12 * 1e3, "dkv": 8 * hd * pairs / 67e12 * 1e3},
+        "dq": turns({t: (lambda t=t: dq(t)) for t in outs}, reps),
+        "dkv_with_reduce": turns({t: (lambda t=t: dkv(t)) for t in outs}, reps),
+        "library_dq_dk_dv": device_ms(lambda: torch.autograd.grad(
+            sdpa_o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), reps)}), flush=True)
 
 
 if __name__ == "__main__":
