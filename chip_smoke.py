@@ -11,12 +11,12 @@ exits non-zero:
                started together): seconds per source, and the count of
                HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS
                of each tensor-core kernel, which must not be 0, and ptxas's
-               registers and spill bytes of each; the f32 backward kernels'
-               SASS, which must hold no HMMA or HGMMA, and their ptxas
-               registers, stack and spills; ptxas's registers, stack
-               frame and spill bytes of every screen kernel, the K=8 ones
-               with no stack frame and no spills; of every RMSNorm and
-               sched_weigh instantiation, none with spills;
+               registers and spill bytes of each; the f32 kernels' (forward,
+               dq, dk/dv) SASS, which must hold no HMMA or HGMMA, and their
+               ptxas registers, none with a stack frame or spills; ptxas's
+               registers, stack frame and spill bytes of every screen
+               kernel, the K=8 ones with no stack frame and no spills; of
+               every RMSNorm and sched_weigh instantiation, none with spills;
 3. kernels   — the decision path's kernels at the paper's saturated geometry
                (65,536 hosts, K=8, D=3, M=64; plus the enumeration at K=12),
                each against its plain PyTorch version on the same inputs:
@@ -36,15 +36,18 @@ exits non-zero:
                single decisions: decisions/s, latency, fallbacks, memory,
                the device's busy share, and every kernel's launch count;
 6. model_kernels — flash-attention forward and RMSNorm against their plain
-               versions at qwen2-1.5b's and gemma-2b's shapes (plus a full,
-               a ragged and an f32 case; RMSNorm at the prefill, decode and
-               training shapes, both type mixes, an odd width and rows off
-               16-byte alignment), each gap against a stated tolerance, and
-               two calls of the bf16 forward and of RMSNorm giving the same
-               bits; kernel / plain / bound / library times (bf16
-               tensor-core and f32 routes), and RMSNorm's and the library's
-               at 8, 4,096 and 8,192 rows of 1,536, warm and with the L2
-               flushed;
+               versions at qwen2-1.5b's and gemma-2b's shapes (plus a full
+               and a ragged case; the f32 route at S=77 and at every shape
+               its paths run: 4 x 1,024, 2 x 4,096, phase 10's, gemma-2b's,
+               ragged and full; RMSNorm at the prefill, decode and training
+               shapes, both type mixes, an odd width and rows off 16-byte
+               alignment), each gap against a stated tolerance, and two
+               calls of the forward (both routes) and of RMSNorm giving the
+               same bits; kernel / plain / bound / library times (bf16
+               tensor-core and f32 routes; the f32 route at 4 x 1,024 and
+               2 x 4,096, by the trace and by CUDA events), and RMSNorm's
+               and the library's at 8, 4,096 and 8,192 rows of 1,536, warm
+               and with the L2 flushed;
 7. model_parity — reduced qwen2-1.5b in f32, the same weights on the card
                and on the CPU: flash ``forward_logits`` within 1e-4, and a
                ``ServingEngine`` run with identical tokens and step counts;
@@ -85,8 +88,9 @@ exits non-zero:
                one traced step, and the first step against reference
                attention on the same batch (its f32 half runs the f32 flash
                kernels, whose launches are counted against the path);
-12. the ``kernels`` line, then the card's name and power limit, then the
-    result line.
+12. every library time of a flash kernel's function by the trace and by
+    CUDA events, marking any reading under its bound; the ``kernels`` line,
+    then the card's name and power limit, then the result line.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so every f32
 product here is full f32.  The script imports neither JAX nor the JAX
@@ -254,6 +258,37 @@ def launch_event_ms(fn, symbols, reps: int) -> dict:
     return {key: float(np.median([a.elapsed_time(b) for a, b in m])) for key, m in marks.items()}
 
 
+def kernel_ms(fn, names, reps: int = 10, warmup: int = 2):
+    """Median device time of each kernel over ``reps`` calls of ``fn`` (one
+    launch of each per call); ``names`` maps a key to (a substring of the
+    kernel's name in a trace, its C launch entry).  From a
+    ``torch.profiler`` trace, whose median stands if it holds at least half
+    the launches; else from CUDA events around each launch."""
+    spans = traced_spans(fn, reps, warmup)
+    durs = {key: [b_ - a for a, b_, name in spans if match in name]
+            for key, (match, _) in names.items()}
+    if all(2 * len(d_) >= reps for d_ in durs.values()):
+        return {key: float(np.median(d_)) / 1e3 for key, d_ in durs.items()}
+    EVENT_TIMED.extend(sym for _, sym in names.values())
+    return launch_event_ms(fn, {key: sym for key, (_, sym) in names.items()}, reps)
+
+
+#: every library call timed for a flash kernel's function: its reading by the
+#: trace and by CUDA events, beside the function's bound
+LIBRARY_READINGS = {}
+
+
+def library_time(what: str, fn, bound_ms: float, reps: int = 25) -> float:
+    """The device time of one PyTorch call that computes a kernel's function,
+    by ``device_ms`` (the trace) and by ``median_ms`` (CUDA events, which
+    count the host's launch gaps too), both kept in ``LIBRARY_READINGS``.
+    Returns the trace's reading, or the events' where the trace's lies under
+    the function's bound, which no call can beat."""
+    trace, events = device_ms(fn, reps), median_ms(fn, reps)
+    LIBRARY_READINGS[what] = dict(trace_ms=trace, events_ms=events, bound_ms=bound_ms)
+    return events if trace < bound_ms else trace
+
+
 def max_gap(a, b) -> float:
     a, b = a.double().cpu(), b.double().cpu()
     return float((a - b).abs().max()) if a.numel() else 0.0
@@ -317,12 +352,12 @@ for src in ("flash_attention", "flash_attention_bwd"):
         fn_name = chunk.split(None, 1)[0]
         if "wgmma_kernel" in fn_name:
             sass_counts[fn_name] = dict(HGMMA=chunk.count("HGMMA"), UTMALDG=chunk.count("UTMALDG"))
-        if src == "flash_attention_bwd" and "f32_kernel" in fn_name:
+        if "f32_kernel" in fn_name:
             f32_sass[fn_name] = dict(HMMA=chunk.count("HMMA"), HGMMA=chunk.count("HGMMA"),
                                      FFMA=chunk.count("FFMA"))
-# the f32 backward kernels (dq and dk/dv at each head dim, the reduction)
-# stay on the CUDA cores in full f32: no tensor-core instruction at all
-check(len(f32_sass) == 2 * len(HEAD_DIMS) + 1, f"build: {len(f32_sass)} f32 backward kernels in the SASS")
+# the f32 kernels (the forward, dq and dk/dv at each head dim, the
+# reduction) stay on the CUDA cores in full f32: no tensor-core instruction
+check(len(f32_sass) == 3 * len(HEAD_DIMS) + 1, f"build: {len(f32_sass)} f32 kernels in the SASS")
 for f, c in f32_sass.items():
     check(c["HMMA"] == 0 and c["HGMMA"] == 0 and (c["FFMA"] > 0 or "reduce" in f),
           f"build: {f} has {c} in its SASS")
@@ -342,13 +377,18 @@ for src in ("flash_attention", "flash_attention_bwd"):
     check(len(found) == (1 if src == "flash_attention" else 2) * len(HEAD_DIMS),
           f"build: ptxas reported {len(found)} tensor-core kernels of {src}.cu")
     ptxas.update(found)
-# and of the f32 backward kernels
-f32_ptxas = "library cached from an earlier build: no report"
-if "flash_attention_bwd" in _build.BUILD_LOG:
-    f32_ptxas = {f: c for f, c in _build.ptxas_report("flash_attention_bwd").items()
-                 if "f32_kernel" in f}
-    check(len(f32_ptxas) == 2 * len(HEAD_DIMS) + 1,
-          f"build: ptxas reported {len(f32_ptxas)} f32 backward kernels")
+# and of the f32 kernels, none with a stack frame or spills
+f32_ptxas = {}
+for src, count in (("flash_attention", len(HEAD_DIMS)), ("flash_attention_bwd", 2 * len(HEAD_DIMS) + 1)):
+    if src not in _build.BUILD_LOG:
+        f32_ptxas[src] = "library cached from an earlier build: no report"
+        continue
+    found = {f: c for f, c in _build.ptxas_report(src).items() if "f32_kernel" in f}
+    check(len(found) == count, f"build: ptxas reported {len(found)} f32 kernels of {src}.cu")
+    for f, c in found.items():
+        check(c["stack"] == 0 and c["spill_stores"] == 0 and c["spill_loads"] == 0,
+              f"build: {f} has a stack frame or spills: {c}")
+    f32_ptxas.update(found)
 # and of every screen kernel (a template instantiation for each K <= 12):
 # the K=8 ones, the main path's, keep every value in registers
 screen_ptxas = "library cached from an earlier build: no report"
@@ -385,7 +425,7 @@ for src, tags, count, main in (
 emit("build", seconds=build_s, seconds_by_source=dict(_build.BUILD_SECONDS),
      libraries=sorted(os.path.basename(p) for p in paths.values()),
      sass_hgmma_utmaldg=sass_counts, ptxas_registers_spills=ptxas,
-     sass_f32_backward_hmma_hgmma_ffma=f32_sass, ptxas_f32_backward=f32_ptxas,
+     sass_f32_hmma_hgmma_ffma=f32_sass, ptxas_f32=f32_ptxas,
      ptxas_sched_screen=screen_ptxas, ptxas_rmsnorm_sched_weigh=small_ptxas)
 
 # ---------------------------------------------------------------------------
@@ -412,15 +452,23 @@ records = {}
 host_bytes = 4 * (2 * d + 2 + k * d + k) + (1 + k)   # f32 columns + bool flags
 
 
+def bound_of(bytes_moved, ops, flops=None):
+    """(ms, "bytes" or "operations"): the least time for the work, the larger
+    of the bytes over the HBM rate and the operations over the peak rate of
+    their type (FP32 unless ``flops`` is given)."""
+    t_bytes, t_ops = bytes_moved / HBM_BPS * 1e3, ops / (flops or FP32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def record(name, source, replaces, ms, plain_ms, bytes_moved, ops, flops=None,
            library_ms=None):
     """One entry of the kernels line; ``flops`` is the peak rate of the
     operations' type (FP32 unless given)."""
-    t_bytes, t_ops = bytes_moved / HBM_BPS * 1e3, ops / (flops or FP32_FLOPS) * 1e3
+    bound, by = bound_of(bytes_moved, ops, flops)
     records[name] = dict(
         name=name, route="cuda", source=source, replaces=replaces, launches=0,
-        max_abs_err=GAPS[name], ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms,
+        max_abs_err=GAPS[name], ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=library_ms,
     )
 
 
@@ -743,6 +791,13 @@ flash_cases = [  # name, B, S, H, G, hd, dtype, causal
     ("full", 2, 512, 12, 2, 128, BF16, False),
     ("ragged S=1000", 2, 1000, 12, 2, 128, BF16, True),
     ("f32 S=77", 2, 77, 4, 2, 64, F32, True),
+    # the f32 route at every shape its paths run, and ragged and full
+    ("f32 qwen2-1.5b", 4, 1024, 12, 2, 128, F32, True),
+    ("f32 qwen2-1.5b train", 2, 4096, 12, 2, 128, F32, True),
+    ("f32 reduced qwen2-1.5b (phase 10)", 4, 128, 4, 2, 32, F32, True),
+    ("f32 gemma-2b", 1, 512, 8, 1, 256, F32, True),
+    ("f32 ragged S=1000", 2, 1000, 12, 2, 128, F32, True),
+    ("f32 full", 2, 512, 12, 2, 128, F32, False),
 ]
 #: the kernel each type routes to: bf16 the tensor cores, f32 the CUDA cores
 FWD_ROUTE = {BF16: "flash_attention", F32: "flash_attention_f32"}
@@ -765,11 +820,13 @@ for name, b_, s_, h_, g_, hd_, dt, causal in flash_cases:
         lse_gap=within(lse, plse, LSE_TOL, f"flash {name} lse", FWD_ROUTE[dt]),
         lse_tol=LSE_TOL)
     del o64, po64
-    if dt == BF16:                   # no atomics: a second call gives the same bits
-        o2, lse2 = kernels.flash_attention(*qkv, causal=causal)
-        check(torch.equal(o.view(torch.int16), o2.view(torch.int16)) and torch.equal(lse, lse2),
-              f"flash {name}: two calls differ")
-        flash_rows[name]["two_calls_bitwise_equal"] = True
+    # no atomics: a second call gives the same bits
+    o2, lse2 = kernels.flash_attention(*qkv, causal=causal)
+    bits = torch.int16 if dt == BF16 else torch.int32
+    check(torch.equal(o.view(bits), o2.view(bits)) and torch.equal(lse.view(torch.int32), lse2.view(torch.int32)),
+          f"flash {name}: two calls differ")
+    flash_rows[name]["two_calls_bitwise_equal"] = True
+    del qkv, o, lse, po, plse, o2, lse2
 rms_rows = {}
 for name, rows_, d_, dt, wdt, off in (
         ("prefill bf16", 4096, 1536, BF16, BF16, 0), ("prefill f32", 4096, 1536, F32, F32, 0),
@@ -796,24 +853,38 @@ emit("model_kernels_vs_plain", flash_attention=flash_rows, rmsnorm=rms_rows,
 q, k, v = (torch.randn((4, 1024, n_, 128), generator=gen, device=DEV).to(BF16) for n_ in (12, 2, 2))
 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 pairs = 4 * 12 * 1024 * 1025 // 2                  # (query, key) pairs the causal mask keeps
+work = (2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * 4 * 12 * 1024, 4 * 128 * pairs, BF16_FLOPS)
 record("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
        "src/repro/kernels/flash_attention.py:52",
        device_ms(lambda: kernels.flash_attention(q, k, v, causal=True)),
-       device_ms(lambda: kernels.flash_attention_plain(q, k, v, causal=True)),
-       2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * 4 * 12 * 1024, 4 * 128 * pairs,
-       flops=BF16_FLOPS,
-       library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-           qt, kt, vt, is_causal=True, enable_gqa=True)))
-# the f32 route (CUDA cores, full f32) at the same shape: its bound is the
-# f32 rate, 67 TFLOP/s; the library's f32 attention runs with TF32 off
-q, k, v, qt, kt, vt = (t.float() for t in (q, k, v, qt, kt, vt))
-record("flash_attention_f32", "src/repro_torch/kernels/csrc/flash_attention.cu",
-       "src/repro/kernels/flash_attention.py:52",
-       device_ms(lambda: kernels.flash_attention(q, k, v, causal=True), reps=10),
-       device_ms(lambda: kernels.flash_attention_plain(q, k, v, causal=True), reps=10),
-       4 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * 4 * 12 * 1024, 4 * 128 * pairs,
-       library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-           qt, kt, vt, is_causal=True, enable_gqa=True), reps=10))
+       device_ms(lambda: kernels.flash_attention_plain(q, k, v, causal=True)), *work,
+       library_ms=library_time("forward bf16, 4 x 1,024", lambda: F.scaled_dot_product_attention(
+           qt, kt, vt, is_causal=True, enable_gqa=True), bound_of(*work)[0]))
+# the f32 route (CUDA cores, full f32) at the same shape and at phase 11's
+# f32 first step's (2 x 4,096): its bound is the f32 rate, 67 TFLOP/s; the
+# library's f32 attention runs with TF32 off.  ms is the kernel's own span
+# (the call also lays q, k, v out by head), beside its launch timed by CUDA
+# events
+F32_FWD = {"fwd": ("flash_fwd_f32", "flash_attention_fwd_f32_launch")}
+f32_fwd_times = {}
+for b_, s_ in ((4, 1024), (2, 4096)):
+    q, k, v = (torch.randn((b_, s_, n_, 128), generator=gen, device=DEV) for n_ in (12, 2, 2))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    work = (4 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * b_ * 12 * s_,
+            4 * 128 * b_ * 12 * s_ * (s_ + 1) // 2)
+    bound = bound_of(*work)[0]
+    call = lambda: kernels.flash_attention(q, k, v, causal=True)  # noqa: E731
+    row = dict(ms=kernel_ms(call, F32_FWD)["fwd"],
+               events_ms=launch_event_ms(call, {"fwd": F32_FWD["fwd"][1]}, reps=10)["fwd"],
+               plain_ms=device_ms(lambda: kernels.flash_attention_plain(q, k, v, causal=True), reps=10),
+               library_ms=library_time(f"forward f32, {b_} x {s_:,}", lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True), bound, reps=10),
+               bound_ms=bound)
+    f32_fwd_times[f"B={b_}, S={s_:,}, H=12, G=2, hd=128, causal"] = row
+    if s_ == 1024:
+        record("flash_attention_f32", "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:52", row["ms"], row["plain_ms"], *work,
+               library_ms=row["library_ms"])
 x = torch.randn((4096, 1536), generator=gen, device=DEV).to(BF16)
 w = (0.1 * torch.randn((1536,), generator=gen, device=DEV)).to(BF16)
 w1 = 1.0 + w
@@ -866,8 +937,12 @@ for rows_ in (8, 4096, 8192):
         plain_ms=device_ms(lambda: kernels.rmsnorm_plain(xs, w, 1e-6)),
         bound_ms=(2 * 2 * rows_ * 1536 + 2 * 1536) / HBM_BPS * 1e3)
 del FLUSH
-emit("model_kernel_times", card=smi, method="device time per call (trace), median of 25",
+emit("model_kernel_times", card=smi,
+     method="device time per call (trace), median of 25; the f32 forward: median of 10, ms its "
+            "kernel's span, events_ms its launch by CUDA events; "
+            "library_ms by the trace (by CUDA events where the trace's lies under the bound)",
      launch_floor_ms=device_ms(lambda: one.add_(1)), rmsnorm_by_shape=rms_shapes,
+     flash_attention_f32_by_shape=f32_fwd_times,
      **{r: {key: records[r][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in ("flash_attention", "flash_attention_f32", "rmsnorm")})
 del q, k, v, qt, kt, vt, x, w, w1, xs
@@ -1073,21 +1148,6 @@ BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BWD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 
-def kernel_ms(fn, names, reps: int = 10, warmup: int = 2):
-    """Median device time of each kernel over ``reps`` calls of ``fn`` (one
-    launch of each per call); ``names`` maps a key to (a substring of the
-    kernel's name in a trace, its C launch entry).  From a
-    ``torch.profiler`` trace, whose median stands if it holds at least half
-    the launches; else from CUDA events around each launch."""
-    spans = traced_spans(fn, reps, warmup)
-    durs = {key: [b_ - a for a, b_, name in spans if match in name]
-            for key, (match, _) in names.items()}
-    if all(2 * len(d_) >= reps for d_ in durs.values()):
-        return {key: float(np.median(d_)) / 1e3 for key, d_ in durs.items()}
-    EVENT_TIMED.extend(sym for _, sym in names.values())
-    return launch_event_ms(fn, {key: sym for key, (_, sym) in names.items()}, reps)
-
-
 bwd_cases = [  # name, B, S, H, G, hd, dtype, causal
     ("qwen2-1.5b train", 2, 4096, 12, 2, 128, BF16, True),
     ("gemma-2b", 1, 1024, 8, 1, 256, BF16, True),
@@ -1165,12 +1225,16 @@ bwd_plain_ms = device_ms(lambda: kernels.flash_attention_bwd_plain(q, k, v, o, l
 qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
 sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 dot = do.transpose(1, 2)
-lib_bwd_ms = device_ms(lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), dot, retain_graph=True),
-                       reps=10)
 pairs_t = B_T * 12 * S_T * (S_T + 1) // 2          # (query, key) pairs the causal mask keeps
 io_q = 2 * B_T * S_T * 12 * 128                     # bytes of one bf16 (B,S,H,hd) tensor
 io_kv = 2 * B_T * S_T * 2 * 128
 rows_f32 = 4 * B_T * 12 * S_T                       # bytes of lse or delta
+# the library's whole backward: S, dP, dV, dK and dQ, 10*hd flops a kept
+# pair; q, k, v, o, do and lse in, dq, dk, dv out
+lib_bwd_ms = library_time(
+    "backward bf16, 2 x 4,096 (dq, dk, dv)",
+    lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), dot, retain_graph=True),
+    bound_of(4 * io_q + 4 * io_kv + rows_f32, 10 * 128 * pairs_t, BF16_FLOPS)[0], reps=10)
 record("flash_attention_dq", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
        "src/repro/kernels/flash_attention.py:152", bwd_ms["dq"], bwd_plain_ms,
        2 * io_q + 2 * io_kv + 2 * rows_f32 + io_q, 6 * 128 * pairs_t, flops=BF16_FLOPS,
@@ -1189,8 +1253,10 @@ record("flash_attention_dkv_reduce", "src/repro_torch/kernels/csrc/flash_attenti
 bwd_event_ms = launch_event_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
                                {key: sym for key, (_, sym) in BWD_NAMES.items()}, reps=10)
 fwd_t_ms = device_ms(lambda: kernels.flash_attention_fwd(q, k, v, causal=True), reps=10)
-fwd_t_lib_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                enable_gqa=True), reps=10)
+fwd_t_lib_ms = library_time(
+    "forward bf16, 2 x 4,096", lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                      enable_gqa=True),
+    bound_of(2 * io_q + 2 * io_kv + rows_f32, 4 * 128 * pairs_t, BF16_FLOPS)[0], reps=10)
 emit("train_kernel_times", card=smi, shape="B=2, S=4,096, H=12, G=2, hd=128, bf16, causal",
      method="device time per call (trace), median of 10; plain_ms and library_ms compute "
             "dq, dk and dv together (the plain backward; the backward of "
@@ -1225,8 +1291,13 @@ for b_, s_, h_, g_, hd_ in F32_SHAPES:
                          reps=reps_)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_ms = device_ms(lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), do.transpose(1, 2),
-                                                   retain_graph=True), reps=reps_)
+    pairs_ = b_ * h_ * s_ * (s_ + 1) // 2           # (query, key) pairs the causal mask keeps
+    head = 4 * b_ * s_ * hd_                         # bytes of one head's f32 (S, hd) rows, per batch
+    rows_ = 2 * 4 * b_ * h_ * s_                     # lse and delta
+    lib_ms = library_time(
+        f"backward f32, {b_} x {s_:,} (dq, dk, dv)",
+        lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+        bound_of(head * (3 * h_ + 2 * g_ + h_ + 2 * g_) + rows_ // 2, 10 * hd_ * pairs_)[0], reps=reps_)
     # the reduction alone, on the plain dk/dv partials of these inputs,
     # against its plain version (the same sums in the same order: exactly
     # equal), beside two torch.sum calls (dk and dv) over the same partials
@@ -1236,9 +1307,6 @@ for b_, s_, h_, g_, hd_ in F32_SHAPES:
         same(a_, w_, f"f32 dk/dv reduction {what} at {b_} x {s_}", "flash_attention_dkv_reduce_f32")
     red_pms = device_ms(lambda: kernels.flash_attention_dkv_reduce_plain(*parts, b_ * g_, F32), reps=reps_)
     sum_ms = device_ms(lambda: [p_.view(b_ * g_, h_ // g_, s_, hd_).sum(1) for p_ in parts], reps=reps_)
-    pairs_ = b_ * h_ * s_ * (s_ + 1) // 2           # (query, key) pairs the causal mask keeps
-    head = 4 * b_ * s_ * hd_                         # bytes of one head's f32 (S, hd) rows, per batch
-    rows_ = 2 * 4 * b_ * h_ * s_                     # lse and delta
     bound = {  # (bytes, operations): each input read once, each output written once
         "dq": (head * (3 * h_ + 2 * g_) + rows_, 6 * hd_ * pairs_),
         "dkv": (head * (2 * h_ + 2 * g_ + 2 * h_) + rows_, 8 * hd_ * pairs_),
@@ -1338,6 +1406,7 @@ def card_vs_cpu(impl):
     return rows
 
 
+t_parity = time.perf_counter()
 kernels.reset_launch_counts()
 parity = {impl: card_vs_cpu(impl) for impl in ("flash", "reference")}
 emit("train_parity_steps", config="qwen2-1.5b reduced (4 layers, d=128, f32), remat full",
@@ -1388,6 +1457,7 @@ check(not unequal, f"train parity: resumed state differs from the uninterrupted 
 emit("train_parity", config="qwen2-1.5b reduced (4 layers, d=128, f32), flash, remat full",
      resume=dict(uninterrupted_steps=8, preempted_after=4, tensors=len(want_st),
                  bitwise_equal=True, final_loss=ref_t.history[-1]["loss"]),
+     seconds=time.perf_counter() - t_parity,
      launches={name: counts[name] for name in F32_FLASH})
 del ref_t, pre_t, res_t, want_st, got_st
 shutil.rmtree(ptmp, ignore_errors=True)
@@ -1486,7 +1556,9 @@ def flash_and_reference(cfg_, n_mb, key):
 
 bf16_pair = flash_and_reference(tcfg_, N_MB, "bf16")
 kernels.reset_launch_counts()
+t0 = time.perf_counter()
 f32_pair = flash_and_reference(dataclasses.replace(tcfg_, dtype="float32"), 1, "f32")
+f32_first_s = time.perf_counter() - t0
 # the f32 first step runs the f32 flash route: per layer the forward once and
 # again in the backward (remat), the backward kernels once; the kernels line
 # counts these launches beside phase 10's
@@ -1575,6 +1647,7 @@ first_pairs = {"f32 loss": (f32_pair["flash"][0], f32_pair["reference"][0]),
                "bf16 loss": (first_loss, bf16_pair["reference"][0]),
                "bf16 grad norm": (first_gnorm, bf16_pair["reference"][1])}
 emit("train_first_step", trained=[first_loss, first_gnorm], bf16=bf16_pair, f32_first_microbatch=f32_pair,
+     f32_first_microbatch_seconds=f32_first_s,
      bounds=FIRST_TOL, attention_projection_gaps=first_gaps,
      attention_bounds={key: f"{what} {tol}" for key, (what, tol) in ATTN_TOL.items()})
 check(abs(first_loss - bf16_pair["flash"][0]) <= 1e-5 * abs(first_loss),
@@ -1620,6 +1693,12 @@ shutil.rmtree(ttmp, ignore_errors=True)
 # 12. the kernels line, the card, the result
 # ---------------------------------------------------------------------------
 emit("timing", profiler_empty_timed_by_cuda_events=EVENT_TIMED)
+# every library reading of a flash kernel's function by both methods; a
+# reading under its bound cannot be right (no failure: a note for the record)
+emit("library_readings", card=smi, readings=LIBRARY_READINGS,
+     under_bound={what: [m_ for m_ in ("trace_ms", "events_ms") if r_[m_] < r_["bound_ms"]]
+                  for what, r_ in LIBRARY_READINGS.items()
+                  if min(r_["trace_ms"], r_["events_ms"]) < r_["bound_ms"]})
 print(json.dumps({"kernels": list(records.values())}))
 print(smi)
 print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

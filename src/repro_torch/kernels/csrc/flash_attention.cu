@@ -29,10 +29,27 @@
 //     warpgroup skips tiles wholly above its rows, only tiles that cross the
 //     diagonal or the ragged Skv are masked, and the grid issues the last
 //     (heaviest) query tiles first.
-// f32: flash_fwd_kernel, on the CUDA cores: f32 on wgmma would be TF32, and
-// the f32 checks (the card against the CPU at 1e-4, the bitwise resume)
-// need full f32.  A block owns 32 query rows and loops over 32-key tiles
-// staged in shared memory; a lane scores one key.
+// f32: flash_fwd_f32_kernel, on the CUDA cores: f32 on wgmma would be TF32,
+// and the f32 checks (the card against the CPU at 1e-4, the bitwise resume)
+// need full f32.  Bound on this card: operations, 4*hd flops a kept pair at
+// the f32 rate (67 TFLOP/s).  The f32 backward's tiling (f32_tiles.cuh):
+//   * one block of 256 threads per (tile of B = 64 query rows, 32 at hd
+//     256; q head), the heaviest causal tiles issued first; the Q tile stays
+//     in shared memory and B-key tiles of K and V stream through a 2-stage
+//     cp.async ring (zero fill past the ragged Skv), never past the block's
+//     last row when causal; only diagonal and ragged tiles mask.  Shared
+//     memory at hd 128: Q 32 KB, 2 stages of K and V 128 KB, P 16 KB;
+//   * S = Q.K^T as a 4 x 4 register micro-tile a thread (2 x 2 at hd 256)
+//     from float4 fragments of the swizzled tiles, 16 FFMA a fragment;
+//   * online softmax per query row: the tile's row max over the 16 threads
+//     that share the row (8 lanes by shuffles, then the two warps through
+//     shared memory), p = expf(s - m_new), alpha = expf(m_old - m_new) in
+//     full precision; each thread keeps its share of the row sum l, and the
+//     shares meet once, at the end;
+//   * P goes to shared memory once (by key row), then O += P.V as a
+//     register-tiled outer product, a thread owning 4 x 8 of the 64 x 128
+//     accumulator at hd 128, rescaled by alpha once a tile, summed over the
+//     tile's keys in order.  No atomics: two calls give the same bits.
 //
 // Semantics of the TPU kernel, both routes: masked scores are -1e30 (not
 // -inf); keys past a ragged Skv weigh exactly 0; o = acc / max(l, 1e-30) and
@@ -44,142 +61,180 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 32;        // query rows per block
-constexpr int kBK = 32;        // keys per tile: one per lane
-constexpr int kWarps = 4;
-constexpr int kRows = kBQ / kWarps;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float warp_max(float v) {
-    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    return v;
-}
+// ---------------------------------------------------------------------------
+// f32: register-tiled FFMA on the CUDA cores, a cp.async ring
+// ---------------------------------------------------------------------------
+namespace f32 {
 
-__device__ __forceinline__ float warp_sum(float v) {
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    return v;
+using namespace f32tile;
+
+// Q [B][HD]; per stage K, V [B][HD]; P^T by key row [B][B]; per query row
+// the two warps' shares of the tile's max (and, at the end, of l), and the
+// tile's alpha
+template <int HD>
+constexpr int fwd_smem_bytes() {
+    using C = Cfg<HD>;
+    return static_cast<int>(sizeof(float)) * (5 * C::T + C::B * C::B + 3 * C::B);
 }
 
 template <int HD>
-constexpr size_t smem_bytes() {
-    return sizeof(float) * (kBQ * HD + kBK * (HD + 1) + kBK * HD);
-}
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                     int rep, int sq, int skv, int causal, float scale) {
+    using C = Cfg<HD>;
+    constexpr int B = C::B, T = C::T, TS = C::TS;
+    extern __shared__ float4 smem4[];
+    float* qs = reinterpret_cast<float*>(smem4);
+    float* kvs = qs + T;              // stage st: K at kvs + 2*st*T, V after it
+    float* ps = kvs + 4 * T;          // P^T, [key][query]
+    float* red = ps + B * B;          // [2][B]: a row's share from each of its two warps
+    float* alph = red + 2 * B;        // [B]
 
-template <int HD>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                 int rep, int sq, int skv, int causal, float scale) {
-    constexpr int C = HD / 32;  // acc values per lane
-    extern __shared__ float smem[];
-    float* qs = smem;                         // [kBQ][HD]
-    float* ks = qs + kBQ * HD;                // [kBK][HD + 1]
-    float* vs = ks + kBK * (HD + 1);          // [kBK][HD]
-
-    const int bh = blockIdx.y;
-    const int q0 = blockIdx.x * kBQ;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* qh = q + static_cast<size_t>(bh) * sq * HD;
+    const int bh = blockIdx.x;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * B;  // the last (heaviest, when causal) tiles first
+    const int kv_end = causal ? min(skv, q0 + B) : skv;  // keys the block's rows see
+    const int n_kt = (kv_end + B - 1) / B;
+    const size_t qoff = (static_cast<size_t>(bh) * sq + q0) * HD;
     const float* kh = k + static_cast<size_t>(bh / rep) * skv * HD;
     const float* vh = v + static_cast<size_t>(bh / rep) * skv * HD;
 
-    for (int i = threadIdx.x; i < kBQ * HD; i += blockDim.x) {
-        const int r = i / HD;
-        qs[i] = (q0 + r < sq) ? qh[static_cast<size_t>(q0) * HD + i] : 0.0f;
-    }
+    load_tile<HD>(qs, q + qoff, sq - q0);
+    auto load_kv = [&](int it) {
+        const int st = it & 1, kv0 = it * B;
+        load_tile<HD>(kvs + 2 * st * T, kh + static_cast<size_t>(kv0) * HD, skv - kv0);
+        load_tile<HD>(kvs + (2 * st + 1) * T, vh + static_cast<size_t>(kv0) * HD, skv - kv0);
+    };
+    if (n_kt > 0) load_kv(0);
+    cp_async_commit();
+    if (n_kt > 1) load_kv(1);
+    cp_async_commit();
 
-    float m[kRows], l[kRows], acc[kRows][C];
+    // score rows qg + 16i and keys kg + 16j; the 16 threads of a row are the
+    // 8 lanes of equal lane >> 3 in each warp of a pair (warp ^ 1)
+    const Place<HD> pl;
+    const int qg = pl.own, kg = pl.str, r0 = pl.r0, cg = pl.cg;
+    const int lane = threadIdx.x & 31, pair = (threadIdx.x >> 5) & 1;
+    float m[TS], l[TS];               // the score rows' running max, this thread's share of l
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
+    for (int i = 0; i < TS; ++i) {
         m[i] = kNegInf;
         l[i] = 0.0f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
     }
+    float acc[C::TR][C::TC];
+#pragma unroll
+    for (int r = 0; r < C::TR; ++r)
+#pragma unroll
+        for (int c = 0; c < C::TC; ++c) acc[r][c] = 0.0f;
 
-    // keys a row of this block can see: all of them, or up to its last row
-    const int q_last = min(q0 + kBQ, sq) - 1;
-    const int kv_end = causal ? min(skv, q_last + 1) : skv;
-    for (int kv0 = 0; kv0 < kv_end; kv0 += kBK) {
-        __syncthreads();  // the previous tile is consumed (and qs is written)
-        for (int i = threadIdx.x; i < kBK * HD; i += blockDim.x) {
-            const int j = i / HD, d = i - j * HD;
-            const bool in = kv0 + j < skv;
-            const size_t g = static_cast<size_t>(kv0) * HD + i;
-            ks[j * (HD + 1) + d] = in ? kh[g] : 0.0f;
-            vs[i] = in ? vh[g] : 0.0f;
+    for (int it = 0; it < n_kt; ++it) {
+        const int st = it & 1, kv0 = it * B;
+        cp_async_wait<1>();
+        __syncthreads();
+        const float* ks = kvs + 2 * st * T;
+        const float* vs = ks + T;
+        float s[TS][TS];
+        scores<HD, TS, false>(qs, ks, nullptr, nullptr, qg, kg, s, s);  // S = Q.K^T
+        const bool masked = (causal && kv0 + B - 1 > q0) || kv0 + B > skv;
+#pragma unroll
+        for (int i = 0; i < TS; ++i) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < TS; ++j) {
+                float x = s[i][j] * scale;
+                if (masked) {
+                    const int key = kv0 + kg + 16 * j;
+                    if (key >= skv) x = -INFINITY;                                // ragged tail: weight 0
+                    else if (causal && key > q0 + qg + 16 * i) x = kNegInf;      // the TPU kernel's mask
+                }
+                s[i][j] = x;
+                mx = fmaxf(mx, x);
+            }
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+            if ((lane & 7) == 0) red[pair * B + qg + 16 * i] = mx;
         }
         __syncthreads();
-        const int key = kv0 + lane;
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-            const int r = warp * kRows + i;
-            const float* qr = qs + r * HD;
-            const float* kr = ks + lane * (HD + 1);
-            float s = 0.0f;
-#pragma unroll 8
-            for (int d = 0; d < HD; ++d) s += qr[d] * kr[d];
-            s *= scale;
-            if (key >= skv) s = -INFINITY;                 // ragged tail: weight 0
-            else if (causal && key > q0 + r) s = kNegInf;  // the TPU kernel's mask
-            const float m_new = fmaxf(m[i], warp_max(s));
-            const float p = expf(s - m_new);
+        for (int i = 0; i < TS; ++i) {
+            const int row = qg + 16 * i;
+            const float m_new = fmaxf(m[i], fmaxf(red[row], red[B + row]));
             const float alpha = expf(m[i] - m_new);
-            l[i] = l[i] * alpha + warp_sum(p);
-            m[i] = m_new;
+            float sum = 0.0f;
 #pragma unroll
-            for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-#pragma unroll 4
-            for (int j = 0; j < kBK; ++j) {
-                const float pj = __shfl_sync(0xffffffffu, p, j);
-                const float* vr = vs + j * HD + lane;
-#pragma unroll
-                for (int c = 0; c < C; ++c) acc[i][c] += pj * vr[32 * c];
+            for (int j = 0; j < TS; ++j) {
+                const float p = expf(s[i][j] - m_new);
+                ps[swz<B>(kg + 16 * j, row)] = p;
+                sum += p;
             }
+            l[i] = l[i] * alpha + sum;
+            m[i] = m_new;
+            if (kg == 0) alph[row] = alpha;
         }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < C::TR; ++r) {
+            const float alpha = alph[r0 + r];
+#pragma unroll
+            for (int c = 0; c < C::TC; ++c) acc[r][c] *= alpha;
+        }
+        accumulate<HD, false>(ps, vs, nullptr, nullptr, r0, cg, acc, acc);  // O += P.V
+        __syncthreads();              // the stage, P and alpha are consumed
+        if (it + 2 < n_kt) load_kv(it + 2);
+        cp_async_commit();
     }
+    cp_async_wait<0>();
 
+    // a row's l: its 16 shares, by shuffles and then the pair of warps
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-        const int row = q0 + warp * kRows + i;
-        if (row >= sq) continue;
-        const float lc = fmaxf(l[i], 1e-30f);
-        float* orow = o + (static_cast<size_t>(bh) * sq + row) * HD;
+    for (int i = 0; i < TS; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+        if ((lane & 7) == 0) red[pair * B + qg + 16 * i] = l[i];
+    }
+    __syncthreads();
 #pragma unroll
-        for (int c = 0; c < C; ++c) orow[lane + 32 * c] = acc[i][c] / lc;
-        if (lane == 0) lse[static_cast<size_t>(bh) * sq + row] = m[i] + logf(lc);
+    for (int r = 0; r < C::TR; ++r) {
+        const float lc = fmaxf(red[r0 + r] + red[B + r0 + r], 1e-30f);
+#pragma unroll
+        for (int c = 0; c < C::TC; ++c) acc[r][c] /= lc;
+    }
+    store_rows<HD>(o + qoff, acc, r0, cg, sq - q0);
+    if (kg == 0) {
+#pragma unroll
+        for (int i = 0; i < TS; ++i) {
+            const int row = qg + 16 * i;
+            if (q0 + row < sq)
+                lse[static_cast<size_t>(bh) * sq + q0 + row] =
+                    m[i] + logf(fmaxf(red[row] + red[B + row], 1e-30f));
+        }
     }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-           int rep, int sq, int skv, int causal, float scale, cudaStream_t stream) {
-    constexpr size_t bytes = smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(bytes));
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int bg,
+           int sq, int skv, int causal, float scale, cudaStream_t stream) {
+    constexpr int bytes = fwd_smem_bytes<HD>();
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-    flash_fwd_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
+    const dim3 grid(bh, (sq + Cfg<HD>::B - 1) / Cfg<HD>::B);
+    flash_fwd_f32_kernel<HD><<<grid, kThreads, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), lse, rep, sq, skv, causal, scale);
+        static_cast<float*>(o), lse, bh / bg, sq, skv, causal, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-             int rep, int sq, int skv, int hd, int causal, float scale, cudaStream_t s) {
-    switch (hd) {
-        case 32: return launch<32>(q, k, v, o, lse, bh, rep, sq, skv, causal, scale, s);
-        case 64: return launch<64>(q, k, v, o, lse, bh, rep, sq, skv, causal, scale, s);
-        case 128: return launch<128>(q, k, v, o, lse, bh, rep, sq, skv, causal, scale, s);
-        case 256: return launch<256>(q, k, v, o, lse, bh, rep, sq, skv, causal, scale, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-}
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma fed by TMA
@@ -378,8 +433,15 @@ extern "C" int flash_attention_fwd_f32_launch(const void* q, const void* k, cons
                                               void* o, void* lse, int bh, int bg, int sq,
                                               int skv, int hd, int causal, float scale,
                                               void* stream) {
-    return dispatch(q, k, v, o, static_cast<float*>(lse), bh, bh / bg, sq, skv, hd,
-                           causal, scale, static_cast<cudaStream_t>(stream));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* lsep = static_cast<float*>(lse);
+    switch (hd) {
+        case 32: return f32::launch<32>(q, k, v, o, lsep, bh, bg, sq, skv, causal, scale, s);
+        case 64: return f32::launch<64>(q, k, v, o, lsep, bh, bg, sq, skv, causal, scale, s);
+        case 128: return f32::launch<128>(q, k, v, o, lsep, bh, bg, sq, skv, causal, scale, s);
+        case 256: return f32::launch<256>(q, k, v, o, lsep, bh, bg, sq, skv, causal, scale, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 extern "C" int flash_attention_fwd_bf16_launch(const void* q, const void* k, const void* v,

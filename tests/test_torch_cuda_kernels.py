@@ -327,6 +327,24 @@ def test_flash_bf16_kernels_are_deterministic(cuda_device, shape):
                            b_.view(torch.uint8) if b_.dtype == torch.bfloat16 else b_), name
 
 
+@pytest.mark.parametrize("shape", [(2, 1000, 12, 2, 128), (1, 640, 8, 1, 256), (4, 128, 4, 2, 32)],
+                         ids=str)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_f32_forward_is_deterministic(cuda_device, shape, causal):
+    """Two calls of the f32 forward on the same inputs give the same bits of
+    o and lse (no atomics: each row's sums have one order), as phase 10's
+    bitwise resume needs."""
+    b, s, h, g, hd = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(s + 2)
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device) for n in (h, g, g))
+    kernels.reset_launch_counts()
+    runs = [kernels.flash_attention_fwd(q, k, v, causal=causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[FWD_KEY[torch.float32]] == 2
+    for name, a, b_ in zip(("o", "lse"), *runs):
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32)), name
+
+
 @pytest.mark.parametrize("shape", [(2, 1000, 12, 2, 128), (1, 640, 8, 1, 256)], ids=str)
 def test_flash_f32_backward_is_deterministic(cuda_device, shape):
     """Two calls of the f32 backward on the same inputs give the same bits

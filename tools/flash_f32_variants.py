@@ -1,7 +1,8 @@
 """Where the f32 flash-attention backward kernels spend their time, on one
-NVIDIA GPU: variants of ``src/repro_torch/kernels/csrc/flash_attention_bwd.cu``,
-each this checkout's source with one textual change, built together and
-timed on the same inputs.
+NVIDIA GPU: variants of ``src/repro_torch/kernels/csrc/flash_attention_bwd.cu``
+and the f32 tiles it includes (``f32_tiles.cuh``), each this checkout's
+sources with one textual change, built together and timed on the same
+inputs.
 
     python3 tools/flash_f32_variants.py [--reps N]
 
@@ -65,28 +66,37 @@ VARIANTS = {
 }
 
 
+#: the files a variant may change: the kernels and the f32 tiles they share
+FILES = ("flash_attention_bwd.cu", "f32_tiles.cuh")
+
+
 def variant_sources():
-    """name -> the variant's source text; exits if a variant's text is gone."""
-    src = open(os.path.join(_build.CSRC, "flash_attention_bwd.cu")).read()
+    """name -> {file: the variant's text}; each change goes to the file that
+    holds its text; exits if a variant's text is gone."""
+    src = {f: open(os.path.join(_build.CSRC, f)).read() for f in FILES}
     out = {}
     for name, (pairs, _) in VARIANTS.items():
-        text = src
+        texts = dict(src)
         for old, new in pairs:
-            if old not in text:
-                sys.exit(f"flash_f32_variants.py: variant {name}: text not found in the source:\n{old}")
-            text = text.replace(old, new)
-        out[name] = text
+            where = [f for f in FILES if old in texts[f]]
+            if not where:
+                sys.exit(f"flash_f32_variants.py: variant {name}: text not found in the sources:\n{old}")
+            texts[where[0]] = texts[where[0]].replace(old, new)
+        out[name] = texts
     return out
 
 
 def build(out_dir):
-    """Every variant's library, all ``nvcc`` runs started together (the
-    sources in ``out_dir``, the shared headers found through ``-I``)."""
+    """Every variant's library, all ``nvcc`` runs started together (each
+    variant's files in a directory of its own, which its quoted includes
+    search first; the other shared headers found through ``-I``)."""
     procs = {}
-    for name, text in variant_sources().items():
-        path, lib = os.path.join(out_dir, f"{name}.cu"), os.path.join(out_dir, f"{name}.so")
-        with open(path, "w") as f:
-            f.write(text)
+    for name, texts in variant_sources().items():
+        os.makedirs(os.path.join(out_dir, name))
+        for f, text in texts.items():
+            with open(os.path.join(out_dir, name, f), "w") as fh:
+                fh.write(text)
+        path, lib = os.path.join(out_dir, name, FILES[0]), os.path.join(out_dir, f"{name}.so")
         procs[name] = (lib, subprocess.Popen(
             [_build.nvcc_path(), *_build._flags("flash_attention_bwd"), "-I", _build.CSRC, "-o", lib,
              path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))

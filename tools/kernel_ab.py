@@ -1,27 +1,28 @@
 """Time this checkout's RMSNorm, ``sched_weigh`` and f32 flash-attention
-backward CUDA kernels against another checkout's, on one NVIDIA GPU, in
-turns (other, this, this, other).
+forward and backward CUDA kernels against another checkout's, on one NVIDIA
+GPU, in turns (other, this, this, other).
 
     python3 tools/kernel_ab.py --other DIR
 
 ``DIR`` is the root of another checkout of this repository (for example an
 earlier commit unpacked with ``git archive``).  Both trees'
-``src/repro_torch/kernels/csrc/rmsnorm.cu``, ``sched_weigh.cu`` and
-``flash_attention_bwd.cu`` are compiled with this checkout's ``nvcc``
-flags, all six at once, and called through their C entries
-(``rmsnorm_launch``, ``sched_weigh_launch``,
-``flash_attention_{dq,dkv}_f32_launch``), whose signatures both trees must
-share.  A tree whose library has ``flash_attention_dkv_reduce_f32_launch``
-writes f32 dk/dv partials per q head and sums them with it; an older one
-writes dk and dv at once.  Each case prints one JSON line: the device time
-of one call (``torch.profiler`` spans, median of ``--reps``) for each turn,
-warm and, for RMSNorm, with the L2 flushed before every call; ``F.rms_norm``
-beside RMSNorm, the backward of ``scaled_dot_product_attention`` (TF32 off)
-beside the flash backward; the device time of a one-element PyTorch op (the
-launch floor); and whether the two trees' outputs agree (bit for bit for
-``sched_weigh``; the largest gap between the trees and to the plain version
-for RMSNorm and the flash backward).  Nothing here imports JAX or the JAX
-package.
+``src/repro_torch/kernels/csrc/rmsnorm.cu``, ``sched_weigh.cu``,
+``flash_attention.cu`` and ``flash_attention_bwd.cu`` are compiled with
+this checkout's ``nvcc`` flags, all eight at once, and called through their
+C entries (``rmsnorm_launch``, ``sched_weigh_launch``,
+``flash_attention_fwd_f32_launch``, ``flash_attention_{dq,dkv}_f32_launch``),
+whose signatures both trees must share.  A tree whose library has
+``flash_attention_dkv_reduce_f32_launch`` writes f32 dk/dv partials per q
+head and sums them with it; an older one writes dk and dv at once.  Each
+case prints one JSON line: the device time of one call (``torch.profiler``
+spans, median of ``--reps``) for each turn, warm and, for RMSNorm, with the
+L2 flushed before every call; ``F.rms_norm`` beside RMSNorm,
+``scaled_dot_product_attention`` and its backward (TF32 off) beside the
+flash forward and backward, the flash forward's also by CUDA events; the
+device time of a one-element PyTorch op (the launch floor); and whether the
+two trees' outputs agree (bit for bit for ``sched_weigh``; the largest gap
+between the trees and to the plain version for RMSNorm and the flash
+kernels).  Nothing here imports JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.core.fleets import weigh_arrays  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    _DKV_ARGTYPES, _DQ_ARGTYPES, _REDUCE_ARGTYPES, _delta, _flatten, flash_attention_bwd_plain,
-    flash_attention_plain)
+    _DKV_ARGTYPES, _DQ_ARGTYPES, _LAUNCH_ARGTYPES as FLASH_ARGTYPES, _REDUCE_ARGTYPES, _delta, _flatten,
+    flash_attention_bwd_plain, flash_attention_plain)
 from repro_torch.kernels.rmsnorm import _LAUNCH_ARGTYPES as RMS_ARGTYPES  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.sched_weigh import _LAUNCH_ARGTYPES as WEIGH_ARGTYPES  # noqa: E402
@@ -54,6 +55,7 @@ from repro_torch.kernels.sched_weigh import TIE_EPS, sched_weigh_plain  # noqa: 
 #: each source's C entries (a tree may lack the optional ones) and their types
 SOURCES = {"rmsnorm": {"rmsnorm_launch": RMS_ARGTYPES},
            "sched_weigh": {"sched_weigh_launch": WEIGH_ARGTYPES},
+           "flash_attention": {"flash_attention_fwd_f32_launch": FLASH_ARGTYPES},
            "flash_attention_bwd": {"flash_attention_dq_f32_launch": _DQ_ARGTYPES,
                                    "flash_attention_dkv_f32_launch": _DKV_ARGTYPES,
                                    "flash_attention_dkv_reduce_f32_launch": _REDUCE_ARGTYPES}}
@@ -132,9 +134,9 @@ def main():
         for name in SOURCES:
             _build.BUILD_LOG[name] = logs["this", name]
             report = _build.ptxas_report(name)
-            if name == "flash_attention_bwd":      # the f32 kernels, in full
+            if name.startswith("flash_attention"):  # the f32 kernels, in full
                 report = {f: c for f, c in report.items() if "f32_kernel" in f}
-                print(json.dumps({"ptxas_f32_backward": report}), flush=True)
+                print(json.dumps({f"ptxas_f32 {name}": report}), flush=True)
             print(json.dumps({"ptxas": name, "kernels": len(report),
                               "max_registers": max(c.get("registers", 0) for c in report.values()),
                               "max_stack": max(c.get("stack", 0) for c in report.values()),
@@ -193,9 +195,61 @@ def main():
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # qwen2-1.5b's heads at the prefill and training shapes, and the
+        # reduced model of chip_smoke's phase 10 (H=4, G=2, hd=32)
+        for b, s, h, g, hd in ((4, 1024, 12, 2, 128), (2, 4096, 12, 2, 128), (4, 128, 4, 2, 32)):
+            flash_fwd_case(entries, stream, args.reps if s <= 1024 else max(args.reps // 5, 5),
+                           gen, b, s, h, g, hd)
         for b, s, h, g, hd in ((1, 2048, 12, 2, 128), (2, 4096, 12, 2, 128)):
             flash_bwd_case(entries, stream, args.reps if s <= 2048 else max(args.reps // 5, 5),
                            gen, b, s, h, g, hd)
+
+
+def events_ms(fn, reps):
+    """Median time of one call of ``fn`` by CUDA events around it."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def flash_fwd_case(entries, stream, reps, gen, b, s, h, g, hd):
+    """The f32 forward of both trees at (B, S, H, G, hd), causal."""
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device="cuda") for n in (h, g, g))
+    qf, kf, vf = _flatten(q, k, v)
+    outs = {tree: (torch.empty_like(qf), torch.empty((b * h, s), device="cuda"))
+            for tree in ("other", "this")}
+
+    def fwd(t):
+        _build.check(entries[t, "flash_attention_fwd_f32_launch"](
+            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), outs[t][0].data_ptr(), outs[t][1].data_ptr(),
+            b * h, b * g, s, s, hd, 1, 1.0 / math.sqrt(hd), stream), t)
+
+    for t in outs:
+        fwd(t)
+    po, plse = flash_attention_plain(q, k, v, causal=True)
+    plain = (po.transpose(1, 2).reshape(b * h, s, hd).double(), plse.double())
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+    fns = {t: (lambda t=t: fwd(t)) for t in outs}
+    print(json.dumps({
+        "case": f"flash forward f32 B={b} S={s} H={h} G={g} hd={hd} causal",
+        "gap_this_other": [float((x.double() - y.double()).abs().max())
+                           for x, y in zip(outs["this"], outs["other"])],
+        "gap_this_plain": [float((x.double() - p).abs().max()) for x, p in zip(outs["this"], plain)],
+        "gap_other_plain": [float((x.double() - p).abs().max()) for x, p in zip(outs["other"], plain)],
+        "bound_ms": 4 * hd * b * h * s * (s + 1) // 2 / 67e12 * 1e3,
+        "o_lse": turns(fns, reps),
+        "o_lse_events": {f"{tree}_{i}": events_ms(fns[tree], reps)
+                         for i, tree in enumerate(("other", "this", "this", "other"))},
+        "library": device_ms(lib, reps), "library_events": events_ms(lib, reps)}), flush=True)
 
 
 def flash_bwd_case(entries, stream, reps, gen, b, s, h, g, hd):
