@@ -35,6 +35,21 @@ exits non-zero:
                batches of 64 (half normal, so preemptions happen) plus 512
                single decisions: decisions/s, latency, fallbacks, memory,
                the device's busy share, and every kernel's launch count;
+5b. rebuild  — the paper's Fig. 2 scenarios (a normal and a preemptible
+               request on an empty fleet, a normal one on a saturated fleet)
+               at 24, 240 and 2,400 Table 1 nodes: the p50 latency of a call
+               of ``FilterScheduler``, ``RetryScheduler`` and
+               ``PreemptibleScheduler`` on the host and of the rebuild-per-
+               call ``TorchPreemptibleScheduler`` on the card (build and
+               decision apart); each card result equal to the CPU's and in
+               ok and plan cost to ``PreemptibleScheduler``'s; at 65,536
+               saturated hosts 4 calls, whole and build, the decision equal
+               to a fresh ``SoAFleet``'s first; the screen without the
+               free-slot test against its plain versions at 257, 2,400 and
+               65,536 hosts; the python ``Simulator`` with the rebuild
+               scheduler on the card and on the CPU (16 hosts, 24 hours):
+               identical; the launches of each decision kernel against what
+               the path implies;
 6. model_kernels — flash-attention forward and RMSNorm against their plain
                versions at qwen2-1.5b's and gemma-2b's shapes (plus a full
                and a ragged case; the f32 route at S=77 and at every shape
@@ -121,9 +136,16 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.core import fleets  # noqa: E402
 from repro_torch.core.convert import fleet_state_to_numpy  # noqa: E402
 from repro_torch.core.policy import SchedulerPolicy  # noqa: E402
-from repro_torch.core.simulator import SoASimulator, WorkloadSpec  # noqa: E402
+from repro_torch.core.cluster import Cluster, make_uniform_fleet  # noqa: E402
+from repro_torch.core.scheduler import SCHEDULER_REGISTRY  # noqa: E402
+from repro_torch.core.simulator import Simulator, SoASimulator, WorkloadSpec  # noqa: E402
 from repro_torch.core.soa_fleet import SoAFleet  # noqa: E402
-from repro_torch.core.torch_scheduler import STATE_DTYPES, fleet_slot_costs  # noqa: E402
+from repro_torch.core.torch_scheduler import (  # noqa: E402
+    STATE_DTYPES,
+    TorchPreemptibleScheduler,
+    build_soa_state,
+    fleet_slot_costs,
+)
 from repro_torch.core.types import Request  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
@@ -752,6 +774,204 @@ emit("main_path", hosts=N_HOSTS, k=fleet.k_slots, m=M, decisions=decisions,
      traced_window_ms=window_s * 1e3, device_busy_ms=device_us / 1e3,
      device_busy_share=(device_us / 1e6) / window_s if device_us else "not measured",
      sync_hosts_seconds=time.perf_counter() - t)
+
+# ---------------------------------------------------------------------------
+# 5b. rebuild: the paper's schedulers and the rebuild-per-call scheduler
+# ---------------------------------------------------------------------------
+t_rebuild = time.perf_counter()
+FIG2_SIZES = (24, 240, 2400)        # the paper's testbed; bench_fig2_latency's sizes
+medium = fleets.SIZES["medium"]
+
+
+def p50_ms(fn, min_calls=8):
+    """Median wall clock of one call: 8 calls, 16 where a call is under
+    50 ms.  Returns (ms, calls, last result)."""
+    times, out = [], None
+    while len(times) < min_calls or (len(times) < 16 and np.median(times) < 0.05):
+        t = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times)) * 1e3, len(times), out
+
+
+def same_choice(a, b, what):
+    check((a.ok, a.host, a.plan.ids, a.plan.cost) == (b.ok, b.host, b.plan.ids, b.plan.cost),
+          f"rebuild: {what}: card {a.host} {a.plan.ids} {a.plan.cost} against CPU "
+          f"{b.host} {b.plan.ids} {b.plan.cost}")
+
+
+def agrees_with_paper(card, ref, what):
+    """``test_jax_scheduler.py``'s rule: the same ok and plan cost; the
+    host may differ only on an exact tie."""
+    check(card.ok == ref.ok, f"rebuild: {what}: ok {card.ok} against the paper's {ref.ok}")
+    if card.ok:
+        check(card.plan.cost == ref.plan.cost,
+              f"rebuild: {what}: cost {card.plan.cost} against the paper's {ref.plan.cost}")
+        check(card.host != ref.host or set(card.plan.ids) == set(ref.plan.ids),
+              f"rebuild: {what}: victims {card.plan.ids} against the paper's {ref.plan.ids}")
+
+
+# the screen without the free-slot test (the rebuild path's), against its
+# plain version bit for bit on the rebuilt states, before any launch is
+# counted
+hosts_big = fleets.saturated_fleet(N_HOSTS, seed=0)
+free_slot_checked = []
+for n_ in (257, 2400, N_HOSTS):
+    state_, _ = build_soa_state(hosts_big[:n_], fleets.NOW, device=DEV)
+    req_ = torch.tensor(medium.vec, dtype=torch.float32, device=DEV)
+    for pre in (False, True):
+        h_ = (state_.free_f, state_.free_n, state_.schedulable, state_.domain, state_.slow,
+              state_.inst_res, state_.inst_cost, state_.inst_valid, req_, pre, -1)
+        c_p = kernels.sched_screen_consts_plain(*h_, mult, False)
+        t_p = kernels.sched_screen_topm_plain(*h_, c_p, mult, False, M + 1)
+        same(kernels.sched_screen_consts(*h_, mult, False), c_p,
+             f"rebuild {n_} pre={pre} sched_screen_consts", "sched_screen_consts")
+        t_k = kernels.sched_screen_topm(*h_, c_p, mult, False, M + 1)
+        same(t_k[0], t_p[0], f"rebuild {n_} pre={pre} sched_screen_topm scores", "sched_screen_topm")
+        same(t_k[1], t_p[1], f"rebuild {n_} pre={pre} sched_screen_topm idx", "sched_screen_topm")
+        f_k = kernels.sched_screen(*h_, mult, False, M + 1)
+        for got_, want_, what in zip(f_k, (*t_p, c_p), ("scores", "idx", "consts")):
+            same(got_, want_, f"rebuild {n_} pre={pre} sched_screen {what}", "sched_screen")
+        free_slot_checked.append(f"{n_} hosts, {'preemptible' if pre else 'normal'}")
+del state_, h_
+
+# the path's own launches from here on
+kernels.reset_launch_counts()
+rebuild_counts = {key: 0 for key in kernels.launch_counts()}
+implied = dict(sched_screen_consts=0, sched_screen_topm=0, sched_screen=0, sched_weigh=0,
+               sched_weigh_gathered=0)
+
+
+def absorb(sched, n_hosts_):
+    """Add this scheduler's launches to the phase's, each against the count
+    its calls imply (full weigh at <= 256 hosts; above, 2 screen launches
+    and a gathered weigh a call and a full weigh a fallback)."""
+    counts_ = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    calls_ = sched.calls
+    if n_hosts_ > 4 * M:
+        want_ = dict(sched_screen_consts=calls_, sched_screen_topm=calls_,
+                     sched_screen=2 * calls_, sched_weigh=calls_ + sched.fallbacks,
+                     sched_weigh_gathered=calls_)
+    else:
+        want_ = dict(sched_screen_consts=0, sched_screen_topm=0, sched_screen=0,
+                     sched_weigh=calls_, sched_weigh_gathered=0)
+    for key, v_ in want_.items():
+        check(counts_[key] == v_, f"rebuild: {n_hosts_} hosts: {key} launched {counts_[key]} "
+                                  f"times, the path implies {v_}")
+        implied[key] += v_
+    for key, v_ in counts_.items():
+        rebuild_counts[key] += v_
+
+
+fig2 = {}
+for n_ in FIG2_SIZES:
+    fleets_ = {"empty": fleets.empty_fleet(n_), "saturated": fleets.saturated_fleet(n_, seed=0)}
+    gsched = TorchPreemptibleScheduler(device=DEV)
+    csched = TorchPreemptibleScheduler(device="cpu")
+    for scen, hosts_key, pre in (("empty", "empty", False), ("empty-spot", "empty", True),
+                                 ("saturated", "saturated", False)):
+        hosts_ = fleets_[hosts_key]
+        req_ = Request(id=f"fig2-{scen}", resources=medium, preemptible=pre)
+        row = {}
+        for name, cls in SCHEDULER_REGISTRY.items():     # filter, retry, preemptible
+            py_ = cls()
+            row[f"{name}_ms"], row[f"{name}_calls"], res_ = p50_ms(
+                lambda: py_.schedule(req_, hosts_, fleets.NOW))
+            if name == "preemptible":
+                ref = res_
+        gsched.schedule(req_, hosts_, fleets.NOW)            # warm-up
+        builds, decides = [], []
+
+        def card_call():
+            out_ = gsched.schedule(req_, hosts_, fleets.NOW)
+            builds.append(gsched.last_build_s)
+            decides.append(gsched.last_decision_s)
+            return out_
+
+        row["card_ms"], row["card_calls"], got = p50_ms(card_call)
+        row["card_build_ms"] = float(np.median(builds)) * 1e3
+        row["card_decision_ms"] = float(np.median(decides)) * 1e3
+        same_choice(got, csched.schedule(req_, hosts_, fleets.NOW), f"{scen} at {n_} hosts")
+        agrees_with_paper(got, ref, f"{scen} at {n_} hosts")
+        check(got.ok and bool(got.plan.ids) == (scen == "saturated"),
+              f"rebuild: {scen} at {n_} hosts: ok {got.ok}, victims {got.plan.ids}")
+        row["victims"] = len(got.plan.ids)
+        fig2[f"{scen}@{n_}"] = row
+    absorb(gsched, n_)
+    fig2[f"fallbacks@{n_}"] = gsched.fallbacks
+
+# 65,536 saturated hosts (phase 5's fleet): 4 calls, whole and build; the
+# decision against a fresh SoAFleet's first one on the same fleet
+hosts_ = hosts_big
+req_ = Request(id="big", resources=medium, preemptible=False)
+gsched = TorchPreemptibleScheduler(device=DEV)
+big_calls, big_builds, big_decides = [], [], []
+for _ in range(4):
+    t_ = time.perf_counter()
+    got = gsched.schedule(req_, hosts_, fleets.NOW)
+    big_calls.append(time.perf_counter() - t_)
+    big_builds.append(gsched.last_build_s)
+    big_decides.append(gsched.last_decision_s)
+absorb(gsched, N_HOSTS)
+big_fallbacks = gsched.fallbacks
+persistent = SoAFleet(hosts_, device=DEV)
+first = persistent.schedule_request(req_, fleets.NOW)
+kernels.reset_launch_counts()                         # the persistent path's, not this one's
+check(got.ok and first.ok and got.host == first.host
+      and set(got.plan.ids) == {v_.id for v_ in first.victims},
+      f"rebuild: 65,536 hosts: {got.host} {got.plan.ids} against SoAFleet's "
+      f"{first.host} {[v_.id for v_ in first.victims]}")
+del hosts_, hosts_big, persistent
+
+# the python Simulator with the rebuild scheduler, on the card and the CPU:
+# test_soa_incremental.py's workload, 16 hosts, 24 simulated hours
+sim_runs = {}
+for dev_ in (DEV, "cpu"):
+    sched_ = TorchPreemptibleScheduler(k_slots=4, device=dev_)
+    cluster_ = Cluster(make_uniform_fleet(16, fleets.NODE_CAP))
+    t_ = time.perf_counter()
+    m_ = Simulator(cluster_, sched_, WorkloadSpec(arrival_rate_per_s=1 / 40.0,
+                                                  preemptible_fraction=0.5,
+                                                  flavors=(("medium", medium),)),
+                   seed=5).run(24 * 3600.0)
+    sim_runs[str(dev_)] = (m_, cluster_, time.perf_counter() - t_, sched_)
+    if dev_ is DEV:
+        absorb(sched_, 16)
+(gm_, gc_, gs_, gsch_), (cm_, cc_, cs_, _) = sim_runs["cuda"], sim_runs["cpu"]
+for key in counters:
+    check(getattr(gm_, key) == getattr(cm_, key), f"rebuild Simulator: {key} differs")
+check(gm_.utilization == cm_.utilization and gm_.t == cm_.t,
+      "rebuild Simulator: utilisation series differ")
+check({n_: sorted(h_.instances) for n_, h_ in gc_.hosts.items()}
+      == {n_: sorted(h_.instances) for n_, h_ in cc_.hosts.items()},
+      "rebuild Simulator: placements differ")
+check([i.id for i in gc_.preempted] == [i.id for i in cc_.preempted],
+      "rebuild Simulator: preemptions differ")
+check(gm_.preemptions > 0, "rebuild Simulator: no preemptions")
+
+for name in records:
+    records[name]["launches"] += rebuild_counts[name]
+    check(rebuild_counts[name] > 0, f"rebuild: kernel {name} was never launched")
+check(rebuild_counts["sched_weigh_gathered"] > 0, "rebuild: no gathered weigh")
+emit("rebuild", card=smi, method="wall clock per call, p50 of 8 calls (16 where a call "
+     "is under 50 ms); python schedulers on the host, TorchPreemptibleScheduler on the card "
+     "(build: python hosts to state tensors; decision: screen, weigh, one host sync)",
+     fig2=fig2, screen_without_free_slot_exact=free_slot_checked,
+     big=dict(hosts=N_HOSTS, calls=len(big_calls),
+              call_p50_ms=float(np.median(big_calls)) * 1e3,
+              build_p50_ms=float(np.median(big_builds)) * 1e3,
+              decision_p50_ms=float(np.median(big_decides)) * 1e3,
+              fallbacks=big_fallbacks, host=got.host, victims=list(got.plan.ids),
+              equals_soafleet_first_decision=True),
+     simulator=dict(hosts=16, hours=24, decisions=gsch_.calls,
+                    placed=gm_.placed_normal + gm_.placed_preemptible,
+                    preemptions=gm_.preemptions, failures_normal=gm_.failures_normal,
+                    failures_preemptible=gm_.failures_preemptible, identical=True,
+                    gpu_seconds=gs_, cpu_seconds=cs_),
+     launches=rebuild_counts, launches_implied=implied,
+     seconds=time.perf_counter() - t_rebuild)
+del sim_runs, gm_, gc_, cm_, cc_, gsch_
 
 # ---------------------------------------------------------------------------
 # 6. model kernels against their plain versions

@@ -8,7 +8,15 @@ the plain PyTorch versions of the kernels on the CPU.  Modules:
 * ``repro_torch.core.soa_fleet.SoAFleet`` / ``core.simulator.SoASimulator``
   — the main path;
 * ``repro_torch.core.torch_scheduler`` — ``SoAFleetState``, the decision
-  core, ``schedule_step`` / ``schedule_many`` and the transitions;
+  core, ``schedule_step`` / ``schedule_many`` and the transitions; the
+  rebuild-per-call path: ``SoAHostState``, ``build_soa_state``,
+  ``schedule_decision`` and ``TorchPreemptibleScheduler``;
+* ``repro_torch.core.scheduler`` — the paper's three python schedulers
+  (``FilterScheduler``, ``RetryScheduler``, ``PreemptibleScheduler``) over
+  ``core.filters``, ``core.weighers`` and ``core.select_terminate``, with
+  ``core.cluster.Cluster`` and ``core.simulator.Simulator`` to drive them;
+* ``repro_torch.core.convert`` — numpy ↔ state tensors for both state
+  flavors (``fleet_state_*``, ``host_state_*``);
 * ``repro_torch.kernels`` — the kernels, their plain versions and the launch
   counters.
 """

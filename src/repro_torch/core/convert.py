@@ -1,9 +1,12 @@
-"""Carry a fleet state across: numpy arrays ↔ ``SoAFleetState`` tensors.
+"""Carry a fleet state across: numpy arrays ↔ the port's state tensors.
 
 The arrays use the JAX package's field names and dtypes, so a reference
 state turned into numpy (``np.asarray`` on each field) feeds the port, and a
-port state read back compares field for field.  The round trip is exact for
-every dtype (bool, int32, float32).
+port state read back compares field for field.  Two states cross:
+``SoAFleetState`` (the persistent path, ``fleet_state_*``) and
+``SoAHostState`` (the rebuild-per-call path, ``host_state_*``, whose
+``churn`` and ``host_zone`` columns may be absent).  The round trip is exact
+for every dtype (bool, int32, float32).
 """
 from __future__ import annotations
 
@@ -12,9 +15,24 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .torch_scheduler import STATE_DTYPES, SoAFleetState, resolve_device
+from .torch_scheduler import (
+    HOST_STATE_DTYPES,
+    HOST_STATE_OPTIONAL,
+    STATE_DTYPES,
+    SoAFleetState,
+    SoAHostState,
+    resolve_device,
+)
 
 _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32, torch.bool: np.bool_}
+
+
+def _field(where: str, name: str, src, dtype: torch.dtype, dev) -> torch.Tensor:
+    src = np.asarray(src)
+    arr = np.ascontiguousarray(src, dtype=_NP_DTYPES[dtype])
+    if not np.array_equal(arr, src):
+        raise ValueError(f"{where}: {name} does not fit {dtype}")
+    return torch.from_numpy(arr.copy()).to(dev)
 
 
 def fleet_state_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> SoAFleetState:
@@ -25,16 +43,33 @@ def fleet_state_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> SoAFle
     missing = set(STATE_DTYPES) - set(arrays)
     if missing:
         raise ValueError(f"fleet_state_from_numpy: missing fields {sorted(missing)}")
-    fields = {}
-    for name, dtype in STATE_DTYPES.items():
-        src = np.asarray(arrays[name])
-        arr = np.ascontiguousarray(src, dtype=_NP_DTYPES[dtype])
-        if not np.array_equal(arr, src):
-            raise ValueError(f"fleet_state_from_numpy: {name} does not fit {dtype}")
-        fields[name] = torch.from_numpy(arr.copy()).to(dev)
-    return SoAFleetState(**fields)
+    return SoAFleetState(**{
+        name: _field("fleet_state_from_numpy", name, arrays[name], dtype, dev)
+        for name, dtype in STATE_DTYPES.items()})
 
 
 def fleet_state_to_numpy(state: SoAFleetState) -> Dict[str, np.ndarray]:
     """One numpy array per field, under the JAX package's field names."""
     return {name: getattr(state, name).cpu().numpy() for name in STATE_DTYPES}
+
+
+def host_state_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> SoAHostState:
+    """Build a ``SoAHostState`` on ``device`` (``None`` = the card) from one
+    numpy array per field; ``churn`` and ``host_zone`` may be missing or
+    None.  Raises on a missing required field or a value the field's dtype
+    cannot hold exactly."""
+    dev = resolve_device(device)
+    missing = set(HOST_STATE_DTYPES) - set(HOST_STATE_OPTIONAL) - set(arrays)
+    if missing:
+        raise ValueError(f"host_state_from_numpy: missing fields {sorted(missing)}")
+    return SoAHostState(**{
+        name: _field("host_state_from_numpy", name, arrays[name], dtype, dev)
+        for name, dtype in HOST_STATE_DTYPES.items()
+        if arrays.get(name) is not None})
+
+
+def host_state_to_numpy(state: SoAHostState) -> Dict[str, np.ndarray]:
+    """One numpy array per field that the state holds (``churn`` and
+    ``host_zone`` only when present), under the JAX package's field names."""
+    return {name: getattr(state, name).cpu().numpy() for name in HOST_STATE_DTYPES
+            if getattr(state, name) is not None}

@@ -8,8 +8,13 @@ and straggler injection, all drawn from ``np.random.default_rng(seed)`` in
 the same order as the JAX simulator, so the two event streams are identical.
 Runs of consecutive arrivals go through one ``SoAFleet.schedule_batch``.
 
-Not ported yet: the python ``Simulator``, ``run_trace``, the streaming
-admission loop and the storm / churn-regime injectors (see ``ROADMAP.md``).
+The python ``Simulator`` (a copy of the JAX package's) runs the same event
+stream on a ``Cluster`` of python hosts and asks a scheduler per arrival: one
+of the paper's three (``core.scheduler``) or the rebuild-per-call
+``TorchPreemptibleScheduler``, whose decisions run on the card.
+
+Not ported yet: ``run_trace``, the streaming admission loop and the storm /
+churn-regime injectors (see ``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .cluster import Cluster
 from .cost import CostFunction
+from .scheduler import BaseScheduler
 from .soa_fleet import SoAFleet
 from .types import Request, Resources
 
@@ -84,6 +91,141 @@ class SimMetrics:
             "relocation_failed": float(self.relocation_failed),
             "relocation_lost": float(self.relocation_lost),
         }
+
+
+class Simulator:
+    """Event loop on a python ``Cluster`` (a copy of
+    ``repro.core.simulator.Simulator``): one ``scheduler.schedule`` call per
+    arrival, the same draws in the same order.  ``sched_latency_s`` is the
+    wall clock of each call."""
+
+    def __init__(
+        self,
+        cluster: Cluster,
+        scheduler: BaseScheduler,
+        workload: WorkloadSpec,
+        seed: int = 0,
+    ):
+        self.cluster = cluster
+        self.scheduler = scheduler
+        self.workload = workload
+        self.rng = np.random.default_rng(seed)
+        self.metrics = SimMetrics()
+        self._heap: List[_Event] = []
+        self._seq = itertools.count()
+        self._req_ids = itertools.count()
+        self.now = 0.0
+
+    # -- event helpers ----------------------------------------------------------
+    def _push(self, t: float, kind: str, payload=None) -> None:
+        heapq.heappush(self._heap, _Event(t, next(self._seq), kind, payload))
+
+    def _draw_lifetime(self) -> float:
+        w = self.workload
+        # exponential, truncated to [min,max] (paper §4.4.1 + Knuth ref)
+        for _ in range(64):
+            x = self.rng.exponential(w.lifetime_mean_s)
+            if w.lifetime_min_s <= x <= w.lifetime_max_s:
+                return x
+        return float(np.clip(x, w.lifetime_min_s, w.lifetime_max_s))
+
+    def _draw_request(self) -> Request:
+        w = self.workload
+        names = [f[0] for f in w.flavors]
+        probs = w.flavor_probs
+        idx = self.rng.choice(len(names), p=probs)
+        name, res = w.flavors[idx]
+        preempt = bool(self.rng.random() < w.preemptible_fraction)
+        return Request(
+            id=f"r{next(self._req_ids)}", resources=res, preemptible=preempt
+        )
+
+    # -- main loop ----------------------------------------------------------------
+    def run(
+        self,
+        duration_s: float,
+        stop_on_normal_failure: bool = False,
+        sample_every_s: float = 300.0,
+    ) -> SimMetrics:
+        self._push(self.rng.exponential(1.0 / self.workload.arrival_rate_per_s), "arrival")
+        next_sample = 0.0
+        while self._heap:
+            ev = heapq.heappop(self._heap)
+            if ev.time > duration_s:
+                break
+            self.now = ev.time
+            if self.now >= next_sample:
+                self._sample()
+                next_sample = self.now + sample_every_s
+            if ev.kind == "arrival":
+                stop = self._handle_arrival()
+                self._push(
+                    self.now + self.rng.exponential(1.0 / self.workload.arrival_rate_per_s),
+                    "arrival",
+                )
+                if stop and stop_on_normal_failure:
+                    break
+            elif ev.kind == "departure":
+                inst = ev.payload
+                host = self.cluster.hosts[inst.host]
+                if inst.id in host.instances:  # may have been preempted already
+                    self.cluster.terminate(inst)
+            elif ev.kind == "fail_host":
+                self._fail_host(ev.payload)
+            elif ev.kind == "heal_host":
+                self.cluster.hosts[ev.payload].schedulable = True
+        self._sample()
+        return self.metrics
+
+    def _handle_arrival(self) -> bool:
+        """Returns True when a NORMAL request failed (paper's stop signal)."""
+        req = self._draw_request()
+        t0 = _time.perf_counter()
+        result = self.scheduler.schedule(req, self.cluster.host_list(), self.now)
+        self.metrics.sched_latency_s.append(_time.perf_counter() - t0)
+        preempted_before = self.cluster.stats.preemptions
+        inst = self.cluster.apply(result, self.now)
+        self.metrics.preemptions += self.cluster.stats.preemptions - preempted_before
+        if inst is None:
+            if req.preemptible:
+                self.metrics.failures_preemptible += 1
+            else:
+                self.metrics.failures_normal += 1
+                return True
+            return False
+        if req.preemptible:
+            self.metrics.placed_preemptible += 1
+        else:
+            self.metrics.placed_normal += 1
+        self._push(self.now + self._draw_lifetime(), "departure", inst)
+        return False
+
+    # -- fault injection ------------------------------------------------------------
+    def inject_host_failure(self, host_name: str, at_s: float, heal_after_s: float = 0.0):
+        self._push(at_s, "fail_host", host_name)
+        if heal_after_s:
+            self._push(at_s + heal_after_s, "heal_host", host_name)
+
+    def inject_stragglers(self, fraction: float, slow_factor: float = 3.0):
+        hosts = self.cluster.host_list()
+        n = max(1, int(len(hosts) * fraction))
+        for h in self.rng.choice(len(hosts), size=n, replace=False):
+            hosts[int(h)].slow_factor = slow_factor
+
+    def _fail_host(self, host_name: str) -> None:
+        """Hard host failure: all instances die; preemptible ones re-queue."""
+        host = self.cluster.hosts[host_name]
+        host.schedulable = False
+        for inst in list(host.instances.values()):
+            if inst.preemptible:
+                self.cluster.preempt(inst, self.now)
+            else:
+                self.cluster.terminate(inst)
+
+    def _sample(self) -> None:
+        self.metrics.t.append(self.now)
+        self.metrics.utilization.append(self.cluster.utilization())
+        self.metrics.utilization_normal.append(self.cluster.utilization_normal())
 
 
 class SoASimulator:

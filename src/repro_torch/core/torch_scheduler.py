@@ -1,6 +1,7 @@
-"""The two-stage scheduling decision on persistent fleet state, in PyTorch.
+"""The two-stage scheduling decision in PyTorch, on persistent fleet state
+and on state rebuilt from python hosts per call.
 
-Port of ``repro.core.jax_scheduler`` (the persistent-state half):
+Port of ``repro.core.jax_scheduler``:
 
     stage 1 (O(N·K))  ``sched_screen``: dual-view fit mask, exact
                       feasibility, termination-cost bounds, the 10
@@ -11,6 +12,16 @@ Port of ``repro.core.jax_scheduler`` (the persistent-state half):
                       against the best non-shortlisted bound, falling back to
                       the full enumeration (``sched_weigh`` on every host)
                       when the shortlist cannot certify its winner.
+
+Two state flavors, as in the JAX module:
+
+* ``SoAFleetState`` + ``build_fleet_state`` — built once, then updated in
+  place by the transitions (``schedule_step``, ``schedule_many``,
+  ``apply_*``): the fleet-scale path that ``SoAFleet`` drives;
+* ``SoAHostState`` + ``build_soa_state`` — rebuilt from python ``Host``
+  objects on every call, with each slot's termination cost frozen at build
+  time (``schedule_decision``, ``TorchPreemptibleScheduler``): the
+  rebuild-per-call scheduler with the python schedulers' interface.
 
 The state's device picks the kernels: on a CUDA state every stage-1 screen
 and every enumeration launches the hand-written kernels; on a CPU state the
@@ -34,6 +45,7 @@ Differences from the JAX module, all deliberate:
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,7 +68,15 @@ from .screen_math import (
     slot_cost_by_kind,
     stage1_rows,
 )
-from .types import Host, Instance
+from .cost import CostFunction, PeriodCost
+from .types import (
+    EMPTY_PLAN,
+    Host,
+    Instance,
+    Request,
+    ScheduleResult,
+    TerminationPlan,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -479,6 +499,149 @@ def build_fleet_state(
 
 
 # ---------------------------------------------------------------------------
+# Rebuild-per-call state
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SoAHostState:
+    """Struct-of-arrays mirror of a host fleet, rebuilt per call (port of
+    ``jax_scheduler.SoAHostState``; same fields, names and dtypes).  Unlike
+    ``SoAFleetState`` its ``inst_cost`` is frozen at build time and its
+    valid slots are a prefix of each row."""
+
+    free_f: torch.Tensor       # (N, D) h_f free resources
+    free_n: torch.Tensor       # (N, D) h_n free resources
+    schedulable: torch.Tensor  # (N,)   bool
+    domain: torch.Tensor       # (N,)   int32
+    slow: torch.Tensor         # (N,)   float32 straggler factor
+    inst_res: torch.Tensor     # (N, K, D) preemptible instance resources
+    inst_cost: torch.Tensor    # (N, K)    per-instance termination cost
+    inst_valid: torch.Tensor   # (N, K)    bool
+    #: optional per-host zone-churn rate (None = churn-blind), frozen at
+    #: build from ``zone_rates``.
+    churn: Optional[torch.Tensor] = None      # (N,) float32
+    #: optional per-host zone id (None = zone-blind).
+    host_zone: Optional[torch.Tensor] = None  # (N,) int32
+
+    @property
+    def n_hosts(self) -> int:
+        return self.free_f.shape[0]
+
+    @property
+    def k_slots(self) -> int:
+        return self.inst_res.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.free_f.device
+
+
+#: field order and dtypes of ``SoAHostState``; the last two may be None.
+HOST_STATE_DTYPES = {
+    "free_f": torch.float32, "free_n": torch.float32,
+    "schedulable": torch.bool, "domain": torch.int32, "slow": torch.float32,
+    "inst_res": torch.float32, "inst_cost": torch.float32,
+    "inst_valid": torch.bool, "churn": torch.float32, "host_zone": torch.int32,
+}
+HOST_STATE_OPTIONAL = ("churn", "host_zone")
+
+
+def build_soa_state(
+    hosts: Sequence[Host],
+    now: float,
+    cost_fn: Optional[CostFunction] = None,
+    k_slots: int = 8,
+    domain_ids: Optional[Dict[str, int]] = None,
+    zone_rates: Optional[Dict[str, float]] = None,
+    zone_ids: Optional[Dict[str, int]] = None,
+    device=None,
+) -> Tuple[SoAHostState, List[List[Instance]]]:
+    """Convert python ``Host`` objects to a ``SoAHostState`` on ``device``
+    (``None`` = the card); see ``jax_scheduler.build_soa_state`` for the
+    arguments.  Each slot's cost is ``cost_fn.cost([inst], now)``, computed
+    in float64 on the host and stored as float32.  Returns the state and the
+    per-host preemptible lists (slot order)."""
+    from .convert import host_state_from_numpy
+
+    cost_fn = cost_fn or PeriodCost()
+    n = len(hosts)
+    d, free_f, free_n, schedulable, domain, slow, pre_lists = _hosts_to_arrays(
+        hosts, k_slots, domain_ids
+    )
+    inst_res = np.zeros((n, k_slots, d), np.float32)
+    inst_cost = np.zeros((n, k_slots), np.float32)
+    inst_valid = np.zeros((n, k_slots), bool)
+    for i, pre in enumerate(pre_lists):
+        for k, inst in enumerate(pre):
+            inst_res[i, k] = inst.resources.vec
+            inst_cost[i, k] = cost_fn.cost([inst], now)
+            inst_valid[i, k] = True
+    arrays = dict(free_f=free_f, free_n=free_n, schedulable=schedulable,
+                  domain=domain, slow=slow, inst_res=inst_res,
+                  inst_cost=inst_cost, inst_valid=inst_valid)
+    if zone_rates is not None:
+        arrays["churn"] = np.asarray(
+            [float(zone_rates.get(h.zone, 0.0)) for h in hosts], np.float32)
+    if zone_ids is not None:
+        # an unknown zone is -2, which no exclusion operand matches
+        arrays["host_zone"] = np.asarray(
+            [int(zone_ids.get(h.zone, -2)) for h in hosts], np.int32)
+    return host_state_from_numpy(arrays, device=device), pre_lists
+
+
+def _rebuild_decision(
+    state: SoAHostState,
+    req_res,
+    req_preemptible: bool,
+    req_domain: int,
+    policy: SchedulerPolicy,
+    req_exclude_zone: int,
+) -> Tuple[int, int, bool, bool]:
+    """``schedule_decision`` plus the fallback flag: ``(host_idx,
+    term_mask_idx, ok, fell_back)``."""
+    if not isinstance(req_res, torch.Tensor):
+        req_res = torch.from_numpy(np.asarray(req_res, np.float32)).to(state.device)
+    churn = state.churn
+    if churn is None and policy.churn_aware:
+        # a churn-aware policy over a state built without rates: every host
+        # equally calm (the weigher term normalizes away)
+        churn = torch.zeros_like(state.slow)
+    host_zone = state.host_zone
+    if host_zone is None and policy.relocation_on:
+        # every host in zone 0: an exclusion id of 0 excludes the whole
+        # fleet, anything else nothing (and -1 = none)
+        host_zone = torch.zeros_like(state.domain)
+    h, bm, ok, fell_back, _ = _decision_core(
+        state.free_f, state.free_n, state.schedulable, state.domain,
+        state.slow, state.inst_res, state.inst_cost, state.inst_valid,
+        req_res, bool(req_preemptible), int(req_domain), policy,
+        require_free_slot=False, churn=churn, host_zone=host_zone,
+        exclude_zone=int(req_exclude_zone),
+    )
+    return h, bm, ok, fell_back
+
+
+def schedule_decision(
+    state: SoAHostState,
+    req_res,
+    req_preemptible: bool,
+    req_domain: int,
+    policy: Optional[SchedulerPolicy] = None,
+    req_exclude_zone: int = -1,
+) -> Tuple[int, int, bool]:
+    """One scheduling decision on a rebuilt state: ``(host_idx,
+    term_mask_idx, ok)`` as python values (port of
+    ``jax_scheduler.schedule_decision``).  ``req_res`` is a (D,) tensor on
+    the state's device or an array; ``req_domain`` and ``req_exclude_zone``
+    are ids, -1 for none.  Unlike the persistent path, a preemptible
+    request needs no free slot: the rebuilt rows hold only live instances."""
+    policy = ensure_policy(policy, "schedule_decision")
+    return _rebuild_decision(state, req_res, req_preemptible, req_domain,
+                             policy, req_exclude_zone)[:3]
+
+
+# ---------------------------------------------------------------------------
 # Transitions (in place)
 # ---------------------------------------------------------------------------
 
@@ -780,3 +943,93 @@ def apply_host_failure(
         _zone_add(state.zone_up, z, _seq_sum(up, range(k)))
         _zone_add(state.zone_term, z, row_valid.to(torch.float32).sum())
     return state
+
+
+# ---------------------------------------------------------------------------
+# Drop-in scheduler (the python schedulers' .schedule() contract)
+# ---------------------------------------------------------------------------
+
+
+class TorchPreemptibleScheduler:
+    """The rebuild-per-call scheduler (port of
+    ``jax_scheduler.JaxPreemptibleScheduler``): each ``schedule`` call
+    rebuilds a ``SoAHostState`` from the python hosts on ``device`` (``None``
+    = the card) and runs the two-stage decision on it, launching the
+    decision kernels on a CUDA device.  ``schedule_soa`` decides on a state
+    the caller already holds.
+
+    ``last_build_s`` / ``last_decision_s`` hold the wall-clock split of the
+    latest ``schedule`` call; ``calls`` and ``fallbacks`` count decisions
+    and the shortlist fallbacks among them."""
+
+    def __init__(
+        self,
+        cost_fn: Optional[CostFunction] = None,
+        k_slots: int = 8,
+        policy: Optional[SchedulerPolicy] = None,
+        zone_rates: Optional[Dict[str, float]] = None,
+        device=None,
+    ):
+        self.policy = ensure_policy(
+            policy, "TorchPreemptibleScheduler", cost_fn=cost_fn
+        )
+        #: prices a winning mask's victims and freezes slot costs at rebuild;
+        #: derived from the policy's cost table when not given.
+        self.cost_fn = cost_fn or self.policy.make_cost_fn()
+        self.k_slots = k_slots
+        #: frozen per-zone churn rates (zone name -> rate) baked into each
+        #: rebuild's ``churn`` column.
+        self.zone_rates = dict(zone_rates) if zone_rates is not None else None
+        self.device = resolve_device(device)
+        self.calls = 0
+        self.fallbacks = 0
+        self.last_build_s = 0.0
+        self.last_decision_s = 0.0
+
+    def schedule(
+        self, req: Request, hosts: Sequence[Host], now: float
+    ) -> ScheduleResult:
+        t0 = time.perf_counter()
+        # zone ids by first appearance of Host.zone, as build_fleet_state
+        zone_ids: Dict[str, int] = {}
+        for h in hosts:
+            zone_ids.setdefault(h.zone, len(zone_ids))
+        state, slots = build_soa_state(
+            hosts, now, cost_fn=self.cost_fn, k_slots=self.k_slots,
+            zone_rates=self.zone_rates, zone_ids=zone_ids, device=self.device,
+        )
+        # domain ids by first appearance, as _hosts_to_arrays numbers them
+        domains: Dict[str, int] = {}
+        for h in hosts:
+            domains.setdefault(h.domain, len(domains))
+        dom = -1 if req.domain is None else domains.get(req.domain, -1)
+        # an unknown zone name excludes nothing
+        excl = -1 if req.exclude_zone is None else zone_ids.get(req.exclude_zone, -1)
+        req_res = torch.from_numpy(
+            np.asarray(req.resources.vec, np.float32)).to(self.device)
+        t1 = time.perf_counter()
+        host_idx, mask_idx, ok = self.schedule_soa(
+            state, req_res, bool(req.preemptible), dom, exclude_zone=excl)
+        self.last_build_s, self.last_decision_s = t1 - t0, time.perf_counter() - t1
+        if not ok:
+            return ScheduleResult(request=req, host=None, passes=1)
+        row = slots[host_idx]
+        victims = tuple(row[k] for k in range(len(row)) if (mask_idx >> k) & 1)
+        plan = (
+            EMPTY_PLAN if not victims
+            else TerminationPlan(instances=victims,
+                                 cost=self.cost_fn.cost(victims, now),
+                                 feasible=True)
+        )
+        return ScheduleResult(request=req, host=hosts[host_idx].name, plan=plan,
+                              passes=1)
+
+    def schedule_soa(self, state: SoAHostState, req_res, preemptible: bool,
+                     domain: int = -1, exclude_zone: int = -1
+                     ) -> Tuple[int, int, bool]:
+        """One decision on a rebuilt state: ``(host_idx, mask_idx, ok)``."""
+        h, bm, ok, fell_back = _rebuild_decision(
+            state, req_res, preemptible, domain, self.policy, exclude_zone)
+        self.calls += 1
+        self.fallbacks += int(fell_back)
+        return h, bm, ok

@@ -21,8 +21,10 @@ import torch
 from ..core.screen_math import EPS, POS_INF, TIE_EPS
 from . import _build
 
-#: launches of the CUDA kernel (both entry points run the same kernel).
-LAUNCHES = {"sched_weigh": 0}
+#: launches of the CUDA kernel: ``sched_weigh`` counts every launch (both
+#: entry points run the same kernel), ``sched_weigh_gathered`` the launches
+#: of the stage-2 entry on a gathered shortlist.
+LAUNCHES = {"sched_weigh": 0, "sched_weigh_gathered": 0}
 
 MAX_K = 12
 MAX_D = 8
@@ -118,7 +120,8 @@ def _check_cuda(free_f, inst_res, inst_cost, inst_valid, req_res):
     return n, k, d
 
 
-def _sched_weigh_cuda(free_f, inst_res, inst_cost, inst_valid, req_res):
+def _sched_weigh_cuda(free_f, inst_res, inst_cost, inst_valid, req_res,
+                      counts=("sched_weigh",)):
     n, k, d = _check_cuda(free_f, inst_res, inst_cost, inst_valid, req_res)
     fn = _build.entry("sched_weigh", "sched_weigh_launch", _LAUNCH_ARGTYPES)
     best_cost = torch.empty((n,), dtype=torch.float32, device=free_f.device)
@@ -132,7 +135,8 @@ def _sched_weigh_cuda(free_f, inst_res, inst_cost, inst_valid, req_res):
             best_cost.data_ptr(), best_mask.data_ptr(), feasible.data_ptr(),
             stream,
         ), "sched_weigh")
-    LAUNCHES["sched_weigh"] += 1
+    for name in counts:
+        LAUNCHES[name] += 1
     return best_cost, best_mask, feasible
 
 
@@ -150,5 +154,9 @@ def sched_weigh(free_f, inst_res, inst_cost, inst_valid, req_res):
 
 def sched_weigh_gathered(free_f, inst_res, inst_cost, inst_valid, req_res):
     """Stage-2 entry: the same enumeration on the gathered (M, K, D) rows of
-    the shortlisted hosts."""
+    the shortlisted hosts, its launches counted under ``sched_weigh`` and
+    ``sched_weigh_gathered``."""
+    if free_f.device.type == "cuda":
+        return _sched_weigh_cuda(free_f, inst_res, inst_cost, inst_valid, req_res,
+                                 ("sched_weigh", "sched_weigh_gathered"))
     return sched_weigh(free_f, inst_res, inst_cost, inst_valid, req_res)

@@ -17,7 +17,11 @@ from repro_torch import kernels
 from repro_torch.core import fleets
 from repro_torch.core.policy import SchedulerPolicy
 from repro_torch.core.soa_fleet import SoAFleet
-from repro_torch.core.torch_scheduler import fleet_slot_costs
+from repro_torch.core.torch_scheduler import (
+    TorchPreemptibleScheduler,
+    build_soa_state,
+    fleet_slot_costs,
+)
 from repro_torch.core.types import Request
 
 pytestmark = pytest.mark.cuda
@@ -151,6 +155,72 @@ def test_decisions_match_cpu(cuda_device):
         _eq(getattr(gpu.state, name), getattr(cpu.state, name))
     costs = fleet_slot_costs(gpu.state, fleets.NOW + 0.3, SchedulerPolicy())
     _eq(costs, fleet_slot_costs(cpu.state, fleets.NOW + 0.3, SchedulerPolicy()))
+
+
+def _screen_both_ways(head, mult, require_free_slot, m_keep=65):
+    got = kernels.sched_screen(*head, mult, require_free_slot, m_keep)
+    consts = kernels.sched_screen_consts_plain(*head, mult, require_free_slot)
+    want = kernels.sched_screen_topm_plain(*head, consts, mult, require_free_slot, m_keep)
+    _eq(got[2], consts)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    _eq(kernels.sched_screen_consts(*head, mult, require_free_slot), consts)
+    top = kernels.sched_screen_topm(*head, consts, mult, require_free_slot, m_keep)
+    _eq(top[0], want[0])
+    _eq(top[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("n", [257, 2400, 65536])
+@pytest.mark.parametrize("pre", [False, True])
+def test_sched_screen_without_free_slot_matches_plain(cuda_device, n, pre):
+    """``require_free_slot=False``, the rebuild path's screen: on the
+    rebuilt state of a saturated fleet (the path's own inputs) and on a
+    random fleet where some rows have no free slot, so that the flag
+    changes a preemptible request's screen."""
+    state, _ = build_soa_state(fleets.saturated_fleet(n, seed=n), fleets.NOW,
+                               device=cuda_device)
+    req = torch.tensor(fleets.SIZES["medium"].vec, dtype=torch.float32, device=cuda_device)
+    head = (state.free_f, state.free_n, state.schedulable, state.domain, state.slow,
+            state.inst_res, state.inst_cost, state.inst_valid, req, pre, -1)
+    _screen_both_ways(head, (1.0, 1.0, 0.0, 0.0), False)
+    f = _rand_fleet(np.random.default_rng(n), n, 8, cuda_device)
+    f[7][::5] = True                                  # every fifth row full
+    head = (*f, torch.tensor([2.0, 3.0, 2.0], device=cuda_device), pre, -1)
+    off = _screen_both_ways(head, CHURN_MULT[:4], False)
+    on = kernels.sched_screen(*head, CHURN_MULT[:4], True, 65)
+    if pre:
+        assert not torch.equal(off[1], on[1])
+
+
+@pytest.mark.parametrize("n", [24, 2400])
+def test_rebuild_scheduler_matches_cpu(cuda_device, n):
+    """``TorchPreemptibleScheduler`` on the card and on the CPU: Fig. 2's
+    scenarios and a mixed stream of requests on a saturated fleet give the
+    same host, plan ids and cost; the path's kernels were launched."""
+    sat, empty = fleets.saturated_fleet(n, seed=1), fleets.empty_fleet(n)
+    gpu = TorchPreemptibleScheduler(device=cuda_device)
+    cpu = TorchPreemptibleScheduler(device="cpu")
+    rng = np.random.default_rng(n)
+    sizes = list(fleets.SIZES.values())
+    cases = [(empty, Request(id="e", resources=fleets.SIZES["medium"], preemptible=False)),
+             (empty, Request(id="s", resources=fleets.SIZES["medium"], preemptible=True))]
+    cases += [(sat, Request(id=f"r{i}", resources=sizes[int(rng.integers(0, 3))],
+                            preemptible=bool(i % 2))) for i in range(12)]
+    kernels.reset_launch_counts()
+    for hosts, req in cases:
+        a = gpu.schedule(req, hosts, fleets.NOW + 30.0)
+        b = cpu.schedule(req, hosts, fleets.NOW + 30.0)
+        assert (a.ok, a.host, a.plan.ids, a.plan.cost) == (b.ok, b.host, b.plan.ids, b.plan.cost)
+    counts = kernels.launch_counts()
+    calls = len(cases)
+    if n > 256:
+        assert counts["sched_screen_consts"] == counts["sched_screen_topm"] == calls
+        assert counts["sched_weigh_gathered"] == calls
+        assert counts["sched_weigh"] == calls + gpu.fallbacks
+    else:
+        assert counts["sched_screen"] == counts["sched_weigh_gathered"] == 0
+        assert counts["sched_weigh"] == calls
 
 
 # ---------------------------------------------------------------------------
