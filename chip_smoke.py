@@ -50,6 +50,23 @@ exits non-zero:
                scheduler on the card and on the CPU (16 hosts, 24 hours):
                identical; the launches of each decision kernel against what
                the path implies;
+5c. admission — the streaming admission plane: the drain order's int64 key
+               sort on the card against the CPU on heavily tied keys; phase
+               4's simulator streaming (queue 256, batch 64, 4 tries, SLO
+               60 s) on the card and on the CPU: identical counters,
+               samples, admission stats (the waits bit for bit),
+               placements, preemptions, final state and final queue; at
+               65,536 saturated hosts 1,024 arrivals (half normal, two
+               classes) in blocking drains every 64, then ``drain_all``:
+               decisions/s, drain ms, sim-time waits, wall submit→absorbed
+               latency and the counts, conservation, every drain in
+               (class, seq) order, no class-1 attempt while a class-0 entry
+               waits, then every drain replayed through ``schedule_many``
+               from the state before the stream (the same decisions, the
+               same state after each drain); at 65,536 empty hosts 1,024
+               arrivals in non-blocking drains of 16 and of 64, every one
+               admitted: decisions/s and wall latency; the launches of each
+               decision kernel against what the path implies;
 6. model_kernels — flash-attention forward and RMSNorm against their plain
                versions at qwen2-1.5b's and gemma-2b's shapes (plus a full
                and a ragged case; the f32 route at S=77 and at every shape
@@ -64,7 +81,10 @@ exits non-zero:
                and the library's at 8, 4,096 and 8,192 rows of 1,536, warm
                and with the L2 flushed;
 7. model_parity — reduced qwen2-1.5b in f32, the same weights on the card
-               and on the CPU: flash ``forward_logits`` within 1e-4, and a
+               and on the CPU: flash ``forward_logits`` within 1e-4 (past
+               it, the failure's message says which side moved: each
+               forward again, both with reference attention, the TF32
+               settings, the CPU threads, the BLAS environment), and a
                ``ServingEngine`` run with identical tokens and step counts;
 8. serve     — full-width qwen2-1.5b (28 layers, random f32 master weights
                from a seed, bf16 compute): ``forward_logits`` with flash and
@@ -134,7 +154,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import fleets  # noqa: E402
-from repro_torch.core.convert import fleet_state_to_numpy  # noqa: E402
+from repro_torch.core.admission import QUEUE_DTYPES, queue_init, queue_select  # noqa: E402
+from repro_torch.core.convert import (  # noqa: E402
+    fleet_state_to_numpy,
+    queue_state_from_numpy,
+    queue_state_to_numpy,
+)
 from repro_torch.core.policy import SchedulerPolicy  # noqa: E402
 from repro_torch.core.cluster import Cluster, make_uniform_fleet  # noqa: E402
 from repro_torch.core.scheduler import SCHEDULER_REGISTRY  # noqa: E402
@@ -145,6 +170,7 @@ from repro_torch.core.torch_scheduler import (  # noqa: E402
     TorchPreemptibleScheduler,
     build_soa_state,
     fleet_slot_costs,
+    schedule_many,
 )
 from repro_torch.core.types import Request  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -974,6 +1000,263 @@ emit("rebuild", card=smi, method="wall clock per call, p50 of 8 calls (16 where 
 del sim_runs, gm_, gc_, cm_, cc_, gsch_
 
 # ---------------------------------------------------------------------------
+# 5c. admission: the streaming admission plane
+# ---------------------------------------------------------------------------
+t_adm = time.perf_counter()
+ADMISSION = dict(queue_capacity=256, admit_batch=64, max_retries=4, slo_target_s=60.0)
+ADM_KERNELS = ("sched_screen_consts", "sched_screen_topm", "sched_screen", "sched_weigh",
+               "sched_weigh_gathered")
+adm_counts = {key: 0 for key in ADM_KERNELS}
+adm_implied = {key: 0 for key in ADM_KERNELS}
+
+
+def adm_absorb(fleet_, d0_, f0_, what):
+    """Add the launches since the last reset to the phase's, each against
+    what ``fleet_``'s decisions since (d0_, f0_) imply: per decision (> 256
+    hosts) one of each screen kernel and a gathered weigh, plus a full weigh
+    per fallback."""
+    counts_ = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    dec_, fb_ = fleet_.decisions - d0_, fleet_.fallbacks - f0_
+    want_ = dict(sched_screen_consts=dec_, sched_screen_topm=dec_, sched_screen=2 * dec_,
+                 sched_weigh=dec_ + fb_, sched_weigh_gathered=dec_)
+    for key, v_ in want_.items():
+        check(counts_[key] == v_, f"admission: {what}: {key} launched {counts_[key]} times, "
+                                  f"the path implies {v_}")
+        adm_counts[key] += counts_[key]
+        adm_implied[key] += v_
+
+
+def clone_state(st_):
+    return dataclasses.replace(st_, **{f: getattr(st_, f).clone() for f in STATE_DTYPES})
+
+
+# the drain order's int64 key sort, card against CPU, on heavily tied keys:
+# mostly invalid rows, one or two classes, repeated tickets, aging
+rng = np.random.default_rng(11)
+tied_cases = 0
+for cap_ in (1, 7, 256, 4096):
+    for nc_, aging_ in ((1, 0.0), (2, 0.0), (2, 0.05), (255, 1.0)):
+        arrays_ = queue_state_to_numpy(queue_init(cap_, 3, device="cpu"))
+        arrays_["valid"] = rng.random(cap_) < 0.3
+        arrays_["klass"] = rng.integers(0, min(nc_, 2), cap_).astype(np.int32)
+        arrays_["seq"] = rng.integers(0, 3, cap_).astype(np.int32)
+        arrays_["enq_t"] = rng.integers(0, 100, cap_).astype(np.float32)
+        b_ = max(1, cap_ // 2)
+        got_ = queue_select(queue_state_from_numpy(arrays_, device=DEV), b_, now=100.0,
+                            aging_rate=aging_, n_classes=nc_)
+        want_ = queue_select(queue_state_from_numpy(arrays_, device="cpu"), b_, now=100.0,
+                             aging_rate=aging_, n_classes=nc_)
+        for g_, w_, what in zip(got_, want_, ("idx", "take")):
+            check(torch.equal(g_.cpu(), w_), f"admission: tied select {what} differs on the "
+                                             f"card ({cap_} rows, {nc_} classes, aging {aging_})")
+        tied_cases += 1
+
+
+# parity: phase 4's simulator, streaming, on the card and on the CPU
+def stream_sim(device):
+    s = SoASimulator(
+        fleets.saturated_fleet(4096, seed=5),
+        WorkloadSpec(arrival_rate_per_s=0.5, flavors=list(fleets.SIZES.items())),
+        seed=6, policy=SchedulerPolicy(**ADMISSION), device=device,
+    )
+    s.inject_stragglers(0.02)
+    s.inject_host_failure("h17", at_s=600.0, heal_after_s=900.0)
+    s.inject_host_failure("h2048", at_s=1500.0)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    metrics = s.run(2200.0)
+    seconds = time.perf_counter() - t
+    if device is DEV:
+        adm_absorb(s.fleet, 0, 0, "parity at 4,096 hosts")
+    return s, metrics, seconds
+
+
+def adm_stats(front):
+    out = dataclasses.asdict(front.stats)
+    del out["wall_wait_s"]
+    return out
+
+
+gsim, gm, g_s = stream_sim(DEV)
+csim, cm, c_s = stream_sim("cpu")
+for key in counters:
+    check(getattr(gm, key) == getattr(cm, key), f"admission parity: {key} differs")
+check(gm.utilization == cm.utilization and gm.t == cm.t,
+      "admission parity: utilization samples differ")
+gfront, cfront = gsim.fleet.admission, csim.fleet.admission
+check(adm_stats(gfront) == adm_stats(cfront),
+      "admission parity: admission stats differ (wall clock aside)")
+check(np.asarray(gfront.stats.wait_s, np.float32).tobytes()
+      == np.asarray(cfront.stats.wait_s, np.float32).tobytes(),
+      "admission parity: waits differ in their bits")
+check(list(gsim.fleet.instances) == list(csim.fleet.instances),
+      "admission parity: placements differ")
+check(gsim.fleet.locator == csim.fleet.locator, "admission parity: locations differ")
+check([i.id for i in gsim.fleet.preempted] == [i.id for i in csim.fleet.preempted],
+      "admission parity: preemptions differ")
+g_arr, c_arr = fleet_state_to_numpy(gsim.fleet.state), fleet_state_to_numpy(csim.fleet.state)
+for f in STATE_DTYPES:
+    check(np.array_equal(g_arr[f], c_arr[f]), f"admission parity: final state {f} differs")
+g_q, c_q = queue_state_to_numpy(gfront.qstate), queue_state_to_numpy(cfront.qstate)
+for f in QUEUE_DTYPES:
+    check(np.array_equal(g_q[f], c_q[f]), f"admission parity: final queue {f} differs")
+check(gfront.stats.retries > 0 and gfront.stats.admitted >= 500,
+      "admission parity: the run should admit and retry")
+parity_out = dict(hosts=4096, decisions=gsim.fleet.decisions, fallbacks=gsim.fleet.fallbacks,
+                  **{key: getattr(gm, key) for key in counters},
+                  **{key: v_ for key, v_ in adm_stats(gfront).items() if key != "wait_s"},
+                  gpu_seconds=g_s, cpu_seconds=c_s, identical=True)
+del gsim, csim, gm, cm, g_arr, c_arr
+
+# full size, contended: phase 5's 65,536 saturated hosts, 1,024 arrivals
+# (half normal, drawn as phase 5 draws them) in blocking drains every 64,
+# then drain_all; every drain replayed afterwards through schedule_many
+t_ = time.perf_counter()
+afleet = SoAFleet(fleets.saturated_fleet(N_HOSTS, seed=0), device=DEV,
+                  policy=SchedulerPolicy(n_classes=2, **ADMISSION))
+afleet_build_s = time.perf_counter() - t_
+state0 = clone_state(afleet.state)
+rng = np.random.default_rng(7)
+clock_ = fleets.NOW
+meta = {}                 # request id -> (class, submission index)
+unresolved = {}           # request id -> class, submitted and not yet placed or rejected
+drains, drain_s, snapshots = [], [], []
+out_of_order, class_1_first = [], []   # the drains that break the order
+
+
+def absorb_drain(dr):
+    """Check one drain's order and fold it into the bookkeeping."""
+    keys_ = [meta[r.id] for r, _ in dr.attempts]
+    if keys_ != sorted(keys_):
+        out_of_order.append(len(drains))
+    attempted = {r.id for r, _ in dr.attempts}
+    overflow = {r.id for r in dr.rejected} - attempted
+    if any(meta[r.id][0] == 1 for r, _ in dr.attempts) and any(
+            c == 0 and rid not in attempted and rid not in overflow
+            for rid, c in unresolved.items()):
+        class_1_first.append(len(drains))
+    for rid in {o.request.id for o in dr.outcomes} | {r.id for r in dr.rejected}:
+        unresolved.pop(rid)
+    drains.append(dr)
+    snapshots.append(clone_state(afleet.state))
+
+
+kernels.reset_launch_counts()
+d0, f0 = afleet.decisions, afleet.fallbacks
+for i in range(1024):
+    clock_ += float(rng.integers(1, 20))
+    req_ = Request(id=f"a{i}", resources=sizes[int(rng.integers(0, 3))], preemptible=bool(i % 2))
+    meta[req_.id] = (i % 2, i)
+    unresolved[req_.id] = i % 2
+    afleet.submit(req_, clock_)
+    if (i + 1) % 64 == 0:
+        t_ = time.perf_counter()
+        dr_ = afleet.drain(clock_)
+        drain_s.append(time.perf_counter() - t_)
+        absorb_drain(dr_)
+t_ = time.perf_counter()
+tail = afleet.drain_all(clock_)
+tail_s = time.perf_counter() - t_
+for dr_ in tail:
+    absorb_drain(dr_)
+adm_absorb(afleet, d0, f0, "contended at 65,536 hosts")
+front = afleet.admission
+s_ = front.stats
+check(s_.arrivals == 1024 and s_.arrivals == s_.admitted + s_.rejected + s_.queue_depth
+      + front.pending, "admission: conservation broken at 65,536 hosts")
+check(not out_of_order, f"admission: drains {out_of_order} left (class, seq) order")
+check(not class_1_first,
+      f"admission: drains {class_1_first} attempted class 1 while a class-0 entry waited")
+check(s_.admitted > 0 and s_.retries > 0, "admission: the contended run should admit and retry")
+attempts_n = sum(len(dr_.attempts) for dr_ in drains)
+check(afleet.decisions - d0 == attempts_n, "admission: decisions differ from attempts")
+summary_ = front.stats.summary()
+contended = dict(
+    hosts=N_HOSTS, k=afleet.k_slots, m=M, arrivals=1024, drains=len(drains),
+    blocking_drains=len(drain_s), tail_drains=len(tail), attempts=attempts_n,
+    decisions_per_s=attempts_n / (sum(drain_s) + tail_s),
+    admitted_per_s=s_.admitted / (sum(drain_s) + tail_s),
+    drain_p50_ms=float(np.percentile(drain_s, 50)) * 1e3,
+    drain_p99_ms=float(np.percentile(drain_s, 99)) * 1e3,
+    wait_p50_s=summary_["wait_p50_s"], wait_p99_s=summary_["wait_p99_s"],
+    wall_p50_ms=summary_["wall_p50_us"] / 1e3, wall_p99_ms=summary_["wall_p99_us"] / 1e3,
+    admitted=s_.admitted, rejected_retry=s_.rejected_retry,
+    rejected_overflow=s_.rejected_overflow, retries=s_.retries, degraded=s_.degraded,
+    fallbacks=afleet.fallbacks - f0, queue_depth=s_.queue_depth,
+    preemptions=sum(len(o.victims) for dr_ in drains for o in dr_.outcomes),
+    fleet_build_s=afleet_build_s)
+
+# the oracle replay: each drain's attempts in service order, at the drain's
+# now and as demoted, through schedule_many from the state before the stream
+t_ = time.perf_counter()
+replay, fell = state0, 0
+for j_, (dr_, snap) in enumerate(zip(drains, snapshots)):
+    if not dr_.attempts:
+        continue
+    cols_ = [afleet._req_arrays(r) for r, _ in dr_.attempts]
+    n_ = len(cols_)
+    replay, (rh, rslot, rok, rkill, rfb, _) = schedule_many(
+        replay, np.stack([c[0] for c in cols_]), [c[1] for c in cols_],
+        [c[2] for c in cols_], np.full((n_,), dr_.now), np.ones((n_,)),
+        policy=afleet.policy, req_cost_kind=[c[3] for c in cols_],
+        req_period=[c[4] for c in cols_])
+    fell += int(rfb.sum())
+    check(rok.tolist() == [p for _, p in dr_.attempts],
+          f"admission replay: drain {j_}: placements differ")
+    placed_hosts = [afleet.names[int(h)] for h, ok in zip(rh, rok) if ok]
+    check(placed_hosts == [o.host for o in dr_.outcomes], f"admission replay: drain {j_}: hosts differ")
+    for f in STATE_DTYPES:
+        check(torch.equal(getattr(replay, f), getattr(snap, f)),
+              f"admission replay: drain {j_}: state {f} differs")
+check(fell == contended["fallbacks"], "admission replay: fallbacks differ")
+kernels.reset_launch_counts()        # the replay's launches are a check's, not the path's
+contended.update(replayed_drains=len(drains), replay_seconds=time.perf_counter() - t_)
+del afleet, state0, replay, snapshots, drains, front
+
+# full size, uncontended: 65,536 empty hosts, every request admitted on its
+# first attempt (bench_screen.py::_bench_sustained's stream)
+uncontended = {}
+for b_ in (16, 64):
+    ufleet = SoAFleet(fleets.empty_fleet(N_HOSTS), device=DEV,
+                      policy=SchedulerPolicy(queue_capacity=4 * b_, admit_batch=b_,
+                                             max_retries=4))
+    rng = np.random.default_rng(7)
+    now_ = fleets.NOW
+    kernels.reset_launch_counts()
+    t_ = time.perf_counter()
+    for i0 in range(0, 1024, b_):
+        for j_ in range(i0, i0 + b_):
+            now_ += 1.0
+            ufleet.submit(Request(id=f"s{j_}", resources=medium,
+                                  preemptible=bool(rng.random() < 0.5)), now_)
+        ufleet.drain(now_, block=False)
+    ufleet.drain_all(now_ + 1.0)
+    ufleet.admission.sync()
+    elapsed_ = time.perf_counter() - t_
+    adm_absorb(ufleet, 0, 0, f"uncontended, batch {b_}")
+    us_ = ufleet.admission.stats
+    check(us_.admitted == 1024 and us_.retries == 0 and us_.rejected == 0,
+          f"admission: uncontended batch {b_}: {us_.admitted} of 1,024 admitted")
+    wall_ = np.asarray(us_.wall_wait_s)
+    uncontended[f"batch_{b_}"] = dict(
+        decisions=ufleet.decisions, decisions_per_s=us_.admitted / elapsed_,
+        wall_p50_ms=float(np.percentile(wall_, 50)) * 1e3,
+        wall_p99_ms=float(np.percentile(wall_, 99)) * 1e3,
+        fallbacks=ufleet.fallbacks, drains=us_.drains, seconds=elapsed_)
+    del ufleet
+
+for name in records:
+    records[name]["launches"] += adm_counts[name]
+    check(adm_counts[name] > 0, f"admission: kernel {name} was never launched")
+emit("admission", card=smi, policy=ADMISSION, tied_select_cases_equal=tied_cases,
+     parity=parity_out, contended=contended, uncontended=uncontended,
+     method="wall clock (perf_counter) around each blocking drain; decisions/s over the "
+            "drains' total; waits are sim-time (drain - arrival), f32",
+     launches=adm_counts, launches_implied=adm_implied,
+     seconds=time.perf_counter() - t_adm)
+
+# ---------------------------------------------------------------------------
 # 6. model kernels against their plain versions
 # ---------------------------------------------------------------------------
 #: tolerances (|kernel - plain| <= tol + tol * |plain|), with their reasons:
@@ -1179,8 +1462,29 @@ toks = torch.from_numpy(np.random.default_rng(4).integers(2, rcfg.vocab_size, (3
 lg = tm.forward_logits(rcfg, gpu_params, {"tokens": toks.to(DEV)}, last_only=False)
 lc = tm.forward_logits(rcfg, cpu_params, {"tokens": toks}, last_only=False)
 parity_gap = max_gap(lg, lc)
-check(bool(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4)),
-      f"model parity: forward_logits on the card vs the CPU, max gap {parity_gap} (f32 tol 1e-4)")
+parity_ok = bool(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4))
+parity_why = ""
+if not parity_ok:
+    # which side moved: each forward again, and both with reference attention
+    # (the failure stands whatever these say; they only go into its message)
+    rref = dataclasses.replace(rcfg, attention_impl="reference")
+    at = np.unravel_index(int((lg.double().cpu() - lc.double()).abs().argmax()), lc.shape)
+    lg2 = tm.forward_logits(rcfg, gpu_params, {"tokens": toks.to(DEV)}, last_only=False)
+    lc2 = tm.forward_logits(rcfg, cpu_params, {"tokens": toks}, last_only=False)
+    parity_why = json.dumps(dict(
+        at=[int(i) for i in at], card_again_vs_card=max_gap(lg2, lg),
+        cpu_again_vs_cpu=max_gap(lc2, lc), card_again_vs_cpu_again=max_gap(lg2, lc2),
+        reference_attention_card_vs_cpu=max_gap(
+            tm.forward_logits(rref, gpu_params, {"tokens": toks.to(DEV)}, last_only=False),
+            tm.forward_logits(rref, cpu_params, {"tokens": toks}, last_only=False)),
+        allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        fp32_precision=str(getattr(torch.backends.cuda.matmul, "fp32_precision", None)),
+        cpu_threads=torch.get_num_threads(),
+        env={key: val for key, val in os.environ.items() if key.startswith(
+            ("TORCH_", "PYTORCH_", "NVIDIA_TF32", "CUBLAS", "OMP_", "MKL_", "ONEDNN_", "DNNL_"))}))
+    print(f"model parity diagnosis: {parity_why}", file=sys.stderr, flush=True)
+check(parity_ok, f"model parity: forward_logits on the card vs the CPU, max gap {parity_gap} "
+                 f"(f32 tol 1e-4) {parity_why}")
 check(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)), "model parity: argmax differs")
 rng = np.random.default_rng(5)
 reqs = [(f"r{i}", rng.integers(2, rcfg.vocab_size, int(rng.integers(3, 40))), 12) for i in range(5)]

@@ -15,8 +15,13 @@ the plain PyTorch versions of the kernels on the CPU.  Modules:
   (``FilterScheduler``, ``RetryScheduler``, ``PreemptibleScheduler``) over
   ``core.filters``, ``core.weighers`` and ``core.select_terminate``, with
   ``core.cluster.Cluster`` and ``core.simulator.Simulator`` to drive them;
+* ``repro_torch.core.admission`` — the streaming admission plane: the
+  wait queue on the fleet's device, its transitions, the drain and
+  ``AdmissionFrontEnd`` (``SoAFleet.submit`` / ``drain`` when the policy's
+  ``queue_capacity > 0``);
 * ``repro_torch.core.convert`` — numpy ↔ state tensors for both state
-  flavors (``fleet_state_*``, ``host_state_*``);
+  flavors and the wait queue (``fleet_state_*``, ``host_state_*``,
+  ``queue_state_*``);
 * ``repro_torch.kernels`` — the kernels, their plain versions and the launch
   counters.
 """

@@ -2,11 +2,13 @@
 
 The arrays use the JAX package's field names and dtypes, so a reference
 state turned into numpy (``np.asarray`` on each field) feeds the port, and a
-port state read back compares field for field.  Two states cross:
-``SoAFleetState`` (the persistent path, ``fleet_state_*``) and
+port state read back compares field for field.  Three states cross:
+``SoAFleetState`` (the persistent path, ``fleet_state_*``),
 ``SoAHostState`` (the rebuild-per-call path, ``host_state_*``, whose
-``churn`` and ``host_zone`` columns may be absent).  The round trip is exact
-for every dtype (bool, int32, float32).
+``churn`` and ``host_zone`` columns may be absent) and
+``AdmissionQueueState`` (the admission plane's wait queue,
+``queue_state_*``).  The round trip is exact for every dtype (bool, int32,
+float32).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .admission import QUEUE_DTYPES, AdmissionQueueState
 from .torch_scheduler import (
     HOST_STATE_DTYPES,
     HOST_STATE_OPTIONAL,
@@ -29,10 +32,10 @@ _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32, torch.bool: np.b
 
 def _field(where: str, name: str, src, dtype: torch.dtype, dev) -> torch.Tensor:
     src = np.asarray(src)
-    arr = np.ascontiguousarray(src, dtype=_NP_DTYPES[dtype])
+    arr = np.array(src, dtype=_NP_DTYPES[dtype])   # a C-contiguous copy, 0-d kept
     if not np.array_equal(arr, src):
         raise ValueError(f"{where}: {name} does not fit {dtype}")
-    return torch.from_numpy(arr.copy()).to(dev)
+    return torch.from_numpy(arr).to(dev)
 
 
 def fleet_state_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> SoAFleetState:
@@ -73,3 +76,21 @@ def host_state_to_numpy(state: SoAHostState) -> Dict[str, np.ndarray]:
     ``host_zone`` only when present), under the JAX package's field names."""
     return {name: getattr(state, name).cpu().numpy() for name in HOST_STATE_DTYPES
             if getattr(state, name) is not None}
+
+
+def queue_state_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> AdmissionQueueState:
+    """Build an ``AdmissionQueueState`` on ``device`` (``None`` = the card)
+    from one numpy array per field (``next_seq`` 0-d).  Raises on a missing
+    field or a value the field's dtype cannot hold exactly."""
+    dev = resolve_device(device)
+    missing = set(QUEUE_DTYPES) - set(arrays)
+    if missing:
+        raise ValueError(f"queue_state_from_numpy: missing fields {sorted(missing)}")
+    return AdmissionQueueState(**{
+        name: _field("queue_state_from_numpy", name, arrays[name], dtype, dev)
+        for name, dtype in QUEUE_DTYPES.items()})
+
+
+def queue_state_to_numpy(q: AdmissionQueueState) -> Dict[str, np.ndarray]:
+    """One numpy array per field, under the JAX package's field names."""
+    return {name: getattr(q, name).cpu().numpy() for name in QUEUE_DTYPES}

@@ -5,10 +5,10 @@ PyTorch-port copy of ``repro.core.policy``.  Two fields are gone:
 here the device of the state's tensors chooses it (CPU tensors run the plain
 PyTorch versions, CUDA tensors the hand-written kernels).  The planes this
 port does not carry yet raise ``NotImplementedError`` at construction:
-``mesh`` (device sharding), ``queue_capacity > 0`` (streaming admission) and
-``relocate_threshold`` (the relocation plane); each error names the
-``ROADMAP.md`` item that ports it.  ``donate`` is kept for field parity with
-the JAX policy; the port always updates the state tensors in place.
+``mesh`` (device sharding) and ``relocate_threshold`` (the relocation
+plane); each error names the ``ROADMAP.md`` item that ports it.  ``donate``
+is kept for field parity with the JAX policy; the port always updates the
+state tensors in place.
 
 Contracts:
 
@@ -248,13 +248,8 @@ class SchedulerPolicy:
         if nc > 255:
             raise ValueError(
                 f"n_classes must be <= 255, got {nc}: drain order sorts one "
-                "packed uint32 key whose class field is at most 8 bits "
-                "(see core/admission.py queue_select)"
-            )
-        if qc:
-            raise NotImplementedError(
-                "queue_capacity > 0: the admission plane is not ported yet "
-                "(ROADMAP.md, Open items §1, item 6: core/admission.py)"
+                "packed key whose class field is at most 8 of its low 32 "
+                "bits (see core/admission.py queue_select)"
             )
         if self.relocate_threshold is not None:
             raise NotImplementedError(

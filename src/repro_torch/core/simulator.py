@@ -13,8 +13,13 @@ stream on a ``Cluster`` of python hosts and asks a scheduler per arrival: one
 of the paper's three (``core.scheduler``) or the rebuild-per-call
 ``TorchPreemptibleScheduler``, whose decisions run on the card.
 
-Not ported yet: ``run_trace``, the streaming admission loop and the storm /
-churn-regime injectors (see ``ROADMAP.md``).
+With ``policy.queue_capacity > 0`` ``SoASimulator.run`` runs in streaming
+admission mode (``_run_streaming``): arrivals queue through the fleet's
+admission front end and drain on a full batch, on the SLO deadline and after
+every capacity-freeing event.
+
+Not ported yet: ``run_trace`` (and its streaming mode), and the storm /
+churn-regime injectors with the relocation trigger (see ``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ from .types import Request, Resources
 class _Event:
     time: float
     seq: int
-    # arrival | departure | fail_host | heal_host
+    # arrival | departure | fail_host | heal_host | drain (streaming SLO tick)
     kind: str = dataclasses.field(compare=False)
     payload: object = dataclasses.field(compare=False, default=None)
 
@@ -236,9 +241,20 @@ class SoASimulator:
     ``device`` (``None`` = the card) is where the fleet state lives when
     ``hosts`` is a host list; a ready ``SoAFleet`` keeps its own device.
 
+    With ``policy.queue_capacity > 0`` the loop runs in **streaming
+    admission mode**: arrivals ``submit`` into the fleet's admission front
+    end, and drains fire on a full ``admit_batch``, on the ``slo_target_s``
+    deadline of the oldest waiting arrival, and after any capacity-freeing
+    event (departure, host failure, heal) while requests wait (backfill).
+    Drains are dispatched with ``block=False``; a rejected request (queue
+    overflow or ``max_retries`` spent) counts as a failure, and
+    ``metrics.sched_latency_s`` holds each placement's wall-clock admission
+    latency (submit → outcome absorbed).
+
     Deltas from the JAX package's python ``Simulator`` (the same as the JAX
     ``SoASimulator``'s): lifetimes are drawn at arrival time, and with
-    ``stop_on_normal_failure`` the loop stops at the end of the batch.
+    ``stop_on_normal_failure`` the loop stops at the end of the batch (or
+    drain).
     """
 
     def __init__(
@@ -268,6 +284,9 @@ class SoASimulator:
         #: buffered (arrival_time, request, lifetime) awaiting one flush
         self._pending: List[Tuple[float, Request, float]] = []
         self._min_dep = float("inf")
+        #: request id → lifetime drawn at arrival (streaming mode: the
+        #: departure is scheduled once a drain places the request)
+        self._lifetimes: Dict[str, float] = {}
 
     # -- event helpers (the JAX simulator's draws, in its order) --------------
     def _push(self, t: float, kind: str, payload=None) -> None:
@@ -296,6 +315,9 @@ class SoASimulator:
         stop_on_normal_failure: bool = False,
         sample_every_s: float = 300.0,
     ) -> SimMetrics:
+        if self.fleet.admission is not None:
+            return self._run_streaming(duration_s, stop_on_normal_failure,
+                                       sample_every_s)
         self._push(self.rng.exponential(1.0 / self.workload.arrival_rate_per_s), "arrival")
         next_sample = 0.0
         while self._heap:
@@ -367,6 +389,92 @@ class SoASimulator:
             self._push(t + lifetime, "departure", out.instance.id)
         self._pending.clear()
         self._min_dep = float("inf")
+        return failed_normal
+
+    # -- streaming admission mode (policy.queue_capacity > 0) -------------------
+    def _run_streaming(
+        self,
+        duration_s: float,
+        stop_on_normal_failure: bool,
+        sample_every_s: float,
+    ) -> SimMetrics:
+        front = self.fleet.admission
+        self._push(self.rng.exponential(1.0 / self.workload.arrival_rate_per_s), "arrival")
+        next_sample = 0.0
+        while self._heap:
+            ev = heapq.heappop(self._heap)
+            if ev.time > duration_s:
+                break
+            self.now = ev.time
+            if self.now >= next_sample:
+                front.sync()  # mirror current before observing state
+                self._sample()
+                next_sample = self.now + sample_every_s
+            if ev.kind == "arrival":
+                req = self._draw_request()
+                self._lifetimes[req.id] = self._draw_lifetime()
+                front.submit(req, self.now)
+                # SLO tick: by this time the arrival must have been drained
+                self._push(self.now + front.policy.slo_target_s, "drain")
+                self._push(
+                    self.now + self.rng.exponential(1.0 / self.workload.arrival_rate_per_s),
+                    "arrival",
+                )
+                if front.batch_ready():
+                    front.drain(self.now, block=False)
+            elif ev.kind == "drain":
+                deadline = front.next_deadline()
+                if deadline is not None and deadline <= self.now + 1e-9:
+                    front.drain(self.now, block=False)
+            elif ev.kind == "departure":
+                front.sync()  # the instance id must exist in the mirror
+                self.fleet.depart(ev.payload, now=self.now)
+                if front.waiting:  # backfill the freed capacity
+                    front.drain(self.now, block=False)
+            elif ev.kind == "fail_host":
+                front.sync()
+                self.fleet.fail_host(ev.payload, now=self.now)
+                if front.waiting:
+                    front.drain(self.now, block=False)
+            elif ev.kind == "heal_host":
+                self.fleet.heal_host(ev.payload)
+                if front.waiting:
+                    front.drain(self.now, block=False)
+            failed_normal = self._handle_drain_results(front.take_results())
+            if failed_normal and stop_on_normal_failure:
+                break
+        # end of run: every waiting request gets its retries; results banked
+        # by an earlier sync come first, so the fold stays in time order
+        epilogue = front.drain_all(self.now)
+        self._handle_drain_results(front.take_results() + epilogue)
+        self._sample()
+        # the per-request latency here is the wall-clock admission latency
+        # (submit → outcome absorbed), not a per-flush mean
+        self.metrics.sched_latency_s = list(front.stats.wall_wait_s)
+        return self.metrics
+
+    def _handle_drain_results(self, results) -> bool:
+        """Fold absorbed drain results into metrics and departure events.
+        Returns True when a normal request was rejected (the stop signal)."""
+        failed_normal = False
+        for dr in results:
+            for out in dr.outcomes:
+                req = out.request
+                self.metrics.preemptions += len(out.victims)
+                if req.preemptible:
+                    self.metrics.placed_preemptible += 1
+                else:
+                    self.metrics.placed_normal += 1
+                lifetime = self._lifetimes.pop(req.id, None)
+                if lifetime is not None:
+                    self._push(dr.now + lifetime, "departure", out.instance.id)
+            for req in dr.rejected:
+                self._lifetimes.pop(req.id, None)
+                if req.preemptible:
+                    self.metrics.failures_preemptible += 1
+                else:
+                    self.metrics.failures_normal += 1
+                    failed_normal = True
         return failed_normal
 
     # -- fault injection ----------------------------------------------------------

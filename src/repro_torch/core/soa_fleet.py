@@ -6,9 +6,15 @@ and updates in place) plus the bookkeeping the tensors cannot carry:
 instance identities, the slot ↔ instance-id map, and the records needed to
 materialize ``Host`` objects again (``sync_hosts``).
 
-Not ported yet, and raising ``NotImplementedError``: the admission plane
-(``submit``/``drain``/``drain_all``), the relocation plane (``relocate``),
-out-of-band preemption (``preempt_instance``) and ``churn_snapshot``; see
+With ``policy.queue_capacity > 0`` the fleet carries the streaming
+admission plane (``core.admission``): ``submit`` queues an arrival on the
+fleet's device, ``drain`` / ``drain_all`` decide the queue in priority
+order, and ``admission_stats`` reads its counters.  The churn readers
+(``churn_snapshot``, ``zone_rates``, ``fleet_churn_rate``) read the zone
+accumulators that the admission plane's storm degradation judges.
+
+Not ported yet, and raising ``NotImplementedError``: the relocation plane
+(``relocate``) and out-of-band preemption (``preempt_instance``); see
 ``ROADMAP.md``.
 """
 from __future__ import annotations
@@ -20,8 +26,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .admission import AdmissionFrontEnd, DrainResult
 from .cost import CostFunction
 from .policy import COST_KIND_IDS, DEFAULT_SHORTLIST, SchedulerPolicy, ensure_policy
+from .screen_math import churn_stats
 from .torch_scheduler import (
     apply_checkpoint,
     apply_departure,
@@ -172,6 +180,10 @@ class SoAFleet:
         self._vecs: Dict[bytes, torch.Tensor] = {}
         cap = np.stack([c.vec for c in self.capacity]) if hosts else np.zeros((0, 1))
         self._cap0_total = float(cap[:, 0].sum())
+        #: streaming admission front end (None = admission plane off)
+        self.admission: Optional[AdmissionFrontEnd] = (
+            AdmissionFrontEnd(self) if self.policy.queue_capacity else None
+        )
 
     @property
     def device(self) -> torch.device:
@@ -360,19 +372,56 @@ class SoAFleet:
             self.locator[inst.id] = (host_idx, None)
         return SoAOutcome(request=req, host=name, instance=inst, victims=tuple(victims))
 
-    # -- planes not ported yet --------------------------------------------------
+    # -- streaming admission (policy.queue_capacity > 0) -----------------------
+    def _front(self) -> AdmissionFrontEnd:
+        if self.admission is None:
+            raise RuntimeError(
+                "admission plane is off; build the fleet with "
+                "SchedulerPolicy(queue_capacity=...) to use submit/drain"
+            )
+        return self.admission
+
     def submit(self, req: Request, now: float, price: float = 1.0) -> None:
-        raise NotImplementedError(
-            "admission plane not ported yet (ROADMAP.md, Open items §1, item 6)")
+        """Accept an arrival into the admission plane (decided at the next
+        drain, in priority order)."""
+        self._front().submit(req, now, price=price)
 
-    def drain(self, now: float, block: bool = True):
-        raise NotImplementedError(
-            "admission plane not ported yet (ROADMAP.md, Open items §1, item 6)")
+    def drain(self, now: float, block: bool = True) -> Optional[DrainResult]:
+        """Run one admission drain (see ``AdmissionFrontEnd.drain``)."""
+        return self._front().drain(now, block=block)
 
-    def drain_all(self, now: float):
-        raise NotImplementedError(
-            "admission plane not ported yet (ROADMAP.md, Open items §1, item 6)")
+    def drain_all(self, now: float) -> List[DrainResult]:
+        """Drain until the queue empties or retries are spent."""
+        return self._front().drain_all(now)
 
+    @property
+    def admission_stats(self) -> Dict[str, float]:
+        """Counters and latency percentiles of the admission plane."""
+        front = self._front()
+        front.sync()
+        return front.stats.summary()
+
+    # -- zone churn readers ------------------------------------------------------
+    def churn_snapshot(self) -> Tuple[Dict[str, float], float]:
+        """Every churn statistic in one reduction and one copy back
+        (``screen_math.churn_stats``): ``(per-zone rate by name, fleet-wide
+        rate)``."""
+        out = churn_stats(self.state.zone_term, self.state.zone_up).cpu().numpy()
+        rates = {z: float(out[i]) for z, i in self.zone_ids.items()}
+        return rates, float(out[-1])
+
+    def zone_rates(self) -> Dict[str, float]:
+        """Observed per-zone churn rates T / max(U, eps): involuntary
+        terminations over accrued preemptible uptime."""
+        return self.churn_snapshot()[0]
+
+    def fleet_churn_rate(self) -> float:
+        """Fleet-wide churn rate ΣT / max(ΣU, eps): the storm signal the
+        admission plane's degradation compares with
+        ``policy.storm_threshold``."""
+        return self.churn_snapshot()[1]
+
+    # -- planes not ported yet --------------------------------------------------
     def relocate(self, now: float) -> int:
         raise NotImplementedError(
             "relocation plane not ported yet (ROADMAP.md, Open items §1, item 5)")
@@ -381,10 +430,6 @@ class SoAFleet:
         raise NotImplementedError(
             "out-of-band preemption (storm injection) not ported yet "
             "(ROADMAP.md, Open items §1, item 5)")
-
-    def churn_snapshot(self):
-        raise NotImplementedError(
-            "churn readers not ported yet (ROADMAP.md, Open items §1, item 5)")
 
     # -- lifecycle transitions ---------------------------------------------------
     def depart(self, instance_id: str, now: Optional[float] = None) -> bool:

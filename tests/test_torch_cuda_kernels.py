@@ -530,3 +530,77 @@ def test_reduced_model_gradients_match_cpu(cuda_device):
     for a, w in zip(grads_g, grads_c):
         np.testing.assert_allclose(a.cpu().numpy(), w.numpy(), rtol=0,
                                    atol=1e-3 * float(w.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the admission plane: the queue on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cap,n_classes,aging", [(7, 1, 0.0), (256, 2, 0.0), (256, 2, 0.05),
+                                                 (4096, 255, 1.0)])
+def test_admission_select_on_card_matches_cpu(cuda_device, cap, n_classes, aging):
+    """The drain order's int64 key sort on heavily tied keys (mostly
+    invalid rows, repeated tickets, classes folded by aging): the card's
+    stable sort picks the CPU's rows."""
+    from repro_torch.core.admission import queue_init, queue_select
+    from repro_torch.core.convert import queue_state_from_numpy, queue_state_to_numpy
+
+    rng = np.random.default_rng(cap)
+    arrays = queue_state_to_numpy(queue_init(cap, 3, device="cpu"))
+    arrays["valid"] = rng.random(cap) < 0.3
+    arrays["klass"] = rng.integers(0, min(n_classes, 2), cap).astype(np.int32)
+    arrays["seq"] = rng.integers(0, 3, cap).astype(np.int32)
+    arrays["enq_t"] = rng.integers(0, 100, cap).astype(np.float32)
+    got = queue_select(queue_state_from_numpy(arrays, device=cuda_device), cap // 2 + 1,
+                       now=100.0, aging_rate=aging, n_classes=n_classes)
+    want = queue_select(queue_state_from_numpy(arrays, device="cpu"), cap // 2 + 1,
+                        now=100.0, aging_rate=aging, n_classes=n_classes)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_admission_drains_on_card_match_cpu(cuda_device):
+    """A contended stream through the admission plane at 300 saturated
+    hosts (the screen's path): every drain, the stats (wall clock aside),
+    the final state and the final queue equal on the card and the CPU, and
+    one launch of each decision kernel per drained row."""
+    import dataclasses
+
+    from repro_torch.core.admission import QUEUE_DTYPES
+    from repro_torch.core.convert import fleet_state_to_numpy, queue_state_to_numpy
+
+    def run(device):
+        policy = SchedulerPolicy(queue_capacity=32, admit_batch=8, max_retries=3,
+                                 storm_threshold=1e-3, aging_rate=0.01)
+        fleet = SoAFleet(fleets.saturated_fleet(300, seed=2), policy=policy, device=device)
+        rng = np.random.default_rng(3)
+        sizes = list(fleets.SIZES.values())
+        now, out = fleets.NOW, []
+        kernels.reset_launch_counts()
+        for i in range(96):
+            now += float(rng.integers(1, 20))
+            fleet.submit(Request(id=f"r{i}", resources=sizes[int(rng.integers(0, 3))],
+                                 preemptible=bool(i % 2)), now)
+            if (i + 1) % 8 == 0:
+                out.append(fleet.drain(now))
+        out += fleet.drain_all(now)
+        return fleet, out, kernels.launch_counts()
+
+    (gf, gout, counts), (cf, cout, _) = run(cuda_device), run("cpu")
+    key = [[(dr.now, [(r.id, r.preemptible, p) for r, p in dr.attempts],
+             [(o.host, o.instance.id, [v.id for v in o.victims]) for o in dr.outcomes],
+             [r.id for r in dr.rejected], dr.queue_depth) for dr in out] for out in (gout, cout)]
+    assert key[0] == key[1]
+    stats = [dataclasses.asdict(f.admission.stats) for f in (gf, cf)]
+    for s in stats:
+        del s["wall_wait_s"]
+    assert stats[0] == stats[1] and stats[0]["retries"] > 0
+    g, c = fleet_state_to_numpy(gf.state), fleet_state_to_numpy(cf.state)
+    for f in g:
+        np.testing.assert_array_equal(g[f], c[f], err_msg=f)
+    g, c = queue_state_to_numpy(gf.admission.qstate), queue_state_to_numpy(cf.admission.qstate)
+    for f in QUEUE_DTYPES:
+        np.testing.assert_array_equal(g[f], c[f], err_msg=f)
+    assert counts["sched_screen_consts"] == counts["sched_weigh_gathered"] == gf.decisions
+    assert counts["sched_weigh"] == gf.decisions + gf.fallbacks

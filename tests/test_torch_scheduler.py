@@ -230,6 +230,8 @@ def test_apply_placement_matches():
 
 
 def test_unported_planes_raise():
-    for kw in (dict(queue_capacity=64), dict(relocate_threshold=0.5), dict(mesh=object())):
+    for kw in (dict(relocate_threshold=0.5), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TPolicy(**kw)
+    # the admission plane is ported: its policy builds
+    assert TPolicy(queue_capacity=64).queue_capacity == 64
