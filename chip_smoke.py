@@ -67,6 +67,24 @@ exits non-zero:
                arrivals in non-blocking drains of 16 and of 64, every one
                admitted: decisions/s and wall latency; the launches of each
                decision kernel against what the path implies;
+5d. relocation — the relocation plane: the victim ranking (a stable sort
+               of 524,288 losses, 65,536 hosts x 8 slots, and a heavily tied
+               case) on the card against the CPU, the loss bit for bit;
+               ``tests/test_relocation.py::_storm_sim``'s churn regime and
+               storms on 4,096 Table 1 nodes in 3 zones (3 medium instances
+               a host, 0.25 arrivals/s), direct and streaming, on the card
+               and on the CPU: identical metrics, storm kills, relocation
+               records, ``relocated_ids``, final state (and queue); at
+               65,536 nodes in 4 zones (z0-z2 2 instances a host, z3
+               saturated at 4) one storm of kill_frac 0.25 on z3, then 16
+               relocation passes 60 s apart, direct and through the
+               admission plane: moved / failed / lost / stale / pending,
+               relocations/s, pass, ranking and batch ms, the device's busy
+               share; no replacement in z3, conservation, every direct pass
+               replayed victim by victim (checkpoint, ``schedule_step`` with
+               z3 excluded, voluntary termination) from a clone of the state
+               before it, equal bit for bit; the launches of each decision
+               kernel against what the path implies;
 6. model_kernels — flash-attention forward and RMSNorm against their plain
                versions at qwen2-1.5b's and gemma-2b's shapes (plus a full
                and a ragged case; the f32 route at S=77 and at every shape
@@ -155,7 +173,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import fleets  # noqa: E402
 from repro_torch.core.admission import QUEUE_DTYPES, queue_init, queue_select  # noqa: E402
+from repro_torch.core import soa_fleet as soa_mod  # noqa: E402
 from repro_torch.core.convert import (  # noqa: E402
+    fleet_state_from_numpy,
     fleet_state_to_numpy,
     queue_state_from_numpy,
     queue_state_to_numpy,
@@ -168,9 +188,12 @@ from repro_torch.core.soa_fleet import SoAFleet  # noqa: E402
 from repro_torch.core.torch_scheduler import (  # noqa: E402
     STATE_DTYPES,
     TorchPreemptibleScheduler,
+    apply_checkpoint,
+    apply_termination,
     build_soa_state,
     fleet_slot_costs,
     schedule_many,
+    schedule_step,
 )
 from repro_torch.core.types import Request  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -1010,21 +1033,23 @@ adm_counts = {key: 0 for key in ADM_KERNELS}
 adm_implied = {key: 0 for key in ADM_KERNELS}
 
 
-def adm_absorb(fleet_, d0_, f0_, what):
-    """Add the launches since the last reset to the phase's, each against
-    what ``fleet_``'s decisions since (d0_, f0_) imply: per decision (> 256
-    hosts) one of each screen kernel and a gathered weigh, plus a full weigh
-    per fallback."""
+def adm_absorb(fleet_, d0_, f0_, what, extra=0, phase="admission", into=None):
+    """Add the launches since the last reset to the phase's (``into``: its
+    counts and implied counts, this phase's by default), each against what
+    ``fleet_``'s decisions since (d0_, f0_), and ``extra`` decisions the
+    fleet does not count, imply: per decision (> 256 hosts) one of each
+    screen kernel and a gathered weigh, plus a full weigh per fallback."""
+    counts_into, implied_into = into or (adm_counts, adm_implied)
     counts_ = kernels.launch_counts()
     kernels.reset_launch_counts()
-    dec_, fb_ = fleet_.decisions - d0_, fleet_.fallbacks - f0_
+    dec_, fb_ = fleet_.decisions - d0_ + extra, fleet_.fallbacks - f0_
     want_ = dict(sched_screen_consts=dec_, sched_screen_topm=dec_, sched_screen=2 * dec_,
                  sched_weigh=dec_ + fb_, sched_weigh_gathered=dec_)
     for key, v_ in want_.items():
-        check(counts_[key] == v_, f"admission: {what}: {key} launched {counts_[key]} times, "
+        check(counts_[key] == v_, f"{phase}: {what}: {key} launched {counts_[key]} times, "
                                   f"the path implies {v_}")
-        adm_counts[key] += counts_[key]
-        adm_implied[key] += v_
+        counts_into[key] += counts_[key]
+        implied_into[key] += v_
 
 
 def clone_state(st_):
@@ -1255,6 +1280,302 @@ emit("admission", card=smi, policy=ADMISSION, tied_select_cases_equal=tied_cases
             "drains' total; waits are sim-time (drain - arrival), f32",
      launches=adm_counts, launches_implied=adm_implied,
      seconds=time.perf_counter() - t_adm)
+
+# ---------------------------------------------------------------------------
+# 5d. relocation: hot-zone evacuation, zone storms, churn regimes
+# ---------------------------------------------------------------------------
+t_reloc = time.perf_counter()
+#: tests/test_relocation.py::_storm_sim's policy (its budget per run below)
+RELOC = dict(cost_kind="period", churn_multiplier=2.0, churn_threshold=1e-4,
+             relocate_threshold=1e-4, relocate_every_s=60.0, relocate_cooldown_s=600.0)
+#: arrivals a second at 4,096 hosts: the reference test's 1/20 raised
+#: five-fold, so that new spot work keeps arriving as storms and moves thin z2
+RELOC_RATE = 0.25
+reloc_counts = {key: 0 for key in ADM_KERNELS}
+reloc_implied = {key: 0 for key in ADM_KERNELS}
+reloc_calls = []     # every relocate_many call of the phase: inputs, outputs, seconds
+rank_s = []          # every victim ranking's seconds
+real_rank, real_many = soa_mod._relocation_victims, soa_mod.relocate_many
+
+
+def timed_rank(*args, **kw):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = real_rank(*args, **kw)            # returns host arrays: synchronised
+    rank_s.append(time.perf_counter() - t)
+    return out
+
+
+def timed_many(state_, *args, **kw):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state_, out = real_many(state_, *args, **kw)     # returns CPU tensors
+    reloc_calls.append(dict(args=[np.array(a_) for a_ in args], out=out,
+                            seconds=time.perf_counter() - t))
+    return state_, out
+
+
+soa_mod._relocation_victims, soa_mod.relocate_many = timed_rank, timed_many
+
+
+def reloc_absorb(fleet_, d0_, f0_, c0_, what):
+    """``adm_absorb`` into this phase's counts; the padding rows of the
+    relocate_many calls since ``c0_`` are decisions too (each fits
+    nowhere), which the fleet does not count."""
+    pad_ = sum(len(c_["args"][2]) - int(c_["args"][2].sum()) for c_ in reloc_calls[c0_:])
+    adm_absorb(fleet_, d0_, f0_, what, extra=pad_, phase="relocation",
+               into=(reloc_counts, reloc_implied))
+
+
+def fleet_summary(fleet_):
+    """A fleet's python mirror and relocation records, by identities."""
+    return ([(i.id, i.host, i.start_time, i.last_checkpoint) for i in fleet_.instances.values()],
+            fleet_.locator, [i.id for i in fleet_.preempted],
+            dataclasses.asdict(fleet_.relocation), fleet_.relocated_ids,
+            {z_: dataclasses.asdict(r_) for z_, r_ in fleet_._reloc_zone.items()})
+
+
+# the victim ranking on the card against the CPU from the same state, 65,536
+# hosts x 8 slots in 4 zones: every slot started a whole number of minutes
+# ago and checkpointed since, a tenth dead, a quarter on a 1,800 s period;
+# then heavily tied: every slot started and checkpointed at one instant, one
+# size, the default period
+rng = np.random.default_rng(13)
+packed_, _ = fleets.packed_arrays(N_HOSTS, 8, seed=3)
+packed_.update(host_zone=(np.arange(N_HOSTS) // (N_HOSTS // 4)).astype(np.int32),
+               zone_term=np.zeros(4, np.float32), zone_up=np.zeros(4, np.float32),
+               inst_valid=rng.random((N_HOSTS, 8)) < 0.9,
+               inst_ckpt=(packed_["inst_start"] + rng.integers(0, 60, (N_HOSTS, 8)) * 60.0
+                          ).astype(np.float32),
+               inst_period=np.where(rng.random((N_HOSTS, 8)) < 0.25, 1800.0, -1.0
+                                    ).astype(np.float32))
+tied_ = dict(packed_, inst_start=np.full((N_HOSTS, 8), fleets.NOW - 3600.0, np.float32),
+             inst_ckpt=np.full((N_HOSTS, 8), fleets.NOW - 3600.0, np.float32),
+             inst_res=np.broadcast_to(np.asarray(medium.vec, np.float32), (N_HOSTS, 8, 3)).copy(),
+             inst_period=np.full((N_HOSTS, 8), -1.0, np.float32),
+             inst_valid=rng.random((N_HOSTS, 8)) < 0.8)
+ranking = {}
+for case_, arr_ in (("packed", packed_), ("tied", tied_)):
+    gst_, cst_ = (fleet_state_from_numpy(arr_, device=dv_) for dv_ in (DEV, "cpu"))
+    for zone_ in (0, 3):
+        now_ = fleets.NOW + 1800.0
+        gl_ = soa_mod.relocation_loss(gst_, zone_, now_, 3600.0).cpu()
+        cl_ = soa_mod.relocation_loss(cst_, zone_, now_, 3600.0)
+        check(torch.equal(gl_.view(torch.int32), cl_.view(torch.int32)),
+              f"relocation: {case_} zone {zone_}: the loss differs on the card")
+        for budget_ in (64, N_HOSTS * 8):
+            got_ = real_rank(gst_, zone_, now_, 3600.0, budget_)
+            want_ = real_rank(cst_, zone_, now_, 3600.0, budget_)
+            for g_, w_, what in zip(got_, want_, ("host", "slot", "valid")):
+                check(np.array_equal(g_, w_), f"relocation: {case_} zone {zone_} budget "
+                                              f"{budget_}: ranked {what} differs on the card")
+    ranking[case_] = dict(
+        losses=N_HOSTS * 8, zones_checked=[0, 3], budgets_checked=[64, N_HOSTS * 8],
+        equal=True, card_ms_budget_64=median_ms(lambda: real_rank(gst_, 3, now_, 3600.0, 64)),
+        cpu_ms_budget_64=p50_ms(lambda: real_rank(cst_, 3, now_, 3600.0, 64))[0])
+del gst_, cst_, packed_, tied_
+
+
+# parity: tests/test_relocation.py::_storm_sim's regime on 4,096 Table 1 nodes
+# in 3 zones, each host holding 3 medium instances started before the run's
+# clock, direct and streaming, on the card and on the CPU
+def reloc_sim(device, streaming):
+    knobs = dict(RELOC, relocate_budget=8,
+                 **(dict(queue_capacity=64, admit_batch=8, slo_target_s=30.0) if streaming else {}))
+    s = SoASimulator(
+        fleets.zoned_fleet(4096, (3, 3, 3), seed=5, now=0.0),
+        WorkloadSpec(arrival_rate_per_s=RELOC_RATE, preemptible_fraction=1.0,
+                     flavors=(("medium", medium),)),
+        seed=11, policy=SchedulerPolicy(**knobs), device=device)
+    s.inject_churn_regime("z2", until_s=4000.0, mean_on_s=300.0, mean_off_s=800.0,
+                          storm_every_s=100.0, kill_frac=0.3, start_s=0.0)
+    s.inject_zone_storm("z2", at_s=3500.0, kill_frac=1.0)
+    kernels.reset_launch_counts()
+    c0_ = len(reloc_calls)
+    t = time.perf_counter()
+    metrics = s.run(4000.0)
+    seconds = time.perf_counter() - t
+    if device is DEV:
+        reloc_absorb(s.fleet, 0, 0, c0_, f"parity at 4,096 hosts, streaming={streaming}")
+    return s, metrics, seconds
+
+
+reloc_parity = {}
+for streaming_ in (False, True):
+    mode_ = "streaming" if streaming_ else "direct"
+    (gs_, gm_, gsec_), (cs_, cm_, csec_) = reloc_sim(DEV, streaming_), reloc_sim("cpu", streaming_)
+    gdict, cdict = dataclasses.asdict(gm_), dataclasses.asdict(cm_)
+    check(len(gdict.pop("sched_latency_s")) == len(cdict.pop("sched_latency_s")) and gdict == cdict,
+          f"relocation parity ({mode_}): metrics differ")
+    check(fleet_summary(gs_.fleet) == fleet_summary(cs_.fleet),
+          f"relocation parity ({mode_}): mirrors or relocation records differ")
+    g_arr, c_arr = fleet_state_to_numpy(gs_.fleet.state), fleet_state_to_numpy(cs_.fleet.state)
+    for f in STATE_DTYPES:
+        check(np.array_equal(g_arr[f], c_arr[f]), f"relocation parity ({mode_}): final state {f} differs")
+    if streaming_:
+        check(adm_stats(gs_.fleet.admission) == adm_stats(cs_.fleet.admission),
+              "relocation parity (streaming): admission stats differ")
+        g_q, c_q = (queue_state_to_numpy(f_.admission.qstate) for f_ in (gs_.fleet, cs_.fleet))
+        for f in QUEUE_DTYPES:
+            check(np.array_equal(g_q[f], c_q[f]), f"relocation parity (streaming): queue {f} differs")
+    rs_ = gs_.fleet.relocation
+    check(gm_.relocations > 0 and gm_.storm_kills > 0 and rs_.pending == 0
+          and rs_.attempted == rs_.relocated + rs_.failed + rs_.lost_victims + rs_.stale,
+          f"relocation parity ({mode_}): the plane should move instances and balance its ledger")
+    for new_ in gs_.fleet.relocated_ids.values():
+        loc_ = gs_.fleet.locator.get(new_)
+        check(loc_ is None or gs_.fleet.zones[loc_[0]] != "z2",
+              f"relocation parity ({mode_}): a replacement landed in z2")
+    gs_.fleet.sync_hosts()                       # Host.place re-checks capacity
+    reloc_parity[mode_] = dict(
+        hosts=4096, arrivals_per_s=RELOC_RATE, decisions=gs_.fleet.decisions,
+        fallbacks=gs_.fleet.fallbacks, **{key: getattr(gm_, key) for key in counters},
+        storms=gm_.storms, storm_kills=gm_.storm_kills, relocation=dataclasses.asdict(rs_),
+        gpu_seconds=gsec_, cpu_seconds=csec_, identical=True)
+    del gs_, cs_, gm_, cm_, g_arr, c_arr
+
+# full size: 65,536 Table 1 nodes in 4 zones of 16,384; z0-z2 hold 2 medium
+# instances a host, z3 is saturated at 4 (half preemptible, drawn as phase 5
+# draws them but started 1-29 minutes ago, see fleets.zoned_fleet); one storm
+# of kill_frac 0.25 on z3 half an hour after the fleets' clock teaches its
+# rate, then 16 relocation passes 60 s apart, once direct and once through
+# the admission plane.  The first 14 passes are timed; the last 2 are traced
+# in one session (CUDA activity only) for the device's busy share, their
+# direct mode's snapshot copies (about 17 MB each) counted as busy.  A
+# session's exit parses its events on the host (a session around each pass
+# added about 5 s a pass on the H100's machine), so the trace stays short
+T_STORM = fleets.NOW + 1800.0
+PASSES, TRACED = 16, 2
+full = {}
+for mode_ in ("direct", "admission"):
+    t_ = time.perf_counter()
+    pol_ = SchedulerPolicy(**RELOC, relocate_budget=64, **(
+        dict(queue_capacity=256, admit_batch=64, max_retries=4) if mode_ == "admission" else {}))
+    rfleet = SoAFleet(fleets.zoned_fleet(N_HOSTS, (2, 2, 2, 4), seed=0),
+                      device=DEV, policy=pol_)
+    build_s_ = time.perf_counter() - t_
+    n0_ = len(rfleet.instances)
+    stormer = SoASimulator(rfleet, WorkloadSpec(flavors=list(fleets.SIZES.items())), seed=17)
+    stormer.now = T_STORM
+    t_ = time.perf_counter()
+    kills_ = stormer._zone_storm("z3", 0.25)
+    storm_s_ = time.perf_counter() - t_
+    rate_z3 = rfleet.zone_rates()["z3"]
+    check(rate_z3 > pol_.relocate_threshold,
+          f"relocation: the storm taught z3 a rate of {rate_z3}, under the threshold")
+    kernels.reset_launch_counts()
+    d0, f0, c0, r0 = rfleet.decisions, rfleet.fallbacks, len(reloc_calls), len(rank_s)
+    snaps = [clone_state(rfleet.state)] if mode_ == "direct" else []
+
+    def one_pass(p_):
+        """One relocation pass (and, through the admission plane, its
+        drain_all): (seconds, (relocate seconds, drain seconds), moved)."""
+        now_ = T_STORM + 60.0 * (p_ + 1)
+        moved0_ = rfleet.relocation.relocated
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        rfleet.relocate(now_)
+        torch.cuda.synchronize()
+        t1_ = time.perf_counter()
+        if mode_ == "admission":
+            rfleet.drain_all(now_)
+            torch.cuda.synchronize()
+        t2_ = time.perf_counter()
+        if mode_ == "direct":
+            snaps.append(clone_state(rfleet.state))
+        return t2_ - t_, (t1_ - t_, t2_ - t1_), rfleet.relocation.relocated - moved0_
+
+    timed_passes = [one_pass(p_) for p_ in range(PASSES - TRACED)]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traced_passes = [one_pass(p_) for p_ in range(PASSES - TRACED, PASSES)]
+    busy_total = busy_us(prof)
+    pass_s = [s_ for s_, _, _ in timed_passes]
+    part_s = [b_ for _, b_, _ in timed_passes]
+    reloc_absorb(rfleet, d0, f0, c0, f"{mode_} at 65,536 hosts")
+    calls_ = reloc_calls[c0:]
+    st_ = rfleet.relocation
+    check(len(rank_s) - r0 == PASSES, f"relocation: {mode_}: {len(rank_s) - r0} rankings in "
+                                      f"{PASSES} passes (only z3 should arm)")
+    check(len(calls_) == (PASSES if mode_ == "direct" else 0),
+          f"relocation: {mode_}: {len(calls_)} relocate_many calls in {PASSES} passes")
+    check(st_.attempted == PASSES * 64 and st_.relocated >= 0.9 * st_.attempted,
+          f"relocation: {mode_}: {st_.relocated} of {st_.attempted} attempts landed")
+    check(st_.pending == 0 and st_.attempted == st_.relocated + st_.failed + st_.lost_victims
+          + st_.stale, f"relocation: {mode_}: the ledger does not balance")
+    check(len(rfleet.instances) + kills_ == n0_,
+          f"relocation: {mode_}: {n0_} instances before, {len(rfleet.instances)} after, "
+          f"{kills_} storm kills")
+    for new_ in rfleet.relocated_ids.values():
+        check(rfleet.zones[rfleet.locator[new_][0]] != "z3",
+              f"relocation: {mode_}: replacement {new_} landed in z3")
+    n_timed = PASSES - TRACED
+    ranks_ms = [s_ * 1e3 for s_ in rank_s[r0:r0 + n_timed]]
+    batch_ms = ([c_["seconds"] * 1e3 for c_ in calls_[:n_timed]] if mode_ == "direct"
+                else [b_ * 1e3 for _, b_ in part_s])
+    full[mode_] = dict(
+        hosts=N_HOSTS, k=rfleet.k_slots, m=M, zones=4, fill_per_host=[2, 2, 2, 4],
+        fleet_build_s=build_s_, instances_before=n0_, storm_kills=kills_, storm_seconds=storm_s_,
+        z3_rate_after_storm=rate_z3, passes=PASSES, attempted=st_.attempted,
+        moved=st_.relocated, failed=st_.failed, lost=st_.lost_victims, stale=st_.stale,
+        pending=st_.pending, fallbacks=rfleet.fallbacks - f0,
+        timed_passes=n_timed,
+        relocations_per_s=sum(m_ for _, _, m_ in timed_passes) / sum(pass_s),
+        pass_p50_ms=float(np.percentile(pass_s, 50)) * 1e3,
+        pass_p99_ms=float(np.percentile(pass_s, 99)) * 1e3,
+        ranking_p50_ms=float(np.percentile(ranks_ms, 50)),
+        ranking_p99_ms=float(np.percentile(ranks_ms, 99)),
+        **{("relocate_many" if mode_ == "direct" else "drain_all") + "_p50_ms":
+           float(np.percentile(batch_ms, 50)),
+           ("relocate_many" if mode_ == "direct" else "drain_all") + "_p99_ms":
+           float(np.percentile(batch_ms, 99))},
+        traced_passes=TRACED, traced_pass_ms=[s_ * 1e3 for s_, _, _ in traced_passes],
+        device_busy_ms=busy_total / 1e3,
+        device_busy_share=((busy_total / 1e6) / sum(s_ for s_, _, _ in traced_passes)
+                           if busy_total else "not measured"))
+    if mode_ == "direct":
+        # every pass replayed from a clone of the state before it, victim by
+        # victim: checkpoint, schedule_step with z3 excluded, then the
+        # voluntary termination where the replacement landed
+        t_ = time.perf_counter()
+        for p_, c_ in enumerate(calls_):
+            vh_, vs_, von_, res_, dom_, kind_, per_, price_, excl_, now_ = c_["args"]
+            rep = clone_state(snaps[p_])
+            res_t = torch.from_numpy(res_).to(DEV)
+            outs_ = []
+            for i in range(len(von_)):
+                if von_[i]:
+                    apply_checkpoint(rep, int(vh_[i]), int(vs_[i]), float(now_))
+                rep, (h_, s_, ok_, _, fb_, mg_) = schedule_step(
+                    rep, res_t[i], True, int(dom_[i]), float(now_), float(price_[i]),
+                    policy=pol_, req_cost_kind=int(kind_[i]), req_period=float(per_[i]),
+                    req_exclude_zone=int(excl_[i]))
+                if von_[i] and bool(ok_):
+                    apply_termination(rep, int(vh_[i]), np.arange(rfleet.k_slots) == vs_[i],
+                                      now=float(now_), involuntary=False)
+                outs_.append((h_, s_, ok_, fb_, mg_))
+            for j_, what in enumerate(("host", "slot", "ok", "fell_back", "margin")):
+                check(torch.equal(torch.stack([o_[j_] for o_ in outs_]).reshape(-1),
+                                  c_["out"][j_].reshape(-1).to(outs_[0][j_].dtype)),
+                      f"relocation replay: pass {p_}: {what} differs")
+            for f in STATE_DTYPES:
+                check(torch.equal(getattr(rep, f), getattr(snaps[p_ + 1], f)),
+                      f"relocation replay: pass {p_}: state {f} differs")
+        kernels.reset_launch_counts()      # the replay's launches are a check's
+        full[mode_].update(replayed_passes=len(calls_), replay_seconds=time.perf_counter() - t_)
+        del snaps, rep
+    del rfleet, stormer
+
+soa_mod._relocation_victims, soa_mod.relocate_many = real_rank, real_many
+for name in records:
+    records[name]["launches"] += reloc_counts[name]
+    check(reloc_counts[name] > 0, f"relocation: kernel {name} was never launched")
+emit("relocation", card=smi, policy=RELOC, ranking=ranking, parity=reloc_parity, full=full,
+     method=f"wall clock (perf_counter, the card synchronised) around each pass, ranking and "
+            f"relocate_many or drain_all, over the first {PASSES - TRACED} passes; busy share "
+            f"over the last {TRACED}, traced in one session with CUDA activity only",
+     launches=reloc_counts, launches_implied=reloc_implied,
+     seconds=time.perf_counter() - t_reloc)
+del reloc_calls
 
 # ---------------------------------------------------------------------------
 # 6. model kernels against their plain versions

@@ -41,8 +41,13 @@ Differences from the JAX module, all deliberate:
   fallback is a Python ``if``), so a drain is synchronous even when the
   front end is asked not to block: ``block=False`` keeps the reference's
   contract (absorb later, bank for ``take_results``), not its overlap.
-* Relocation re-placements (``submit_relocation``) belong to the relocation
-  plane, which the port does not carry yet.
+
+Relocation re-placements (``submit_relocation``) ride the queue as class-0
+preemptible entries with their source zone excluded; ``flush`` settles each
+one through the owning fleet when it is placed, dropped or overflows.  The
+zone-exclusion operand reaches the decision only when
+``policy.relocation_on``: a relocation-off drain runs the same program as
+before the plane existed.
 """
 from __future__ import annotations
 
@@ -383,11 +388,12 @@ def _drain_entry(
         b_pre = b_pre & ~storm
     else:
         degraded = torch.zeros_like(b_pre)
-    # the scalar columns of the batch, read back once for the decision loop
-    cols = torch.stack([
-        take.double(), b_pre.double(), q.domain[il].double(),
-        q.cost_kind[il].double(), q.period[il].double(), q.price[il].double(),
-    ]).cpu().numpy()
+    # the scalar columns of the batch, read back once for the decision loop;
+    # the exclusion column rides only when the relocation plane is on
+    cols = [take, b_pre, q.domain[il], q.cost_kind[il], q.period[il], q.price[il]]
+    if policy.relocation_on:
+        cols.append(q.exclude_zone[il])
+    cols = torch.stack([c.double() for c in cols]).cpu().numpy()
     # an untaken row is not decided: host 0, slot 0, not ok, no kill, no
     # fallback, margin POS_INF
     untaken = (0, torch.zeros((), dtype=torch.int32, device=dev), False,
@@ -395,7 +401,8 @@ def _drain_entry(
                torch.tensor(POS_INF, dtype=torch.float32, device=dev))
     hosts, slots, oks, kills, fbs, margins = zip(*(
         _step_core(fleet_state, b_res[j], bool(cols[1, j]), int(cols[2, j]), now32,
-                   float(cols[5, j]), int(cols[3, j]), float(cols[4, j]), policy)
+                   float(cols[5, j]), int(cols[3, j]), float(cols[4, j]), policy,
+                   req_exclude=int(cols[6, j]) if policy.relocation_on else None)
         if cols[0, j] else untaken for j in range(b)))
     ok_t = torch.tensor(oks, dtype=torch.bool, device=dev)
     placed = ok_t & take
@@ -530,6 +537,10 @@ class AdmissionFrontEnd:
         #: queue row → waiting record (mirrors ``AdmissionQueueState.valid``)
         self.slots: List[Optional[_Waiting]] = [None] * policy.queue_capacity
         self._pending: List[_Waiting] = []
+        #: relocation re-placements in flight: request id → (victim id,
+        #: source zone), settled by the owning fleet at the drain that
+        #: decides each (``SoAFleet.relocate``)
+        self._reloc: Dict[str, Tuple[str, str]] = {}
         self._inflight = None
         #: results absorbed as a side effect (a drain flushing an earlier
         #: non-blocking one) awaiting ``take_results``
@@ -559,9 +570,12 @@ class AdmissionFrontEnd:
 
     def submit_relocation(self, req: Request, victim_id: str, zone: str,
                           now: float, price: float = 1.0) -> None:
-        raise NotImplementedError(
-            "relocation re-placements through the queue are not ported yet "
-            "(ROADMAP.md, Open items §1, item 5: the relocation plane)")
+        """Queue one relocation re-placement: a class-0 entry that stays
+        preemptible, so it never displaces a user placement.  The victim
+        keeps running until the drain that places this entry settles it; a
+        rejected entry leaves the victim untouched and backs the zone off."""
+        self.submit(req, now, price=price)
+        self._reloc[req.id] = (victim_id, zone)
 
     @property
     def pending(self) -> int:
@@ -645,6 +659,9 @@ class AdmissionFrontEnd:
             else:
                 self.stats.rejected_overflow += 1
                 rejected.append(w.request)
+                reloc = self._reloc.pop(w.request.id, None)
+                if reloc is not None:  # overflow: the victim keeps running
+                    self.fleet._settle_relocation_rejected(reloc[0], reloc[1], now)
         # 2. attempted rows, in service order
         outcomes, retried, attempts = [], [], []
         for j in range(len(idx)):
@@ -662,17 +679,23 @@ class AdmissionFrontEnd:
             attempts.append((req, bool(placed[j])))
             if placed[j]:
                 self.slots[row] = None
-                outcomes.append(self.fleet._absorb(
-                    req, now, w.price, int(host_idx[j]), int(slot[j]), True,
-                    kill[j],
-                ))
+                out = self.fleet._absorb(req, now, w.price, int(host_idx[j]),
+                                         int(slot[j]), True, kill[j])
+                outcomes.append(out)
                 self.stats.admitted += 1
                 self.stats.wait_s.append(float(wait[j]))
                 self.stats.wall_wait_s.append(wall_now - w.submit_wall)
+                reloc = self._reloc.pop(req.id, None)
+                if reloc is not None:  # make-before-break: the replacement
+                    # is live, so now the victim may go
+                    self.fleet._settle_relocation_placed(reloc[0], reloc[1], out, now)
             elif dropped[j]:
                 self.slots[row] = None
                 self.stats.rejected_retry += 1
                 rejected.append(w.request)
+                reloc = self._reloc.pop(req.id, None)
+                if reloc is not None:  # the victim keeps running; back off
+                    self.fleet._settle_relocation_rejected(reloc[0], reloc[1], now)
             else:
                 self.stats.retries += 1
                 retried.append(w.request)

@@ -5,13 +5,15 @@
 * ``saturated_fleet`` — the paper's §4.4.1 saturated geometry: 8-vcpu nodes
   each holding 4 medium instances, about half of them preemptible, with
   integer-minute start times;
+* ``zoned_fleet`` — the same draws in failure zones, each zone filled to
+  its own count of instances a host (the relocation plane's fleet);
 * ``packed_arrays`` — double-size nodes whose K slots all hold small
   preemptible instances, built directly as state arrays (a python-``Host``
   build of 10^5 hosts would dwarf the measurement).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -56,6 +58,37 @@ def saturated_fleet(n: int, seed: int = 0, preemptible_frac: float = 0.5,
         if n_pre == 0:  # guarantee evacuability somewhere
             inst = next(iter(h.instances.values()))
             inst.preemptible = True
+        hosts.append(h)
+    return hosts
+
+
+def zoned_fleet(n: int, per_host: Sequence[int], seed: int = 0,
+                now: float = NOW) -> List[Host]:
+    """Table 1 nodes in ``len(per_host)`` zones of ``n // len(per_host)``
+    consecutive hosts (``z0``, ``z1``, ...); each host of zone z holds
+    ``per_host[z]`` medium instances, drawn as ``saturated_fleet`` draws them
+    (half preemptible, at least one a host) but started 1 to 29 minutes
+    before ``now``: a storm then teaches its zone a churn rate of about
+    1 / (mean age) = 4e-4 (10 to 499 minutes would give 6e-5, under the
+    relocation plane's usual threshold of 1e-4)."""
+    rng = np.random.default_rng(seed)
+    size = n // len(per_host)
+    hosts = []
+    iid = 0
+    for i in range(n):
+        z = min(i // size, len(per_host) - 1)
+        h = Host(name=f"h{i}", capacity=NODE_CAP, zone=f"z{z}")
+        n_pre = 0
+        for _ in range(per_host[z]):
+            pre = bool(rng.random() < 0.5)
+            n_pre += int(pre)
+            h.place(Instance(
+                id=f"x{iid}", resources=SIZES["medium"], preemptible=pre,
+                host=h.name, start_time=now - float(rng.integers(1, 30)) * 60.0,
+            ))
+            iid += 1
+        if n_pre == 0 and h.instances:
+            next(iter(h.instances.values())).preemptible = True
         hosts.append(h)
     return hosts
 

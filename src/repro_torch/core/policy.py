@@ -3,10 +3,10 @@
 PyTorch-port copy of ``repro.core.policy``.  Two fields are gone:
 ``use_pallas`` and ``fused_screen`` chose a kernel backend in the JAX package;
 here the device of the state's tensors chooses it (CPU tensors run the plain
-PyTorch versions, CUDA tensors the hand-written kernels).  The planes this
-port does not carry yet raise ``NotImplementedError`` at construction:
-``mesh`` (device sharding) and ``relocate_threshold`` (the relocation
-plane); each error names the ``ROADMAP.md`` item that ports it.  ``donate``
+PyTorch versions, CUDA tensors the hand-written kernels).  The one plane this
+port does not carry yet, ``mesh`` (device sharding), raises
+``NotImplementedError`` at construction, naming the ``ROADMAP.md`` item that
+ports it.  ``donate``
 is kept for field parity with the JAX policy; the port always updates the
 state tensors in place.
 
@@ -250,11 +250,6 @@ class SchedulerPolicy:
                 f"n_classes must be <= 255, got {nc}: drain order sorts one "
                 "packed key whose class field is at most 8 of its low 32 "
                 "bits (see core/admission.py queue_select)"
-            )
-        if self.relocate_threshold is not None:
-            raise NotImplementedError(
-                "relocate_threshold: the relocation plane is not ported yet "
-                "(ROADMAP.md, Open items §1, item 5: the relocation plane)"
             )
         object.__setattr__(self, "queue_capacity", qc)
         object.__setattr__(self, "admit_batch", ab)

@@ -18,8 +18,13 @@ admission mode (``_run_streaming``): arrivals queue through the fleet's
 admission front end and drain on a full batch, on the SLO deadline and after
 every capacity-freeing event.
 
-Not ported yet: ``run_trace`` (and its streaming mode), and the storm /
-churn-regime injectors with the relocation trigger (see ``ROADMAP.md``).
+Failure domains: ``inject_zone_storm`` reclaims a seeded fraction of a
+zone's preemptible instances at once, and ``inject_churn_regime`` alternates
+a zone between calm and stormy phases; with ``policy.relocate_threshold``
+set, both loops run a relocation pass every ``relocate_every_s`` and follow
+a relocated instance's departure to its replacement.
+
+Not ported yet: ``run_trace`` (and its streaming mode; see ``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ class _Event:
     time: float
     seq: int
     # arrival | departure | fail_host | heal_host | drain (streaming SLO tick)
+    # | zone_storm | regime_on | relocate
     kind: str = dataclasses.field(compare=False)
     payload: object = dataclasses.field(compare=False, default=None)
 
@@ -319,6 +325,8 @@ class SoASimulator:
             return self._run_streaming(duration_s, stop_on_normal_failure,
                                        sample_every_s)
         self._push(self.rng.exponential(1.0 / self.workload.arrival_rate_per_s), "arrival")
+        if self.fleet.policy.relocation_on:
+            self._push(self.fleet.policy.relocate_every_s, "relocate")
         next_sample = 0.0
         while self._heap:
             ev = heapq.heappop(self._heap)
@@ -354,15 +362,39 @@ class SoASimulator:
                     "arrival",
                 )
             elif ev.kind == "departure":
-                self.fleet.depart(ev.payload, now=self.now)
+                self.fleet.depart(self._depart_id(ev.payload), now=self.now)
             elif ev.kind == "fail_host":
                 self.fleet.fail_host(ev.payload, now=self.now)
             elif ev.kind == "heal_host":
                 self.fleet.heal_host(ev.payload)
+            elif ev.kind == "zone_storm":
+                self._zone_storm(*ev.payload)
+            elif ev.kind == "regime_on":
+                self._regime_on(ev.payload)
+            elif ev.kind == "relocate":
+                self.fleet.relocate(self.now)
+                self._push(self.now + self.fleet.policy.relocate_every_s, "relocate")
         if self._pending:
             self._flush()
         self._sample()
+        self._fold_relocation_metrics()
         return self.metrics
+
+    def _depart_id(self, iid: str) -> str:
+        """Follow a departure event's id through the relocation chain: a
+        relocated instance's departure reaps its replacement (and that one's
+        replacement, if it moved again)."""
+        relocated = self.fleet.relocated_ids
+        while iid in relocated:
+            iid = relocated[iid]
+        return iid
+
+    def _fold_relocation_metrics(self) -> None:
+        rs = self.fleet.relocation
+        self.metrics.relocation_passes = rs.passes
+        self.metrics.relocations = rs.relocated
+        self.metrics.relocation_failed = rs.failed
+        self.metrics.relocation_lost = rs.lost_victims
 
     def _flush(self) -> bool:
         """Decide the buffered arrivals in one batch.  Returns True when a
@@ -400,6 +432,8 @@ class SoASimulator:
     ) -> SimMetrics:
         front = self.fleet.admission
         self._push(self.rng.exponential(1.0 / self.workload.arrival_rate_per_s), "arrival")
+        if self.fleet.policy.relocation_on:
+            self._push(self.fleet.policy.relocate_every_s, "relocate")
         next_sample = 0.0
         while self._heap:
             ev = heapq.heappop(self._heap)
@@ -428,7 +462,7 @@ class SoASimulator:
                     front.drain(self.now, block=False)
             elif ev.kind == "departure":
                 front.sync()  # the instance id must exist in the mirror
-                self.fleet.depart(ev.payload, now=self.now)
+                self.fleet.depart(self._depart_id(ev.payload), now=self.now)
                 if front.waiting:  # backfill the freed capacity
                     front.drain(self.now, block=False)
             elif ev.kind == "fail_host":
@@ -439,6 +473,19 @@ class SoASimulator:
             elif ev.kind == "heal_host":
                 self.fleet.heal_host(ev.payload)
                 if front.waiting:
+                    front.drain(self.now, block=False)
+            elif ev.kind == "zone_storm":
+                front.sync()  # the mirror must be current before the kills
+                self._zone_storm(*ev.payload)
+                if front.waiting:  # a storm frees capacity: backfill
+                    front.drain(self.now, block=False)
+            elif ev.kind == "regime_on":
+                self._regime_on(ev.payload)
+            elif ev.kind == "relocate":
+                front.sync()  # the mirror must be current to pick victims
+                self.fleet.relocate(self.now)
+                self._push(self.now + self.fleet.policy.relocate_every_s, "relocate")
+                if front.waiting:  # dispatch the queued re-placements
                     front.drain(self.now, block=False)
             failed_normal = self._handle_drain_results(front.take_results())
             if failed_normal and stop_on_normal_failure:
@@ -451,6 +498,7 @@ class SoASimulator:
         # the per-request latency here is the wall-clock admission latency
         # (submit → outcome absorbed), not a per-flush mean
         self.metrics.sched_latency_s = list(front.stats.wall_wait_s)
+        self._fold_relocation_metrics()
         return self.metrics
 
     def _handle_drain_results(self, results) -> bool:
@@ -460,6 +508,10 @@ class SoASimulator:
         for dr in results:
             for out in dr.outcomes:
                 req = out.request
+                if "relocation" in req.metadata:
+                    # settled by the relocation plane; the moved instance
+                    # keeps its departure event through relocated_ids
+                    continue
                 self.metrics.preemptions += len(out.victims)
                 if req.preemptible:
                     self.metrics.placed_preemptible += 1
@@ -469,6 +521,8 @@ class SoASimulator:
                 if lifetime is not None:
                     self._push(dr.now + lifetime, "departure", out.instance.id)
             for req in dr.rejected:
+                if "relocation" in req.metadata:
+                    continue  # never-worse: the victim stays; no failure
                 self._lifetimes.pop(req.id, None)
                 if req.preemptible:
                     self.metrics.failures_preemptible += 1
@@ -487,6 +541,80 @@ class SoASimulator:
         n = max(1, int(self.fleet.n_hosts * fraction))
         for h in self.rng.choice(self.fleet.n_hosts, size=n, replace=False):
             self.fleet.set_slow(self.fleet.names[int(h)], slow_factor)
+
+    def _check_zone(self, zone: str) -> None:
+        if zone not in self.fleet.zone_ids:
+            raise ValueError(
+                f"unknown zone {zone!r}; fleet zones: {sorted(self.fleet.zone_ids)}")
+
+    def inject_zone_storm(self, zone: str, at_s: float, kill_frac: float = 1.0) -> None:
+        """Schedule one correlated preemption storm: at ``at_s`` a seeded
+        ``kill_frac`` of the zone's live preemptible instances are reclaimed
+        at once (``SoAFleet.preempt_instance``), charged to the zone's churn
+        accumulators."""
+        self._check_zone(zone)
+        if not 0.0 < kill_frac <= 1.0:
+            raise ValueError(f"kill_frac must be in (0, 1], got {kill_frac}")
+        self._push(at_s, "zone_storm", (zone, float(kill_frac)))
+
+    def inject_churn_regime(
+        self,
+        zone: str,
+        until_s: float,
+        mean_on_s: float = 600.0,
+        mean_off_s: float = 3600.0,
+        storm_every_s: float = 120.0,
+        kill_frac: float = 0.25,
+        start_s: float = 0.0,
+    ) -> None:
+        """Markov on/off churn regime for one zone: calm phases
+        (exponential, mean ``mean_off_s``) alternate with stormy ones
+        (exponential, mean ``mean_on_s``) in which a ``kill_frac`` reclaim
+        wave fires every ``storm_every_s``.  Deterministic given the seed."""
+        self._check_zone(zone)
+        payload = {
+            "zone": zone,
+            "until_s": float(until_s),
+            "mean_on_s": float(mean_on_s),
+            "mean_off_s": float(mean_off_s),
+            "storm_every_s": float(storm_every_s),
+            "kill_frac": float(kill_frac),
+        }
+        self._push(start_s + self.rng.exponential(payload["mean_off_s"]),
+                   "regime_on", payload)
+
+    def _regime_on(self, payload: Dict[str, float]) -> None:
+        """Enter one stormy phase: lay down its storm ticks, then schedule
+        the next phase after a calm gap."""
+        if self.now >= payload["until_s"]:
+            return
+        end = min(self.now + self.rng.exponential(payload["mean_on_s"]),
+                  payload["until_s"])
+        t = self.now
+        while t < end:
+            self._push(t, "zone_storm", (payload["zone"], payload["kill_frac"]))
+            t += payload["storm_every_s"]
+        nxt = end + self.rng.exponential(payload["mean_off_s"])
+        if nxt < payload["until_s"]:
+            self._push(nxt, "regime_on", payload)
+
+    def _zone_storm(self, zone: str, kill_frac: float) -> int:
+        """Reclaim a seeded ``kill_frac`` of the zone's live preemptible
+        instances now (victims by sorted id, then the draw).  Returns the
+        kill count."""
+        fleet = self.fleet
+        victims = sorted(iid for iid, (h, slot) in fleet.locator.items()
+                         if slot is not None and fleet.zones[h] == zone)
+        self.metrics.storms += 1
+        if not victims:
+            return 0
+        n = max(1, int(round(len(victims) * kill_frac)))
+        picks = self.rng.choice(len(victims), size=min(n, len(victims)), replace=False)
+        killed = 0
+        for i in np.sort(picks):
+            killed += bool(fleet.preempt_instance(victims[int(i)], now=self.now))
+        self.metrics.storm_kills += killed
+        return killed
 
     def _sample(self) -> None:
         self.metrics.t.append(self.now)

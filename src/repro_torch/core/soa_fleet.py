@@ -11,31 +11,47 @@ admission plane (``core.admission``): ``submit`` queues an arrival on the
 fleet's device, ``drain`` / ``drain_all`` decide the queue in priority
 order, and ``admission_stats`` reads its counters.  The churn readers
 (``churn_snapshot``, ``zone_rates``, ``fleet_churn_rate``) read the zone
-accumulators that the admission plane's storm degradation judges.
+accumulators that the admission plane's storm degradation and the
+relocation plane's trigger judge.
 
-Not ported yet, and raising ``NotImplementedError``: the relocation plane
-(``relocate``) and out-of-band preemption (``preempt_instance``); see
-``ROADMAP.md``.
+With ``policy.relocate_threshold`` set the fleet carries the relocation
+plane: ``relocate`` evacuates the highest-loss preemptible instances of
+every armed hot zone (two-threshold hysteresis, cooldown, exponential
+backoff), each as checkpoint → re-place outside the zone → voluntary
+departure.  Direct mode runs a zone's batch through one ``relocate_many``;
+with the admission plane on, each re-placement rides the queue and settles
+at the drain that decides it.  ``preempt_instance`` is the out-of-band
+reclaim that storms use.
+
+Differences from the JAX module, all deliberate:
+
+* The victim ranking (``_relocation_victims``) takes the top ``budget`` of
+  the flattened loss with a stable descending ``torch.sort`` (``-0.0``
+  canonicalised) instead of ``lax.top_k``: the same order, ties to the
+  lowest flat index, on the CPU and on the card.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
-from .admission import AdmissionFrontEnd, DrainResult
+from .admission import PAD_RES, AdmissionFrontEnd, DrainResult
 from .cost import CostFunction
 from .policy import COST_KIND_IDS, DEFAULT_SHORTLIST, SchedulerPolicy, ensure_policy
-from .screen_math import churn_stats
+from .screen_math import NEG_INF, churn_stats, fma, floor_mod
 from .torch_scheduler import (
+    SoAFleetState,
+    _f32,
     apply_checkpoint,
     apply_departure,
     apply_host_failure,
     apply_termination,
     build_fleet_state,
+    relocate_many,
     schedule_many,
     schedule_step,
     set_schedulable,
@@ -98,6 +114,91 @@ class SoAOutcome:
     @property
     def ok(self) -> bool:
         return self.host is not None
+
+
+def relocation_loss(state: SoAFleetState, zone: int, now: float,
+                    default_period: float) -> torch.Tensor:
+    """(N, K) loss a reclaim of each slot would cause at ``now``: recompute
+    work since the last checkpoint (lost seconds × max(1, dim 0)) plus the
+    remaining prepaid billing period (per-slot ``inst_period``; -1 = the
+    policy's ``default_period``); ``NEG_INF`` off ``zone`` and on dead
+    slots.  The reference's jitted add is contracted into one fused
+    multiply-add, and so is this one."""
+    dev = state.device
+    now_t = torch.tensor(_f32(now), dtype=torch.float32, device=dev)
+    live = state.inst_valid & (state.host_zone[:, None] == int(zone))
+    lost = torch.clamp(now_t - state.inst_ckpt, min=0.0)
+    chips = torch.clamp(state.inst_res[..., 0], min=1.0)
+    period = torch.where(
+        state.inst_period > 0, state.inst_period,
+        torch.tensor(_f32(default_period), dtype=torch.float32, device=dev))
+    remaining = period - floor_mod(now_t - state.inst_start, period)
+    return torch.where(live, fma(lost, chips, remaining), NEG_INF)
+
+
+def _relocation_victims(state: SoAFleetState, zone: int, now: float,
+                        default_period: float, budget: int):
+    """Checkpoint-aware victim selection: the at-most-``budget`` slots of
+    ``zone`` with the highest ``relocation_loss``, ties to the lowest flat
+    index (``lax.top_k``'s order, here a stable descending sort with
+    ``-0.0`` folded into ``+0.0``).  Returns ``(host (B,), slot (B,),
+    valid (B,))`` as numpy arrays, read back in one copy; rows with
+    ``valid=False`` gathered a dead or foreign slot and must be skipped."""
+    loss = relocation_loss(state, zone, now, default_period).reshape(-1) + 0.0
+    top, idx = torch.sort(loss, descending=True, stable=True)
+    k = state.k_slots
+    idx = idx[:budget]
+    out = torch.stack([idx // k, idx % k, (top[:budget] > NEG_INF / 2).long()]).cpu().numpy()
+    return out[0], out[1], out[2].astype(bool)
+
+
+@dataclasses.dataclass
+class _ZoneReloc:
+    """Per-zone hysteresis and retry record of the relocation plane:
+    ``armed`` flips on when ẑ crosses ``policy.relocate_threshold`` outside
+    the cooldown and off when ẑ falls below ``relocate_exit_threshold``;
+    ``retry_at`` is the exponential-backoff gate that failed re-placements
+    push forward."""
+
+    armed: bool = False
+    cooldown_until: float = float("-inf")
+    fail_streak: int = 0
+    retry_at: float = float("-inf")
+
+
+@dataclasses.dataclass
+class RelocationStats:
+    """Host-side counters of the relocation plane (one per fleet).
+
+    Conservation: every ``attempted`` victim ends in exactly one of
+    ``relocated`` (moved; the victim departed after its replacement
+    landed), ``failed`` (re-placement rejected; the victim untouched),
+    ``lost_victims`` (reclaimed mid-flight; the replacement stands as its
+    restore), ``stale`` (departed on its own mid-flight; the surplus
+    replacement departed at once) or ``pending`` (still in the queue)."""
+
+    passes: int = 0
+    arms: int = 0
+    disarms: int = 0
+    attempted: int = 0
+    relocated: int = 0
+    failed: int = 0
+    lost_victims: int = 0
+    stale: int = 0
+    pending: int = 0
+
+    def summary(self) -> Dict[str, float]:
+        return {
+            "relocation_passes": float(self.passes),
+            "relocation_arms": float(self.arms),
+            "relocation_disarms": float(self.disarms),
+            "relocation_attempted": float(self.attempted),
+            "relocations": float(self.relocated),
+            "relocation_failed": float(self.failed),
+            "relocation_lost": float(self.lost_victims),
+            "relocation_stale": float(self.stale),
+            "relocation_pending": float(self.pending),
+        }
 
 
 class SoAFleet:
@@ -176,6 +277,14 @@ class SoAFleet:
 
         self.preempted: List[Instance] = []
         self._ids = itertools.count()
+        #: relocation plane (armed per zone by policy.relocate_threshold)
+        self.relocation = RelocationStats()
+        self._reloc_zone: Dict[str, _ZoneReloc] = {}
+        #: victims whose re-placement is waiting in the admission queue
+        self._reloc_inflight: Set[str] = set()
+        #: relocated old id → replacement id; the simulator follows this
+        #: chain when a departure event names a relocated instance
+        self.relocated_ids: Dict[str, str] = {}
         #: resource vectors already copied to the device, by value
         self._vecs: Dict[bytes, torch.Tensor] = {}
         cap = np.stack([c.vec for c in self.capacity]) if hosts else np.zeros((0, 1))
@@ -188,6 +297,23 @@ class SoAFleet:
     @property
     def device(self) -> torch.device:
         return self.state.device
+
+    # -- views of the policy fields ----------------------------------------------
+    @property
+    def cost_kind(self) -> str:
+        return self.policy.cost_kind
+
+    @property
+    def period(self) -> float:
+        return self.policy.period
+
+    @property
+    def weigher_multipliers(self) -> Tuple[float, float, float, float]:
+        return self.policy.weigher_multipliers
+
+    @property
+    def shortlist(self) -> Optional[int]:
+        return self.policy.shortlist
 
     def _dev(self, vec: np.ndarray) -> torch.Tensor:
         """``vec`` (f32) as a device tensor, copied once per distinct value
@@ -421,16 +547,6 @@ class SoAFleet:
         ``policy.storm_threshold``."""
         return self.churn_snapshot()[1]
 
-    # -- planes not ported yet --------------------------------------------------
-    def relocate(self, now: float) -> int:
-        raise NotImplementedError(
-            "relocation plane not ported yet (ROADMAP.md, Open items §1, item 5)")
-
-    def preempt_instance(self, instance_id: str, now: Optional[float] = None) -> bool:
-        raise NotImplementedError(
-            "out-of-band preemption (storm injection) not ported yet "
-            "(ROADMAP.md, Open items §1, item 5)")
-
     # -- lifecycle transitions ---------------------------------------------------
     def depart(self, instance_id: str, now: Optional[float] = None) -> bool:
         """Voluntary departure.  Returns False if the instance is already
@@ -450,6 +566,34 @@ class SoAFleet:
             self.state = apply_departure(
                 self.state, host_idx, self._dev(inst.resources.vec32)
             )
+        return True
+
+    def preempt_instance(self, instance_id: str, now: Optional[float] = None) -> bool:
+        """Involuntary out-of-band reclaim (a storm, a provider reclaim): the
+        instance dies like a scheduler kill, freed on the device, recorded in
+        ``preempted`` and, with ``now``, charged to its zone's T and U.
+        Returns False when it is already gone (storms and relocations race);
+        raises for a live normal instance, which no provider reclaims out of
+        band."""
+        loc = self.locator.get(instance_id)
+        if loc is None:
+            return False
+        if loc[1] is None:
+            raise ValueError(
+                f"instance {instance_id} is not preemptible; out-of-band "
+                "reclaim only takes preemptible slots (normal instances "
+                "leave via depart/fail_host)"
+            )
+        host_idx, slot = loc
+        inst = self.instances.pop(instance_id)
+        del self.locator[instance_id]
+        mask = np.zeros((self.k_slots,), bool)
+        mask[slot] = True
+        self.state = apply_termination(
+            self.state, host_idx, mask, now=now, involuntary=True
+        )
+        self.slot_ids[host_idx][slot] = None
+        self.preempted.append(inst)
         return True
 
     def fail_host(self, name: str, now: Optional[float] = None) -> Tuple[int, int]:
@@ -472,6 +616,176 @@ class SoAFleet:
             self.state, host_idx, self._dev(normal_res), now=now
         )
         return n_pre, n_norm
+
+    # -- relocation plane (hot-zone evacuation) --------------------------------
+    def relocate(self, now: float) -> int:
+        """One relocation pass: evacuate up to ``policy.relocate_budget`` of
+        the highest-loss preemptible instances from every armed hot zone,
+        checkpoint → place → kill, never the reverse.
+
+        A zone arms when its churn rate ẑ crosses ``relocate_threshold``
+        outside its cooldown, and disarms (entering a
+        ``relocate_cooldown_s`` cooldown) when ẑ falls below
+        ``relocate_exit_threshold``.  A failed re-placement leaves its victim
+        running and pushes the zone's ``retry_at`` out exponentially
+        (``relocate_backoff_s`` doubling per consecutive failure).  Returns
+        the number of evacuations started this pass."""
+        pol = self.policy
+        if not pol.relocation_on:
+            raise RuntimeError(
+                "relocation plane is off; build the fleet with "
+                "SchedulerPolicy(relocate_threshold=...)"
+            )
+        st = self.relocation
+        st.passes += 1
+        rates, _ = self.churn_snapshot()
+        started = 0
+        for zone in self.zone_ids:
+            z = self._reloc_zone.setdefault(zone, _ZoneReloc())
+            rate = rates[zone]
+            if z.armed and rate < pol.relocate_exit_threshold:
+                z.armed = False
+                z.cooldown_until = now + pol.relocate_cooldown_s
+                st.disarms += 1
+            elif not z.armed and rate > pol.relocate_threshold and now >= z.cooldown_until:
+                z.armed = True
+                z.fail_streak = 0
+                z.retry_at = float("-inf")
+                st.arms += 1
+            if z.armed and now >= z.retry_at:
+                started += self._evacuate_zone(zone, now)
+        return started
+
+    def _evacuate_zone(self, zone: str, now: float) -> int:
+        """Evacuate one armed zone's worst-loss victims (at most the budget):
+        in direct mode one ``relocate_many`` batch, with the admission plane
+        on one queue entry each, settled at the drain that decides it."""
+        pol = self.policy
+        st = self.relocation
+        budget = min(pol.relocate_budget, self.state.n_hosts * self.k_slots)
+        hosts, slots, valid = _relocation_victims(
+            self.state, self.zone_ids[zone], now, pol.period, budget)
+        started = 0
+        batch: List[Tuple[str, int, int, Instance, Request]] = []
+        for h, s, v in zip(hosts, slots, valid):
+            if not v:
+                continue
+            iid = self.slot_ids[int(h)][int(s)]
+            if iid is None:
+                raise RuntimeError(
+                    f"relocation victim slot {int(s)} on host {self.names[int(h)]} "
+                    "is empty in the mirror")
+            if iid in self._reloc_inflight:
+                continue  # already mid-flight from an earlier pass
+            inst = self.instances[iid]
+            st.attempted += 1
+            req = Request(
+                id=f"reloc-{iid}", resources=inst.resources, preemptible=True,
+                user=inst.user, cost_kind=inst.cost_kind, period=inst.period,
+                priority=0, exclude_zone=zone, metadata={"relocation": iid},
+            )
+            if self.admission is not None:
+                # checkpoint first: the replacement restarts from here, and a
+                # storm racing the move loses only the work since now
+                self.checkpoint(iid, now)
+                self.admission.submit_relocation(req, iid, zone, now,
+                                                 price=inst.price_rate)
+                self._reloc_inflight.add(iid)
+                st.pending += 1
+                started += 1
+            else:
+                # the mirror's half of the checkpoint; the device's half runs
+                # inside relocate_many, row by row
+                inst.last_checkpoint = now
+                batch.append((iid, int(h), int(s), inst, req))
+        if batch:
+            started += self._relocate_batch(zone, batch, now)
+        return started
+
+    def _relocate_batch(self, zone: str,
+                        batch: List[Tuple[str, int, int, Instance, Request]],
+                        now: float) -> int:
+        """Direct-mode settle of one ``relocate_many`` batch, padded to
+        ``max(4, next power of two)`` rows as the reference pads it."""
+        b = len(batch)
+        padded = max(4, 1 << (b - 1).bit_length())
+        d = len(self.spec.dims)
+        vh = np.zeros((padded,), np.int32)
+        vs = np.zeros((padded,), np.int32)
+        von = np.zeros((padded,), bool)
+        res = np.full((padded, d), PAD_RES, np.float32)
+        dom = np.full((padded,), -1, np.int32)
+        kind = np.full((padded,), -1, np.int32)
+        period = np.full((padded,), -1.0, np.float32)
+        price = np.ones((padded,), np.float32)
+        excl = np.full((padded,), -1, np.int32)
+        for i, (iid, h, s, inst, req) in enumerate(batch):
+            res[i], _, dom[i], kind[i], period[i], excl[i] = self._req_arrays(req)
+            vh[i], vs[i], von[i] = h, s, True
+            price[i] = inst.price_rate
+        self.state, (host_idx, slot, ok, fell_back, margin) = relocate_many(
+            self.state, vh, vs, von, res, dom, kind, period, price, excl, now,
+            policy=self._flush_policy(),
+        )
+        host_idx, slot, ok = host_idx.numpy(), slot.numpy(), ok.numpy()
+        self._observe(int(fell_back[:b].sum()), float(margin[:b].min()), b)
+        st = self.relocation
+        z = self._reloc_zone.setdefault(zone, _ZoneReloc())
+        no_kill = np.zeros((self.k_slots,), bool)
+        started = 0
+        for i, (iid, h, s, inst, req) in enumerate(batch):
+            if ok[i]:
+                out = self._absorb(req, now, inst.price_rate, int(host_idx[i]),
+                                   int(slot[i]), True, no_kill)
+                # relocate_many already departed the victim on the device
+                # (make-before-break, voluntary); fold the mirror here
+                self.instances.pop(iid)
+                del self.locator[iid]
+                self.slot_ids[h][s] = None
+                self.relocated_ids[iid] = out.instance.id
+                st.relocated += 1
+                z.fail_streak = 0
+                started += 1
+            else:
+                self._settle_relocation_rejected(iid, zone, now)
+        return started
+
+    def _settle_relocation_placed(self, victim_id: str, zone: str,
+                                  out: SoAOutcome, now: float) -> None:
+        """Make-before-break settle: the replacement is live, so the victim
+        (if still running) departs voluntarily; a move is not churn."""
+        st = self.relocation
+        if victim_id in self._reloc_inflight:
+            self._reloc_inflight.discard(victim_id)
+            st.pending -= 1
+        z = self._reloc_zone.setdefault(zone, _ZoneReloc())
+        if victim_id in self.instances:
+            self.depart(victim_id, now=now)
+            self.relocated_ids[victim_id] = out.instance.id
+            st.relocated += 1
+            z.fail_streak = 0
+        elif any(i.id == victim_id for i in self.preempted):
+            # the storm beat the move: the replacement stands as the restore
+            # from the checkpoint taken at evacuation time
+            self.relocated_ids[victim_id] = out.instance.id
+            st.lost_victims += 1
+        else:
+            # the victim departed on its own mid-flight: the replacement is
+            # surplus and departs at once (no duplicate, no double bill)
+            self.depart(out.instance.id, now=now)
+            st.stale += 1
+
+    def _settle_relocation_rejected(self, victim_id: str, zone: str, now: float) -> None:
+        """Never-worse: a failed re-placement leaves the victim running and
+        backs the zone off exponentially."""
+        st = self.relocation
+        if victim_id in self._reloc_inflight:
+            self._reloc_inflight.discard(victim_id)
+            st.pending -= 1
+        st.failed += 1
+        z = self._reloc_zone.setdefault(zone, _ZoneReloc())
+        z.fail_streak += 1
+        z.retry_at = now + self.policy.relocate_backoff_s * (2.0 ** (z.fail_streak - 1))
 
     def checkpoint(self, instance_id: str, now: float) -> bool:
         """Record a durable checkpoint for a live preemptible instance."""

@@ -831,6 +831,70 @@ def schedule_many(
     )
 
 
+def relocate_many(
+    state: SoAFleetState,
+    v_host,            # (B,) victim host index
+    v_slot,            # (B,) victim slot on that host
+    v_on,              # (B,) bool; False = padding row, a full no-op
+    req_res,           # (B, D) replacement request sizes
+    req_domain,        # (B,) domain id; -1 = any
+    req_cost_kind,     # (B,) kind id; -1 = policy default
+    req_period,        # (B,) billing period; -1 = policy default
+    req_price,         # (B,) the victim's price rate
+    req_exclude_zone,  # (B,) the source zone, hard-excluded
+    now: float,        # one relocation pass instant
+    policy: Optional[SchedulerPolicy] = None,
+) -> Tuple[SoAFleetState, Tuple[torch.Tensor, ...]]:
+    """One evacuation batch on ``state`` (updated in place), the port of
+    ``jax_scheduler.relocate_many``'s ``lax.scan``.  Per victim row, in
+    order: checkpoint the victim's slot at ``now`` (gated on ``v_on``),
+    re-place it through ``_step_core`` as a preemptible request with its
+    source zone excluded, then terminate the victim (voluntarily: the zone's
+    U accrues, its T does not) only if the replacement landed.
+
+    Padding rows run the same decision with their sentinel sizes, which fit
+    no host, so they leave every state tensor as it was and report what the
+    reference reports.  Columns are host arrays of length B.  Returns
+    ``(state, (host_idx (B,), slot (B,), ok (B,), fell_back (B,),
+    margin (B,)))`` as CPU tensors, copied back once."""
+    policy = ensure_policy(policy, "relocate_many")
+    res = np.asarray(req_res, np.float32)
+    b = res.shape[0]
+    vh = np.asarray(v_host, np.int32).reshape(b)
+    vs = np.asarray(v_slot, np.int32).reshape(b)
+    von = np.asarray(v_on, bool).reshape(b)
+    dom = np.asarray(req_domain, np.int32).reshape(b)
+    kind = np.asarray(req_cost_kind, np.int32).reshape(b)
+    period = np.asarray(req_period, np.float32).reshape(b)
+    price = np.asarray(req_price, np.float32).reshape(b)
+    excl = np.asarray(req_exclude_zone, np.int32).reshape(b)
+    now = _f32(now)
+    k = state.k_slots
+    res_dev = torch.from_numpy(res).to(state.device)
+    hosts, oks, fbs, slots, margins = [], [], [], [], []
+    for i in range(b):
+        on = bool(von[i])
+        if on:
+            apply_checkpoint(state, vh[i], vs[i], now)
+        h, slot, ok, _, fb, margin = _step_core(
+            state, res_dev[i], True, dom[i], now, price[i], kind[i],
+            period[i], policy, req_exclude=int(excl[i]),
+        )
+        if on and ok:
+            apply_termination(state, vh[i], np.arange(k) == vs[i], now=now,
+                              involuntary=False)
+        hosts.append(h)
+        oks.append(ok)
+        fbs.append(fb)
+        slots.append(slot)
+        margins.append(margin)
+    return state, (
+        torch.tensor(hosts, dtype=torch.int32), torch.stack(slots).cpu(),
+        torch.tensor(oks, dtype=torch.bool), torch.tensor(fbs, dtype=torch.bool),
+        torch.stack(margins).cpu(),
+    )
+
+
 def apply_placement(
     state: SoAFleetState,
     host_idx: int,

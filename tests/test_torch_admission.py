@@ -587,9 +587,28 @@ def test_nonblocking_drains_match_blocking():
 
 
 def test_submit_relocation_and_closed_plane_raise():
-    p = Pair(1, queue_capacity=4, admit_batch=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        p.t.admission.submit_relocation(_pair_req("x", SIZES[0])[0], "v", "z0", 1.0)
+    """A relocation entry is queued and, placed, settled by the fleet (its
+    victim departs, the move recorded) exactly as the JAX package's; the
+    closed plane and a bad priority still raise."""
+    p = Pair(2, zones=2, queue_capacity=4, admit_batch=2, relocate_threshold=0.5)
+    victim = p.schedule_request(_pair_req("v", SIZES[0], preemptible=True), 1.0)
+    assert victim.host == "h0"
+    vid = victim.instance.id
+    for fleet, make in ((p.t, Request), (p.j, JReq)):
+        req = make(id=f"reloc-{vid}", resources=SIZES[0] if make is Request else _jres(SIZES[0]),
+                   preemptible=True, priority=0, exclude_zone="z0",
+                   metadata={"relocation": vid})
+        fleet.admission.submit_relocation(req, vid, "z0", 2.0)
+        fleet._reloc_inflight.add(vid)
+        fleet.relocation.pending += 1
+    assert p.t.admission._reloc == {f"reloc-{vid}": (vid, "z0")} and p.t.admission.pending == 1
+    dr = p.drain(3.0)
+    (out,) = dr.outcomes
+    assert out.host == "h1" and vid not in p.t.instances
+    assert p.t.relocated_ids == {vid: out.instance.id} and not p.t.admission._reloc
+    assert (p.t.relocation.relocated, p.t.relocation.pending) == (1, 0)
+    assert p.t.relocated_ids == p.j.relocated_ids
+    p.check()
     off = TFleet(_hosts(1)[0], k_slots=K, device="cpu")
     assert off.admission is None
     with pytest.raises(RuntimeError, match="queue_capacity"):

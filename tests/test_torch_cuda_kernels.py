@@ -604,3 +604,84 @@ def test_admission_drains_on_card_match_cpu(cuda_device):
         np.testing.assert_array_equal(g[f], c[f], err_msg=f)
     assert counts["sched_screen_consts"] == counts["sched_weigh_gathered"] == gf.decisions
     assert counts["sched_weigh"] == gf.decisions + gf.fallbacks
+
+
+# ---------------------------------------------------------------------------
+# the relocation plane: the victim ranking and relocate_many, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def _reloc_arrays(n, tied, seed=13):
+    """Fleet state arrays of n packed hosts x 8 slots in 4 zones: slots
+    started whole minutes ago and checkpointed since, or (``tied``) all
+    started and checkpointed at one instant; a fifth of the slots dead."""
+    rng = np.random.default_rng(seed)
+    a, _ = fleets.packed_arrays(n, 8, seed=seed)
+    a.update(host_zone=(np.arange(n) % 4).astype(np.int32), zone_term=np.zeros(4, np.float32),
+             zone_up=np.zeros(4, np.float32), inst_valid=rng.random((n, 8)) < 0.8,
+             inst_ckpt=(a["inst_start"] + rng.integers(0, 60, (n, 8)) * 60.0).astype(np.float32))
+    if tied:
+        a["inst_start"][:] = fleets.NOW - 3600.0
+        a["inst_ckpt"][:] = fleets.NOW - 3600.0
+    return a
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_relocation_victims_on_card_match_cpu(cuda_device, tied):
+    """The victim loss bit for bit and the stable ranking row for row."""
+    from repro_torch.core.convert import fleet_state_from_numpy
+    from repro_torch.core.soa_fleet import _relocation_victims, relocation_loss
+
+    a = _reloc_arrays(65536, tied)
+    g, c = fleet_state_from_numpy(a, device=cuda_device), fleet_state_from_numpy(a, device="cpu")
+    now = fleets.NOW + 1800.0
+    for zone in (0, 3):
+        assert torch.equal(relocation_loss(g, zone, now, 3600.0).cpu().view(torch.int32),
+                           relocation_loss(c, zone, now, 3600.0).view(torch.int32))
+        for budget in (64, 65536 * 8):
+            for x, y in zip(_relocation_victims(g, zone, now, 3600.0, budget),
+                            _relocation_victims(c, zone, now, 3600.0, budget)):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_relocate_many_on_card_matches_cpu(cuda_device):
+    """One batch of 5 victims and 3 padding rows at 300 hosts (the screen's
+    path), half saturated and half empty in 3 zones: the outputs and the
+    state after equal the CPU's, with one decision's launches a row."""
+    from repro_torch.core.admission import PAD_RES
+    from repro_torch.core.convert import fleet_state_to_numpy
+    from repro_torch.core.torch_scheduler import build_fleet_state, relocate_many
+
+    hosts = fleets.saturated_fleet(300, seed=4)
+    for i, h in enumerate(hosts):
+        h.zone = f"z{i % 3}"
+        if i % 2:
+            for iid in list(h.instances):
+                h.remove(iid)
+    states = [build_fleet_state(hosts, device=d)[0] for d in (cuda_device, "cpu")]
+    arr = fleet_state_to_numpy(states[1])
+    rows = np.argwhere(arr["inst_valid"] & (arr["host_zone"][:, None] == 0))[:5]
+    b = 8
+    vh, vs, von = np.zeros(b, np.int32), np.zeros(b, np.int32), np.zeros(b, bool)
+    res = np.full((b, 3), PAD_RES, np.float32)
+    excl = np.full(b, -1, np.int32)
+    for i, (h, s) in enumerate(rows):
+        vh[i], vs[i], von[i], excl[i] = h, s, True, 0
+        res[i] = arr["inst_res"][h, s]
+    rest = (np.full(b, -1, np.int32), np.full(b, -1, np.int32), np.full(b, -1.0, np.float32),
+            np.arange(1, b + 1, dtype=np.float32), excl, fleets.NOW + 100.0)
+    policy = SchedulerPolicy(relocate_threshold=1e-4)
+    kernels.reset_launch_counts()
+    g_state, g_out = relocate_many(states[0], vh, vs, von, res, *rest, policy=policy)
+    counts = kernels.launch_counts()
+    c_state, c_out = relocate_many(states[1], vh, vs, von, res, *rest, policy=policy)
+    for x, y in zip(g_out, c_out):
+        assert torch.equal(x, y)
+    assert bool(g_out[2][:5].all()) and not bool(g_out[2][5:].any())
+    g, c = fleet_state_to_numpy(g_state), fleet_state_to_numpy(c_state)
+    for f in g:
+        np.testing.assert_array_equal(g[f], c[f], err_msg=f)
+    fb = int(g_out[3].sum())
+    assert counts["sched_screen_consts"] == counts["sched_screen_topm"] == b
+    assert counts["sched_weigh_gathered"] == b and counts["sched_screen"] == 2 * b
+    assert counts["sched_weigh"] == b + fb

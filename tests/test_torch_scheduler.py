@@ -230,8 +230,9 @@ def test_apply_placement_matches():
 
 
 def test_unported_planes_raise():
-    for kw in (dict(relocate_threshold=0.5), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TPolicy(**kw)
-    # the admission plane is ported: its policy builds
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TPolicy(mesh=object())
+    # the admission and relocation planes are ported: their policies build
     assert TPolicy(queue_capacity=64).queue_capacity == 64
+    pol = TPolicy(relocate_threshold=0.5)
+    assert pol.relocation_on and pol.relocate_exit_threshold == 0.25
