@@ -25,10 +25,13 @@ exits non-zero:
                and (8, 1, 8, 8); the enumeration on fractional inputs at
                K=1..12 and D=1..8, on 64 and 4,096 hosts, and at K=4 and 5,
                whose sums follow XLA's trees, on 1 and 2), two calls of the
-               enumeration the same bits; kernel / plain / bound times
-               (medians) beside a one-element op's (the launch floor); then
-               the screen at 2^20 packed hosts, nearly all tied: exactly
-               equal, two calls the same bits, its times;
+               enumeration the same bits; the screen's traced-multiplier
+               mode (the ensemble's rows under the default and the churn
+               gates, a zero under a gate) exactly equal on both clocks;
+               kernel / plain / bound times (medians) beside a one-element
+               op's (the launch floor); then the screen at 2^20 packed
+               hosts, nearly all tied: exactly equal, two calls the same
+               bits, its times;
 4. parity    — the simulator on the card and on the CPU, 4,096 hosts, the
                same seed: identical placements, counters and final state;
 5. main path — ``SoAFleet`` on the card at 65,536 hosts, 2,048 decisions in
@@ -85,6 +88,24 @@ exits non-zero:
                z3 excluded, voluntary termination) from a clone of the state
                before it, equal bit for bit; the launches of each decision
                kernel against what the path implies;
+5e. scan     — the trace-driven simulator on benchmarks/bench_screen.py::
+               _bench_scan's trace (772 rows over 3,200 s: arrivals,
+               departures, checkpoints, a storm, a host failure and heal;
+               streaming with _bench_scan_stream's policy): at 4,096 Table 1
+               nodes ``simulate_scan`` on the card, on the CPU and the card's
+               ``SoASimulator.run_trace`` identical, direct and streaming
+               (outcomes, counters, samples, final state; admission
+               counters, queue and waits); at 65,536 empty nodes both engines
+               identical, events/s, decisions/s, a decision's p50 and the
+               busy share of a traced 200-row prefix; phase 5's saturated
+               draws in 3 zones, the trace cut to 1,600 s, both engines
+               identical in outcomes (zone_up by its gap: the storm's uptime
+               sum passes 2^24), preemptions, storm kills, events/s; at
+               1,024 nodes 32 seed lanes (trajectories/s; every fourth lane
+               against its padded single run), the multiplier axis on
+               saturated nodes card against CPU, 32 admission-knob lanes;
+               every decision kernel's launches against what the path
+               implies;
 6. model_kernels — flash-attention forward and RMSNorm against their plain
                versions at qwen2-1.5b's and gemma-2b's shapes (plus a full
                and a ragged case; the f32 route at S=77 and at every shape
@@ -160,6 +181,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -174,6 +196,7 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.core import fleets  # noqa: E402
 from repro_torch.core.admission import QUEUE_DTYPES, queue_init, queue_select  # noqa: E402
 from repro_torch.core import soa_fleet as soa_mod  # noqa: E402
+from repro_torch.core import scan_sim  # noqa: E402
 from repro_torch.core.convert import (  # noqa: E402
     fleet_state_from_numpy,
     fleet_state_to_numpy,
@@ -195,7 +218,7 @@ from repro_torch.core.torch_scheduler import (  # noqa: E402
     schedule_many,
     schedule_step,
 )
-from repro_torch.core.types import Request  # noqa: E402
+from repro_torch.core.types import Host, Request  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
@@ -624,6 +647,30 @@ for mixed in MIXED:
     same(mix[0], mix_p[0], f"sched_screen scores {mixed}", "sched_screen")
     same(mix[1], mix_p[1], f"sched_screen idx {mixed}", "sched_screen")
     same(mix[2], mix_c, f"sched_screen consts {mixed}", "sched_screen")
+# the traced-multiplier mode (phase 5e's multiplier axis): the row's values
+# do the arithmetic, the policy's multipliers gate the terms; bit for bit on
+# the integer grid and at the fractional clock, for the default policy's
+# gates (the ensemble's rows and a zero under a gate) and the churn gates
+TRACED = (((1.0, 1.0, 0.0, 0.0), ((1.0, 1.0, 0.0, 0.0), (4.0, 0.25, 0.0, 0.0),
+                                  (0.5, 2.0, 0.0, 0.0), (0.0, 1.0, 0.0, 0.0)), {}),
+          (CHURN_MULT, ((1.0, 1.0, 0.5, 0.25, 2.0), (0.7, 1.3, 0.3, 1.7, 0.5),
+                        (0.0, 1.0, 0.0, 0.25, 0.0)), churn_kw))
+for clock_, h_ in (("integer", head), ("fractional", hf)):
+    for gates_, rows_, kw_ in TRACED:
+        for row_ in rows_:
+            for pre in (False, True):
+                hh_ = h_[:9] + (pre, -1)
+                got_ = kernels.sched_screen(*hh_, row_, True, M + 1, gates=gates_, **kw_)
+                c_ = kernels.sched_screen_consts_plain(*hh_, row_, True, gates=gates_, **kw_)
+                t_ = kernels.sched_screen_topm_plain(*hh_, c_, row_, True, M + 1, gates=gates_,
+                                                     **kw_)
+                what_ = f"sched_screen traced {clock_} gates {gates_} row {row_} pre={pre}"
+                same(got_[2], c_, f"{what_} consts", "sched_screen")
+                same(got_[0], t_[0], f"{what_} scores", "sched_screen")
+                same(got_[1], t_[1], f"{what_} idx", "sched_screen")
+emit("screen_traced", hosts=n, k=k, d=d, m=M, exact=True,
+     cases={str(gates_): [list(r_) for r_ in rows_] for gates_, rows_, _ in TRACED},
+     clocks=["integer", "fractional"], requests=["normal", "preemptible"])
 emit("kernels_vs_plain", hosts=n, k=k, d=d, m=M, integer_cases="exact",
      non_integer_max_gap=frac_gap, non_integer_decisions_agree=frac_same,
      mixed_multipliers=[list(m_) for m_ in MIXED], mixed_multipliers_case="exact",
@@ -1576,6 +1623,330 @@ emit("relocation", card=smi, policy=RELOC, ranking=ranking, parity=reloc_parity,
      launches=reloc_counts, launches_implied=reloc_implied,
      seconds=time.perf_counter() - t_reloc)
 del reloc_calls
+
+# ---------------------------------------------------------------------------
+# 5e. scan: the trace-driven simulator
+# ---------------------------------------------------------------------------
+t_scan = time.perf_counter()
+#: benchmarks/bench_screen.py::_bench_scan's workload: Table 1 nodes in 3
+#: zones; small, medium and large; 1/8 arrivals/s; lifetimes 300 / 1,200 /
+#: 2,400 s; 60 % preemptible; 3,200 s from seed 7 with a storm on z0 at
+#: 1,600 s killing half, host 1 failing at 1,280 s and healing 640 s later,
+#: a checkpoint row every 4th preemptible arrival.  Streaming takes
+#: _bench_scan_stream's policy and priorities
+SCAN_SPEC = WorkloadSpec(arrival_rate_per_s=1 / 8.0, lifetime_min_s=300.0,
+                         lifetime_mean_s=1200.0, lifetime_max_s=2400.0,
+                         preemptible_fraction=0.6, flavors=list(fleets.SIZES.items()))
+SCAN_POLICY = {"direct": SchedulerPolicy(), "streaming": SchedulerPolicy(
+    queue_capacity=64, admit_batch=4, slo_target_s=120.0, max_retries=4, n_classes=3,
+    aging_rate=0.005, storm_threshold=0.05)}
+SCAN_S, SCAN_ENS_S = 3200.0, 1200.0
+scan_counts = {key: 0 for key in ADM_KERNELS}
+scan_implied = {key: 0 for key in ADM_KERNELS}
+
+
+def scan_trace(mode_, duration=SCAN_S, seed=7, storm=True, fail=True, ckpt=4, zone=0):
+    return scan_sim.trace_from_workload(
+        SCAN_SPEC, duration, seed=seed, storms=((duration * 0.5, zone, 0.5),) if storm else (),
+        failures=((duration * 0.4, 1, duration * 0.2),) if fail else (), checkpoint_every=ckpt,
+        priorities=(-1, 0, 1, 2) if mode_ == "streaming" else ())
+
+
+def zoned_hosts(n_):
+    return [Host(name=f"h{j}", capacity=fleets.NODE_CAP, zone=f"z{j % 3}") for j in range(n_)]
+
+
+def scan_absorb(decisions_, fallbacks_, what):
+    """``adm_absorb`` into this phase's counts, for ``decisions_`` (all past
+    256 hosts) and ``fallbacks_``."""
+    adm_absorb(SimpleNamespace(decisions=decisions_, fallbacks=fallbacks_), 0, 0, what,
+               phase="scan", into=(scan_counts, scan_implied))
+
+
+def scan_same(a_, b_, what, skip=()):
+    """Two trajectories equal: counters, outcomes, samples, the final state
+    (but the columns in ``skip``), and streaming the admission counters,
+    waits and queue."""
+    check(a_.counters == b_.counters, f"scan: {what}: counters {a_.counters} vs {b_.counters}")
+    check(a_.decisions == b_.decisions and a_.fallbacks == b_.fallbacks,
+          f"scan: {what}: decisions or fallbacks differ")
+    for name in ("host", "slot", "ok", "n_kill", "sample_t", "sample_free0",
+                 "sample_free0_normal"):
+        check(np.array_equal(getattr(a_, name), getattr(b_, name)), f"scan: {what}: {name} differs")
+    ga_, gb_ = fleet_state_to_numpy(a_.state), fleet_state_to_numpy(b_.state)
+    for f in STATE_DTYPES:
+        if f not in skip:
+            check(np.array_equal(ga_[f], gb_[f]), f"scan: {what}: final state {f} differs")
+    if a_.admission is not None:
+        check(a_.admission == b_.admission, f"scan: {what}: admission counters differ")
+        check(np.array_equal(a_.wait_s, b_.wait_s), f"scan: {what}: waits differ")
+        qa_, qb_ = queue_state_to_numpy(a_.queue), queue_state_to_numpy(b_.queue)
+        for f in QUEUE_DTYPES:
+            check(np.array_equal(qa_[f], qb_[f]), f"scan: {what}: final queue {f} differs")
+
+
+def replay_same(res_, sim_, what, skip=()):
+    """A trajectory against ``run_trace`` on ``sim_``: the outcome rows, the
+    counters, the final state (but ``skip``) and, streaming, the admission
+    stats, queue and waits."""
+    check(np.array_equal(np.stack([res_.host, res_.slot, res_.ok.astype(np.int64), res_.n_kill],
+                                  axis=1), sim_.trace_outcomes),
+          f"scan: {what}: simulate_scan and run_trace place differently")
+    m_ = sim_.metrics
+    check({key: getattr(m_, key) for key in res_.counters} == res_.counters,
+          f"scan: {what}: run_trace's counters differ")
+    ga_, gb_ = fleet_state_to_numpy(res_.state), fleet_state_to_numpy(sim_.fleet.state)
+    for f in STATE_DTYPES:
+        if f not in skip:
+            check(np.array_equal(ga_[f], gb_[f]), f"scan: {what}: run_trace's final state {f} differs")
+    front_ = sim_.fleet.admission
+    if front_ is not None:
+        st_ = front_.stats
+        want_ = {key: getattr(st_, key) for key in res_.admission if key != "queue_depth"}
+        check(dict(want_, queue_depth=front_.waiting) == res_.admission,
+              f"scan: {what}: run_trace's admission stats differ")
+        check(np.array_equal(np.sort(res_.wait_s[res_.wait_s >= 0]),
+                             np.sort(np.asarray(st_.wait_s, np.float32))),
+              f"scan: {what}: run_trace's waits differ")
+        qa_, qb_ = queue_state_to_numpy(res_.queue), queue_state_to_numpy(front_.qstate)
+        for f in QUEUE_DTYPES:
+            check(np.array_equal(qa_[f], qb_[f]), f"scan: {what}: run_trace's final queue {f} differs")
+
+
+def prefix(trace_, rows_):
+    """The first ``rows_`` rows of a trace (a departure or checkpoint names
+    an earlier row, so a prefix is a trace)."""
+    return scan_sim.EventTrace(**{f.name: getattr(trace_, f.name)[:rows_]
+                                  for f in dataclasses.fields(scan_sim.EventTrace)})
+
+
+def timed_scan(*args, **kw):
+    torch.cuda.synchronize()
+    t_ = time.perf_counter()
+    res_ = scan_sim.simulate_scan(*args, **kw)
+    torch.cuda.synchronize()
+    return res_, time.perf_counter() - t_
+
+
+def timed_replay(sim_, trace_):
+    d0_, f0_ = sim_.fleet.decisions, sim_.fleet.fallbacks
+    torch.cuda.synchronize()
+    t_ = time.perf_counter()
+    sim_.run_trace(trace_)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t_, sim_.fleet.decisions - d0_, sim_.fleet.fallbacks - f0_
+
+
+# parity at 4,096 hosts, direct and streaming: simulate_scan on the card, on
+# the CPU, and run_trace on the card
+scan_parity = {}
+for mode_, pol_ in SCAN_POLICY.items():
+    tr_ = scan_trace(mode_)
+    gsim_ = SoASimulator(zoned_hosts(4096), SCAN_SPEC, seed=7, policy=pol_, device=DEV)
+    cstate_ = SoAFleet(zoned_hosts(4096), policy=pol_, device="cpu").state
+    kernels.reset_launch_counts()
+    card_, card_s_ = timed_scan(tr_, pol_, gsim_.fleet.state)
+    scan_absorb(card_.decisions, card_.fallbacks, f"parity {mode_}: simulate_scan")
+    t_ = time.perf_counter()
+    cpu_ = scan_sim.simulate_scan(tr_, pol_, cstate_)
+    cpu_s_ = time.perf_counter() - t_
+    rt_s_, rt_dec_, rt_fb_ = timed_replay(gsim_, tr_)
+    scan_absorb(rt_dec_, rt_fb_, f"parity {mode_}: run_trace")
+    scan_same(card_, cpu_, f"parity {mode_}: card vs CPU")
+    replay_same(card_, gsim_, f"parity {mode_}")
+    check(card_.decisions >= 400 and card_.counters["storm_kills"] > 0,
+          f"scan: parity {mode_}: {card_.decisions} decisions, "
+          f"{card_.counters['storm_kills']} storm kills")
+    scan_parity[mode_] = dict(hosts=4096, events=tr_.n_events, decisions=card_.decisions,
+                              fallbacks=card_.fallbacks, counters=card_.counters,
+                              admission=card_.admission, card_s=card_s_, cpu_s=cpu_s_,
+                              run_trace_card_s=rt_s_, identical=True)
+    del gsim_, cstate_, card_, cpu_
+
+# full size, 65,536 empty hosts, the same traces: both engines on the card,
+# each decision timed (perf_counter around _step_core, which reads its
+# result back), then a 200-row prefix traced for the busy share
+real_step = scan_sim._step_core
+step_s = []
+
+
+def timed_step(*args, **kw):
+    t_ = time.perf_counter()
+    out_ = real_step(*args, **kw)
+    step_s.append(time.perf_counter() - t_)
+    return out_
+
+
+scan_full = {}
+for mode_, pol_ in SCAN_POLICY.items():
+    tr_ = scan_trace(mode_)
+    t_ = time.perf_counter()
+    sim_ = SoASimulator(zoned_hosts(N_HOSTS), SCAN_SPEC, seed=7, policy=pol_, device=DEV)
+    build_s_ = time.perf_counter() - t_
+    pre_ = prefix(tr_, 200)
+    scan_sim.simulate_scan(prefix(tr_, 40), pol_, sim_.fleet.state)   # warm-up
+    kernels.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traced_, window_s_ = timed_scan(pre_, pol_, sim_.fleet.state)
+    busy_ = busy_us(prof)
+    scan_absorb(traced_.decisions, traced_.fallbacks, f"{mode_} at 65,536 hosts: traced prefix")
+    scan_sim._step_core, step_s[:] = timed_step, []
+    try:
+        res_, scan_wall_ = timed_scan(tr_, pol_, sim_.fleet.state)
+    finally:
+        scan_sim._step_core = real_step
+    scan_absorb(res_.decisions, res_.fallbacks, f"{mode_} at 65,536 hosts: simulate_scan")
+    rt_s_, rt_dec_, rt_fb_ = timed_replay(sim_, tr_)
+    scan_absorb(rt_dec_, rt_fb_, f"{mode_} at 65,536 hosts: run_trace")
+    check(rt_dec_ == res_.decisions, f"scan: {mode_} at 65,536 hosts: {rt_dec_} run_trace "
+                                     f"decisions, {res_.decisions} in the scan")
+    replay_same(res_, sim_, f"{mode_} at 65,536 hosts")
+    scan_full[mode_] = dict(
+        hosts=N_HOSTS, events=tr_.n_events, decisions=res_.decisions, fallbacks=res_.fallbacks,
+        counters=res_.counters, admission=res_.admission, fleet_build_s=build_s_,
+        simulate_scan_s=scan_wall_, events_per_s=tr_.n_events / scan_wall_,
+        decisions_per_s=res_.decisions / scan_wall_,
+        decision_p50_ms=float(np.percentile(step_s, 50)) * 1e3,
+        decision_p99_ms=float(np.percentile(step_s, 99)) * 1e3,
+        run_trace_s=rt_s_, run_trace_events_per_s=tr_.n_events / rt_s_,
+        traced_rows=pre_.n_events, traced_decisions=traced_.decisions,
+        traced_window_ms=window_s_ * 1e3, device_busy_ms=busy_ / 1e3,
+        device_busy_share=(busy_ / 1e6) / window_s_ if busy_ else "not measured",
+        identical=True)
+    del sim_, res_, traced_
+
+def on_clock(trace_):
+    """A trace moved onto the fleets' clock (fleets.NOW on; integer times
+    stay exact in f32)."""
+    return dataclasses.replace(trace_, time=trace_.time + np.float32(fleets.NOW))
+
+
+def saturated_zoned(n_, seed_):
+    """Phase 5's saturated draws, the hosts dealt into 3 zones."""
+    hosts_ = fleets.saturated_fleet(n_, seed=seed_)
+    for j_, h_ in enumerate(hosts_):
+        h_.zone = f"z{j_ % 3}"
+    return hosts_
+
+
+# contended: phase 5's saturated fleet (the same draws) in 3 zones, direct,
+# the trace cut to 1,600 s (its storm at 800 s, the failure at 640 s) and
+# put on the fleet's clock, live normal resources from its normal instances;
+# both engines on the card.  The storm's uptime sum passes 2^24 here, so
+# zone_up is compared by its gap, every other column bit for bit
+scan_contended = {}
+for mode_, pol_ in (("direct", SCAN_POLICY["direct"]),):
+    tr_ = on_clock(scan_trace(mode_, SCAN_S / 2))
+    hosts_ = saturated_zoned(N_HOSTS, 0)
+    t_ = time.perf_counter()
+    sim_ = SoASimulator(hosts_, SCAN_SPEC, seed=7, policy=pol_, device=DEV)
+    build_s_ = time.perf_counter() - t_
+    nres_ = np.zeros((N_HOSTS, 3), np.float32)
+    for iid_, (h_, slot_) in sim_.fleet.locator.items():
+        if slot_ is None:
+            nres_[h_] += sim_.fleet.instances[iid_].resources.vec32
+    kernels.reset_launch_counts()
+    res_, scan_wall_ = timed_scan(tr_, pol_, sim_.fleet.state, normal_res=nres_)
+    scan_absorb(res_.decisions, res_.fallbacks, f"contended {mode_}: simulate_scan")
+    rt_s_, rt_dec_, rt_fb_ = timed_replay(sim_, tr_)
+    scan_absorb(rt_dec_, rt_fb_, f"contended {mode_}: run_trace")
+    replay_same(res_, sim_, f"contended {mode_}", skip=("zone_up",))
+    up_a_, up_b_ = res_.state.zone_up.cpu().numpy(), sim_.fleet.state.zone_up.cpu().numpy()
+    check(res_.counters["storm_kills"] > 10_000 and res_.counters["preemptions"] > 0,
+          f"scan: contended {mode_}: {res_.counters}")
+    scan_contended[mode_] = dict(
+        hosts=N_HOSTS, events=tr_.n_events, decisions=res_.decisions, fallbacks=res_.fallbacks,
+        counters=res_.counters, admission=res_.admission, fleet_build_s=build_s_,
+        simulate_scan_s=scan_wall_, events_per_s=tr_.n_events / scan_wall_,
+        decisions_per_s=res_.decisions / scan_wall_, run_trace_s=rt_s_,
+        run_trace_events_per_s=tr_.n_events / rt_s_,
+        zone_up_relative_gap=float(np.max(np.abs(up_a_ - up_b_) / np.maximum(up_b_, 1.0))),
+        identical_outcomes=True)
+    del sim_, res_, hosts_
+
+# ensembles at 1,024 hosts: 32 seeds of 1,200 s on empty hosts (a quarter
+# of the lanes against their padded single runs), the multiplier axis on
+# saturated hosts, where the rows move placements (each lane on the card
+# against the same lane on the CPU), and 32 admission-knob rows drawn as
+# _bench_scan_stream's, on empty hosts
+ens_state = SoAFleet(zoned_hosts(1024), device=DEV).state
+ens_traces = [scan_trace("direct", SCAN_ENS_S, seed=s_, fail=False, ckpt=0, zone=s_ % 3)
+              for s_ in range(32)]
+kernels.reset_launch_counts()
+t_ = time.perf_counter()
+lanes_ = scan_sim.simulate_ensemble(ens_traces, SCAN_POLICY["direct"], ens_state)
+torch.cuda.synchronize()
+seeds_s_ = time.perf_counter() - t_
+scan_absorb(sum(l_.decisions for l_ in lanes_), sum(l_.fallbacks for l_ in lanes_),
+            "ensemble of 32 seeds")
+emax_ = max(t_.n_events for t_ in ens_traces)
+for i_ in range(0, 32, 4):
+    tr_, lane_ = ens_traces[i_], lanes_[i_]
+    single_ = scan_sim.simulate_scan(tr_.padded(emax_), SCAN_POLICY["direct"], ens_state)
+    e_ = tr_.n_events
+    single_ = dataclasses.replace(single_, host=single_.host[:e_], slot=single_.slot[:e_],
+                                  ok=single_.ok[:e_], n_kill=single_.n_kill[:e_])
+    scan_same(lane_, single_, f"seed lane {i_} against its padded single run")
+kernels.reset_launch_counts()                    # the singles' launches are a check's
+MULT_ROWS = np.array([[1.0, 1.0, 0.0, 0.0, 0.0], [4.0, 0.25, 0.0, 0.0, 0.0],
+                      [0.5, 2.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0, 0.0]], np.float32)
+mtrace_ = on_clock(scan_trace("direct", SCAN_ENS_S, seed=3, fail=False, ckpt=0))
+msat_ = SoAFleet(saturated_zoned(1024, 1), device=DEV).state
+ens_cpu_state = SoAFleet(saturated_zoned(1024, 1), device="cpu").state
+t_ = time.perf_counter()
+mlanes_ = scan_sim.simulate_ensemble([mtrace_], SCAN_POLICY["direct"], msat_, mults=MULT_ROWS)
+torch.cuda.synchronize()
+mult_s_ = time.perf_counter() - t_
+scan_absorb(sum(l_.decisions for l_ in mlanes_), sum(l_.fallbacks for l_ in mlanes_),
+            "multiplier lanes")
+clanes_ = scan_sim.simulate_ensemble([mtrace_], SCAN_POLICY["direct"], ens_cpu_state,
+                                     mults=MULT_ROWS)
+for i_, (g_, c_) in enumerate(zip(mlanes_, clanes_)):
+    scan_same(g_, c_, f"multiplier lane {i_} {MULT_ROWS[i_].tolist()}: card vs CPU")
+rng_ = np.random.default_rng(42)
+KNOB_ROWS = np.column_stack([
+    rng_.uniform(0.0, 0.05, 32), rng_.uniform(30.0, 300.0, 32),
+    np.where(rng_.random(32) < 0.5, np.inf, rng_.uniform(0.005, 0.5, 32))]).astype(np.float32)
+ktrace_ = scan_trace("streaming", SCAN_ENS_S, seed=3, fail=False, ckpt=0)
+t_ = time.perf_counter()
+klanes_ = scan_sim.simulate_ensemble([ktrace_], SCAN_POLICY["streaming"], ens_state,
+                                     knobs=KNOB_ROWS)
+torch.cuda.synchronize()
+knob_s_ = time.perf_counter() - t_
+scan_absorb(sum(l_.decisions for l_ in klanes_), sum(l_.fallbacks for l_ in klanes_),
+            "knob lanes")
+for i_, l_ in enumerate(klanes_):
+    a_ = l_.admission
+    check(a_["arrivals"] == a_["admitted"] + a_["rejected_overflow"] + a_["rejected_retry"]
+          + a_["queue_depth"], f"scan: knob lane {i_}: admission does not balance")
+scan_ensemble = dict(
+    hosts=1024, seeds=dict(lanes=32, rows_padded=emax_, seconds=seeds_s_,
+                           trajectories_per_s=32 / seeds_s_,
+                           decisions=sum(l_.decisions for l_ in lanes_),
+                           lanes_equal_to_their_padded_single=list(range(0, 32, 4))),
+    multipliers=dict(rows=MULT_ROWS.tolist(), fleet="saturated, seed 1, 3 zones",
+                     seconds=mult_s_, preemptions=[l_.counters["preemptions"] for l_ in mlanes_],
+                     trajectories_per_s=len(MULT_ROWS) / mult_s_,
+                     placed=[l_.counters["placed_normal"] + l_.counters["placed_preemptible"]
+                             for l_ in mlanes_],
+                     distinct_outcomes=len({l_.host.tobytes() for l_ in mlanes_}),
+                     card_equals_cpu=True),
+    knobs=dict(lanes=32, seed=42, seconds=knob_s_, trajectories_per_s=32 / knob_s_,
+               admitted=[l_.admission["admitted"] for l_ in klanes_],
+               degraded=sum(l_.admission["degraded"] for l_ in klanes_)))
+del ens_state, ens_cpu_state, msat_, lanes_, mlanes_, clanes_, klanes_
+for name in records:
+    records[name]["launches"] += scan_counts[name]
+    check(scan_counts[name] > 0, f"scan: kernel {name} was never launched")
+emit("scan", card=smi, workload="benchmarks/bench_screen.py::_bench_scan (streaming: "
+     "_bench_scan_stream's policy)", policies={k_: dataclasses.asdict(p_) for k_, p_ in
+                                              SCAN_POLICY.items()},
+     parity=scan_parity, full=scan_full, contended=scan_contended, ensemble=scan_ensemble,
+     method="wall clock (perf_counter, the card synchronised) around each run; a decision "
+            "timed around _step_core (it reads its result back); busy share over a 200-row "
+            "prefix traced with CUDA activity only",
+     launches=scan_counts, launches_implied=scan_implied,
+     seconds=time.perf_counter() - t_scan)
 
 # ---------------------------------------------------------------------------
 # 6. model kernels against their plain versions

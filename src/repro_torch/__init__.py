@@ -19,6 +19,10 @@ the plain PyTorch versions of the kernels on the CPU.  Modules:
   wait queue on the fleet's device, its transitions, the drain and
   ``AdmissionFrontEnd`` (``SoAFleet.submit`` / ``drain`` when the policy's
   ``queue_capacity > 0``);
+* ``repro_torch.core.scan_sim`` — the trace-driven simulator: ``EventTrace``,
+  ``trace_from_workload``, ``simulate_scan`` and ``simulate_ensemble`` (seed,
+  weigher-multiplier and admission-knob axes), a per-event loop on the
+  fleet's device, held against ``SoASimulator.run_trace``;
 * ``repro_torch.core.convert`` — numpy ↔ state tensors for both state
   flavors and the wait queue (``fleet_state_*``, ``host_state_*``,
   ``queue_state_*``);

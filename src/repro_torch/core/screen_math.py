@@ -15,6 +15,15 @@ which rounds once on the CPU and on the card), and the kernels call
 multiplier of 1 or -1 is no product) and LLVM's contraction order (the left
 operand of an add is fused first).  ``tests/test_torch_screen_math.py`` pins
 every site against the jitted reference on non-integer inputs.
+
+**Traced multipliers.**  The JAX package's ensemble and ``simulate_scan(mult=)``
+pass the weigher multipliers into the decision as jit arguments, while the
+policy's own multipliers stay compile-time *gates*: which terms exist, which
+constants fold, and the bound's side.  XLA then cannot drop a product by 1 or
+factor out a shared power of two, so it rounds elsewhere.  ``consts_of``,
+``base_terms`` and ``omega_of`` take ``gates`` (``gate``) for that program:
+the multipliers are the row's values, the gates the policy's; ``gates=None``
+is the static program.  See :func:`_traced_chain` for where it rounds.
 """
 from __future__ import annotations
 
@@ -190,11 +199,14 @@ def consts_of(
     pack_raw: torch.Tensor,
     strag_raw: torch.Tensor,
     churn_raw: Optional[torch.Tensor] = None,
+    gates: Optional[Tuple[float, ...]] = None,
 ) -> ScreenConsts:
     """Fold the per-host terms into ``ScreenConsts`` (min/max folds are
-    order-free, so every fold order gives the same constants)."""
-    m_over, _, m_pack, m_strag = multipliers[:4]
-    m_churn = _m_churn(multipliers)
+    order-free, so every fold order gives the same constants).  A weigher's
+    pair folds when its gate (``gates``, else its multiplier) is not 0."""
+    g = multipliers if gates is None else gates
+    m_over, _, m_pack, m_strag = g[:4]
+    m_churn = _m_churn(g)
     dev = valid.device
     pos = torch.tensor(POS_INF, dtype=torch.float32, device=dev)
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
@@ -295,6 +307,36 @@ def _base_chain(multipliers, norms, m_term=0.0):
     return base, None
 
 
+def _traced_chain(multipliers, norms):
+    """The weigher sum of the traced-multiplier program: the enabled terms
+    ``m * norm`` in the fixed order (over, pack, straggler, churn), every
+    product a real one, rounding where jitted XLA rounds when the
+    multipliers are jit arguments.
+
+    Measured on the reference (tests/test_torch_screen_math.py, non-integer
+    inputs): the first add fuses around the left product, or around the
+    right one when the left is the overcommit term; every later add fuses
+    around its own product.  (The overcommit norm is 0 or 1, so its product
+    is exact.)  Past a few hundred hosts XLA's CPU backend splits the loop,
+    and on a chain of three or four terms led by the overcommit term the
+    split loop rounds otherwise at most positions: ROADMAP.md, fault (k).
+
+    Returns ``(base, pending)`` as :func:`_base_chain`: a single term's
+    product stays unrounded for the termination-cost add to fuse."""
+    terms = [(i, m, x) for i, (m, x) in enumerate(zip(multipliers, norms))
+             if x is not None]
+    if not terms:
+        return None, None
+    i0, m0, x0 = terms[0]
+    if len(terms) == 1:
+        return m0 * x0, (m0, x0)
+    _, m1, x1 = terms[1]
+    base = fma(m1, x1, m0 * x0) if i0 == 0 else fma(m0, x0, m1 * x1)
+    for _, m, x in terms[2:]:
+        base = fma(m, x, base)
+    return base, None
+
+
 def base_from_consts(
     multipliers: Tuple[float, ...],
     over_raw: torch.Tensor,
@@ -302,28 +344,34 @@ def base_from_consts(
     strag_raw: torch.Tensor,
     consts: ScreenConsts,
     churn_raw: Optional[torch.Tensor] = None,
+    gates: Optional[Tuple[float, ...]] = None,
 ) -> torch.Tensor:
     """Enumeration-free weigher terms, summed in the one fixed order every
     path shares; the churn term is added last."""
     return base_terms(multipliers, over_raw, pack_raw, strag_raw, consts,
-                      churn_raw)[0]
+                      churn_raw, gates=gates)[0]
 
 
 def base_terms(multipliers, over_raw, pack_raw, strag_raw, consts,
-               churn_raw=None):
+               churn_raw=None, gates=None):
     """``base_from_consts`` plus the pending product :func:`omega_of`
-    fuses (see :func:`_base_chain`)."""
+    fuses (see :func:`_base_chain`; with ``gates``, the traced program's
+    :func:`_traced_chain`)."""
+    g = multipliers if gates is None else gates
     m_over, _, m_pack, m_strag = multipliers[:4]
+    m_churn = _m_churn(multipliers)
     norms = (
-        norm01(over_raw, consts.over_lo, consts.over_hi) if m_over else None,
-        norm01(pack_raw, consts.pack_lo, consts.pack_hi) if m_pack else None,
-        norm01(strag_raw, consts.strag_lo, consts.strag_hi) if m_strag else None,
+        norm01(over_raw, consts.over_lo, consts.over_hi) if g[0] else None,
+        norm01(pack_raw, consts.pack_lo, consts.pack_hi) if g[2] else None,
+        norm01(strag_raw, consts.strag_lo, consts.strag_hi) if g[3] else None,
         (norm01(churn_raw, consts.churn_lo, consts.churn_hi)
-         if _m_churn(multipliers) and churn_raw is not None else None),
+         if _m_churn(g) and churn_raw is not None else None),
     )
-    base, pending = _base_chain(
-        (m_over, m_pack, m_strag, _m_churn(multipliers)), norms, multipliers[1]
-    )
+    if gates is None:
+        base, pending = _base_chain((m_over, m_pack, m_strag, m_churn), norms,
+                                    multipliers[1])
+    else:
+        base, pending = _traced_chain((m_over, m_pack, m_strag, m_churn), norms)
     if base is None:
         base = torch.zeros_like(over_raw)
     return base, pending
@@ -337,13 +385,27 @@ def omega_of(
     ispan: torch.Tensor,
     m_term: float,
     pending=None,
+    gate: Optional[float] = None,
 ) -> torch.Tensor:
     """Total weigher score: base terms plus the termination-cost weigher
     normalized with the bound-derived constants; invalid hosts score
     ``NEG_INF``.  ``pending`` (from :func:`base_terms`) is base's unrounded
     single product: the reference then fuses it into this add; otherwise it
-    fuses the termination term's product into the rounded base."""
+    fuses the termination term's product into the rounded base.
+
+    ``gate`` (the policy's termination multiplier) marks the traced
+    program, where ``m_term`` is the row's value: the term is added when
+    the gate is not 0, ``m_term * (x * ispan)`` rounded once more, and the
+    add fuses the pending product, else the term's own."""
     w = base
+    if gate is not None:
+        if gate:
+            term = (consts.c_hi - torch.clamp(best_cost, max=POS_INF)) * ispan
+            if pending is not None:
+                w = fma(pending[0], pending[1], m_term * term)
+            else:
+                w = fma(m_term, term, base)
+        return torch.where(valid, w, NEG_INF)
     if m_term:
         x = consts.c_hi - torch.clamp(best_cost, max=POS_INF)
         if pending is not None:

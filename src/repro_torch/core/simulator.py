@@ -24,7 +24,9 @@ a zone between calm and stormy phases; with ``policy.relocate_threshold``
 set, both loops run a relocation pass every ``relocate_every_s`` and follow
 a relocated instance's departure to its replacement.
 
-Not ported yet: ``run_trace`` (and its streaming mode; see ``ROADMAP.md``).
+``SoASimulator.run_trace`` replays a pre-materialised ``core.scan_sim``
+``EventTrace`` through the same fleet (direct and streaming): the oracle
+that ``scan_sim.simulate_scan`` is held against.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from .cost import CostFunction
 from .scheduler import BaseScheduler
 from .soa_fleet import SoAFleet
 from .types import Request, Resources
+from .policy import COST_KINDS
 
 
 @dataclasses.dataclass(order=True)
@@ -422,6 +425,218 @@ class SoASimulator:
         self._pending.clear()
         self._min_dep = float("inf")
         return failed_normal
+
+    # -- pre-materialised trace replay (the scan_sim oracle) --------------------
+    def run_trace(self, trace, sample_every_s: float = 300.0) -> SimMetrics:
+        """Replay an ``EventTrace`` (``core.scan_sim``) through this event
+        loop: the oracle ``scan_sim.simulate_scan`` is held against.  The
+        flush and sample rules are ``run``'s (a flush before a non-arrival,
+        at a sample time and at ``batch_max``), but the events are the trace
+        rows in index order instead of the heap and the rng.
+
+        Returns ``SimMetrics``; ``self.trace_outcomes`` holds one
+        ``(host_idx, slot, ok, n_victims)`` row per trace row (-1/-1/0/0 for
+        non-arrival rows), as ``ScanResult.host/slot/ok/n_kill``.
+
+        With ``policy.queue_capacity > 0`` the replay is in streaming
+        admission mode (``_run_trace_streaming``)."""
+        from . import scan_sim as ss
+
+        fleet = self.fleet
+        if fleet.policy.relocation_on:
+            raise NotImplementedError(
+                "run_trace: the relocation plane rewrites instance ids "
+                "mid-trace; run it via SoASimulator.run"
+            )
+        if fleet.admission is not None:
+            return self._run_trace_streaming(trace, sample_every_s)
+        e = trace.n_events
+        inv_dom = {i: name for name, i in fleet.domain_ids.items()}
+        #: arrival row -> live instance id (None = rejected / never placed)
+        iids: List[Optional[str]] = [None] * e
+        self.trace_outcomes = np.full((e, 4), -1, np.int64)
+        self.trace_outcomes[:, 2:] = 0
+        pending: List[int] = []  # buffered arrival row indices
+        next_sample = 0.0
+
+        def flush() -> None:
+            items = []
+            for row in pending:
+                req = self._trace_request(trace, row, inv_dom)
+                items.append((req, float(trace.time[row]), float(trace.price[row])))
+            outcomes = fleet.schedule_batch(items)
+            for row, out in zip(pending, outcomes):
+                self.metrics.preemptions += len(out.victims)
+                pre = bool(trace.preemptible[row])
+                if out.ok:
+                    iids[row] = out.instance.id
+                    h = fleet.index[out.instance.host]
+                    s = out.instance.metadata.get("slot", -1)
+                    self.trace_outcomes[row] = (h, s, 1, len(out.victims))
+                    if pre:
+                        self.metrics.placed_preemptible += 1
+                    else:
+                        self.metrics.placed_normal += 1
+                else:
+                    self.trace_outcomes[row] = (-1, -1, 0, len(out.victims))
+                    if pre:
+                        self.metrics.failures_preemptible += 1
+                    else:
+                        self.metrics.failures_normal += 1
+            pending.clear()
+
+        for row in range(e):
+            kind = int(trace.kind[row])
+            t = float(trace.time[row])
+            if pending and (
+                kind != ss.ARRIVAL
+                or t >= next_sample
+                or len(pending) >= self.batch_max
+            ):
+                flush()
+            self.now = t
+            if self.now >= next_sample:
+                self._sample()
+                next_sample = self.now + sample_every_s
+            if kind == ss.ARRIVAL:
+                pending.append(row)
+            else:
+                self._trace_event(trace, row, kind, iids)
+        if pending:
+            flush()
+        self._sample()
+        return self.metrics
+
+    def _trace_event(self, trace, row: int, kind: int, iids) -> None:
+        """A non-arrival trace row on the fleet (both replay modes)."""
+        from . import scan_sim as ss
+
+        fleet = self.fleet
+        if kind in (ss.DEPARTURE, ss.CHECKPOINT):
+            iid = iids[int(trace.inst_id[row])]
+            if iid is None:
+                return
+            if kind == ss.DEPARTURE:
+                fleet.depart(self._depart_id(iid), now=self.now)
+            else:
+                fleet.checkpoint(iid, now=self.now)
+        elif kind == ss.FAIL_HOST:
+            fleet.fail_host(fleet.names[int(trace.host[row])], now=self.now)
+        elif kind == ss.HEAL_HOST:
+            fleet.heal_host(fleet.names[int(trace.host[row])])
+        elif kind == ss.ZONE_STORM:
+            self._trace_storm(int(trace.zone[row]), float(trace.frac[row]))
+
+    def _trace_request(self, trace, row: int, inv_dom) -> Request:
+        kind_id = int(trace.cost_kind[row])
+        period = float(trace.period[row])
+        dom_id = int(trace.domain[row])
+        prio = int(trace.priority[row])
+        return Request(
+            id=f"e{row}",
+            resources=Resources(self.fleet.spec, np.asarray(trace.res[row])),
+            preemptible=bool(trace.preemptible[row]),
+            domain=None if dom_id < 0 else inv_dom[dom_id],
+            cost_kind=None if kind_id < 0 else COST_KINDS[kind_id],
+            period=None if period <= 0 else period,
+            priority=None if prio < 0 else prio,
+        )
+
+    def _trace_storm(self, zone_id: int, kill_frac: float) -> int:
+        """The trace replay's storm (no rng, unlike ``_zone_storm``): kill
+        the ``n`` lowest ``(host, slot)`` live preemptible slots of the
+        zone, ``n = min(max(1, round_f32(count * frac)), count)``, the rule
+        ``scan_sim``'s storm computes on the device."""
+        fleet = self.fleet
+        victims = sorted(
+            (h, slot, iid)
+            for iid, (h, slot) in fleet.locator.items()
+            if slot is not None and fleet.zone_ids[fleet.zones[h]] == zone_id
+        )
+        self.metrics.storms += 1
+        if not victims:
+            return 0
+        n = min(
+            max(1, int(np.round(np.float32(len(victims)) * np.float32(kill_frac)))),
+            len(victims),
+        )
+        killed = 0
+        for _, _, iid in victims[:n]:
+            killed += bool(fleet.preempt_instance(iid, now=self.now))
+        self.metrics.storm_kills += killed
+        return killed
+
+    # -- pre-materialised trace replay, streaming admission mode ---------------
+    def _run_trace_streaming(self, trace, sample_every_s: float) -> SimMetrics:
+        """Streaming-mode trace replay: the oracle for ``scan_sim``'s
+        admission plane.
+
+        Every drain blocks and fires at an event boundary on the scan's
+        triggers, in this order: (1) before the event, when its time reaches
+        the oldest waiting arrival's f32 SLO deadline (at most once a
+        boundary); (2) after an arrival, when a full ``admit_batch`` waits;
+        (3) after a departure, failure, heal or storm while anything waits.
+        Placements count under the request's effective (demoted)
+        preemptible flag, rejections under the trace's own flag, as the
+        scan's counters do."""
+        from . import scan_sim as ss
+
+        fleet = self.fleet
+        front = fleet.admission
+        policy = fleet.policy
+        e = trace.n_events
+        inv_dom = {i: name for name, i in fleet.domain_ids.items()}
+        iids: List[Optional[str]] = [None] * e
+        self.trace_outcomes = np.full((e, 4), -1, np.int64)
+        self.trace_outcomes[:, 2:] = 0
+        next_sample = 0.0
+        slo32 = np.float32(policy.slo_target_s)
+
+        def handle(dr) -> None:
+            for out in dr.outcomes:
+                req = out.request
+                row = int(req.id[1:])
+                self.metrics.preemptions += len(out.victims)
+                iids[row] = out.instance.id
+                h = fleet.index[out.instance.host]
+                s = out.instance.metadata.get("slot", -1)
+                self.trace_outcomes[row] = (h, s, 1, len(out.victims))
+                if req.preemptible:  # the effective flag (a storm demotes)
+                    self.metrics.placed_preemptible += 1
+                else:
+                    self.metrics.placed_normal += 1
+            for req in dr.rejected:
+                if bool(trace.preemptible[int(req.id[1:])]):  # the trace's flag
+                    self.metrics.failures_preemptible += 1
+                else:
+                    self.metrics.failures_normal += 1
+
+        freeing = (ss.DEPARTURE, ss.FAIL_HOST, ss.HEAL_HOST, ss.ZONE_STORM)
+        for row in range(e):
+            kind = int(trace.kind[row])
+            t = float(trace.time[row])
+            self.now = t
+            if self.now >= next_sample:
+                self._sample()
+                next_sample = self.now + sample_every_s
+            oldest = front.oldest_enq_t()
+            if oldest is not None and np.float32(t) >= np.float32(oldest) + slo32:
+                handle(front.drain(self.now, block=True))
+            if kind == ss.ARRIVAL:
+                front.submit(
+                    self._trace_request(trace, row, inv_dom), self.now,
+                    price=float(trace.price[row]),
+                )
+                if front.waiting >= policy.admit_batch:
+                    handle(front.drain(self.now, block=True))
+                continue
+            self._trace_event(trace, row, kind, iids)
+            if kind in freeing and front.waiting:
+                handle(front.drain(self.now, block=True))
+        for dr in front.drain_all(self.now):
+            handle(dr)
+        self._sample()
+        return self.metrics
 
     # -- streaming admission mode (policy.queue_capacity > 0) -------------------
     def _run_streaming(

@@ -104,11 +104,11 @@ def _mask_bits(k: int, device: torch.device) -> torch.Tensor:
     return _BITS[key]
 
 
-def _base_of(mult, raw, consts: ScreenConsts):
+def _base_of(mult, raw, consts: ScreenConsts, gates=None):
     """``base_terms`` over a 3- or 4-entry ``raw`` tuple: the base weigher
     sum and the product ``omega_of`` fuses into the termination term."""
     churn_raw = raw[3] if len(raw) > 3 else None
-    return base_terms(mult, raw[0], raw[1], raw[2], consts, churn_raw)
+    return base_terms(mult, raw[0], raw[1], raw[2], consts, churn_raw, gates=gates)
 
 
 # ---------------------------------------------------------------------------
@@ -133,9 +133,17 @@ def _decision_core(
     churn: Optional[torch.Tensor] = None,
     host_zone: Optional[torch.Tensor] = None,
     exclude_zone: Optional[int] = None,
+    mult_val: Optional[Sequence[float]] = None,
 ) -> Tuple[int, int, bool, bool, torch.Tensor]:
     """The two-stage pipeline on raw fleet tensors (port of
     ``jax_scheduler._decision_core`` without the mesh branch).
+
+    ``mult_val`` (the ensemble's multiplier axis) is a row of weigher
+    multiplier values, as f32 numbers, taking the place of the policy's:
+    the policy's own stay the gates (which terms exist, which constants
+    fold, the bound's side) and the row's values do the arithmetic, rounded
+    as the JAX package's program with traced multipliers rounds
+    (``screen_math._traced_chain``).  ``None`` is the static program.
 
     Returns ``(host_idx, term_mask_idx, ok, fell_back, margin)``: the first
     four as python values (read back in the decision's one host sync),
@@ -156,7 +164,13 @@ def _decision_core(
         host_zone = exclude_zone = None
     mult = policy.all_multipliers if churn_on else policy.weigher_multipliers
     thr = policy.churn_threshold if churn_on else None
+    gates = None
+    if mult_val is not None:
+        gates = mult
+        mult = tuple(float(mult_val[i]) for i in range(len(gates)))
     m_term = mult[1]
+    gate = None if gates is None else gates[1]     # omega_of's traced program
+    m_term_gate = m_term if gates is None else gate
     pre = bool(req_preemptible)
     dom = int(req_domain)
 
@@ -175,8 +189,8 @@ def _decision_core(
             free_f, free_n, schedulable, domain, slow,
             inst_res, inst_cost, inst_valid, churn, host_zone,
         )
-        consts = consts_of(mult, valid, cost_lb, cost_ub, *raw)
-        base, pending = _base_of(mult, raw, consts)
+        consts = consts_of(mult, valid, cost_lb, cost_ub, *raw, gates=gates)
+        base, pending = _base_of(mult, raw, consts, gates)
         ispan = inv_span(consts.c_lo, consts.c_hi)
         best_cost, best_mask, _ = sched_weigh(
             free_f, inst_res, inst_cost, inst_valid, req_res
@@ -185,7 +199,7 @@ def _decision_core(
             best_cost = torch.zeros_like(best_cost)
             best_mask = torch.zeros_like(best_mask)
         omega = omega_of(best_cost, base, valid, consts, ispan, m_term,
-                         pending=pending)
+                         pending=pending, gate=gate)
         host_idx = torch.argmax(omega)
         out = torch.stack([
             host_idx.to(torch.float64), best_mask[host_idx].to(torch.float64),
@@ -207,7 +221,7 @@ def _decision_core(
         require_free_slot=require_free_slot,
         m_keep=m_cand + 1,
         churn=churn, churn_threshold=thr,
-        host_zone=host_zone, exclude_zone=exclude_zone,
+        host_zone=host_zone, exclude_zone=exclude_zone, gates=gates,
     )
     consts = ScreenConsts.unpack(consts_arr)
     cand = top_i[:m_cand].long()
@@ -218,7 +232,7 @@ def _decision_core(
         churn[cand] if churn_on else None,
         host_zone[cand] if zone_on else None,
     )
-    base_c, pending_c = _base_of(mult, raw_c, consts)
+    base_c, pending_c = _base_of(mult, raw_c, consts, gates)
 
     # ---- stage 2: exact enumeration on the gathered shortlist ---------------
     ispan = inv_span(consts.c_lo, consts.c_hi)
@@ -230,7 +244,7 @@ def _decision_core(
         bc_s = torch.zeros_like(bc_s)
         bm_s = torch.zeros_like(bm_s)
     omega_s = omega_of(bc_s, base_c, valid_c, consts, ispan, m_term,
-                       pending=pending_c)
+                       pending=pending_c, gate=gate)
     best_val = torch.amax(omega_s)
     # Winner = lowest original index among exact-score ties.
     tie_idx = torch.where(omega_s == best_val, cand, n_hosts)
@@ -239,7 +253,7 @@ def _decision_core(
     ok_s = best_val > NEG_INF / 2
 
     # ---- admissibility: can any non-shortlisted host still win? -------------
-    if m_term:
+    if m_term_gate:
         scale = abs(m_term) * ispan * (3.0 * k * 1.2e-7)
         bound = fma(-scale, torch.maximum(torch.abs(consts.c_hi),
                                           torch.abs(consts.c_lo)), best_val)
@@ -724,7 +738,8 @@ def _req_inputs(state: SoAFleetState, now, policy: SchedulerPolicy):
 
 
 def _step_core(state, req_res, req_preemptible, req_domain, now, price,
-               req_cost_kind, req_period, policy, req_exclude=None):
+               req_cost_kind, req_period, policy, req_exclude=None,
+               mult_val=None):
     now = _f32(now)
     inst_cost, churn = _req_inputs(state, now, policy)
     host_idx, mask_idx, ok, fell_back, margin = _decision_core(
@@ -733,7 +748,7 @@ def _step_core(state, req_res, req_preemptible, req_domain, now, price,
         req_res, bool(req_preemptible), int(req_domain),
         policy, require_free_slot=True, churn=churn,
         host_zone=state.host_zone if req_exclude is not None else None,
-        exclude_zone=req_exclude,
+        exclude_zone=req_exclude, mult_val=mult_val,
     )
     slot, kill = _apply_decision(
         state, host_idx, mask_idx, ok, req_res, bool(req_preemptible), now,

@@ -50,6 +50,13 @@
 // Floating point: compiled with --fmad=false; the multiply-adds that jitted
 // XLA contracts (see core/screen_math.py) are explicit __fmaf_rn calls, so
 // every output equals the plain PyTorch version bit for bit.
+//
+// Two programs, as in the JAX package: the static one, whose multipliers are
+// constants (a product by 1 is none, a shared power of two is factored out),
+// and the traced one of its ensemble (`traced`), whose multipliers are the
+// row's values while `gates` (a bit a weigher, from the policy's own
+// multipliers) says which terms exist and `term_ub` the bound's side.  The
+// wrapper sets `gates` and `term_ub` from the values in the static program.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,10 +82,19 @@ struct ScreenArgs {
     int pre, rdom, excl, require_free_slot, has_thr;
     float thr;
     float m_over, m_term, m_pack, m_strag, m_churn;
+    int gates;     // bits: over, term, pack, straggler, churn (on when set)
+    int term_ub;   // score the termination term from cost_ub (its gate < 0)
+    int traced;    // 1: the traced-multiplier program
 };
 
+#define GATE_OVER 1
+#define GATE_TERM 2
+#define GATE_PACK 4
+#define GATE_STRAG 8
+#define GATE_CHURN 16
+
 // The launch parameters: the arguments and the weigher plan, the weighers
-// whose multiplier is not 0 in the order over, pack, strag, churn.
+// whose gate is on in the order over, pack, strag, churn.
 struct Screen {
     ScreenArgs a;
     int cnt;
@@ -328,8 +344,9 @@ screen_consts_kernel(Screen p, float* __restrict__ partial, unsigned* __restrict
     if (tid < a.d) req[tid] = a.req[tid];
     // even entries fold with min, odd with max; a weigher that is off keeps
     // (1e30, -1e30), as consts_of does
-    const bool on[5] = {true, a.m_over != 0.0f, a.m_pack != 0.0f, a.m_strag != 0.0f,
-                        a.m_churn != 0.0f && a.churn != nullptr};
+    const bool on[5] = {true, (a.gates & GATE_OVER) != 0, (a.gates & GATE_PACK) != 0,
+                        (a.gates & GATE_STRAG) != 0,
+                        (a.gates & GATE_CHURN) != 0 && a.churn != nullptr};
     float v[10];
 #pragma unroll
     for (int q = 0; q < 5; ++q) { v[2 * q] = 1e30f; v[2 * q + 1] = -1e30f; }
@@ -420,6 +437,34 @@ static __device__ __forceinline__ float raw_of(const HostTerms& t, int q) {
     return q == 0 ? t.over_raw : (q == 1 ? t.pack_raw : (q == 2 ? t.strag_raw : t.churn_raw));
 }
 
+// the traced program's omega_ub: every multiplier a real product, rounded as
+// core/screen_math.py's _traced_chain and omega_of(gate=...) say
+static __device__ __forceinline__ float omega_traced(const Screen& p, const HostTerms& t,
+                                                     const float* c, const float (&ms)[4],
+                                                     const float (&xs)[4]) {
+    const ScreenArgs& a = p.a;
+    const int cnt = p.cnt;
+    float base = 0.0f;
+    if (cnt == 1) base = ms[0] * xs[0];
+    else if (cnt >= 2) {
+        base = (p.q[0] == 0) ? __fmaf_rn(ms[1], xs[1], ms[0] * xs[0])
+                             : __fmaf_rn(ms[0], xs[0], ms[1] * xs[1]);
+#pragma unroll
+        for (int j = 2; j < 4; ++j)
+            if (j < cnt) base = __fmaf_rn(ms[j], xs[j], base);
+    }
+    float w = base;
+    if (a.gates & GATE_TERM) {
+        const float span = c[1] - c[0];
+        const float ispan = (span > 1e-12f) ? 1.0f / span : 0.0f;
+        const float opt = a.term_ub ? t.cost_ub : t.cost_lb;
+        const float term = (c[1] - fminf(opt, 1e30f)) * ispan;
+        w = (cnt == 1) ? __fmaf_rn(ms[0], xs[0], a.m_term * term)
+                       : __fmaf_rn(a.m_term, term, base);
+    }
+    return t.valid ? w : -1e30f;
+}
+
 // omega_ub with the weigher sum rounded where jitted XLA rounds; the same
 // rules as core/screen_math.py (_base_chain, omega_of).
 static __device__ __forceinline__ float omega_ub(const Screen& p, const HostTerms& t,
@@ -433,6 +478,7 @@ static __device__ __forceinline__ float omega_ub(const Screen& p, const HostTerm
         ms[j] = mult_of(a, q);
         xs[j] = norm01(raw_of(t, q), c[2 + 2 * q], c[3 + 2 * q]);
     }
+    if (a.traced) return omega_traced(p, t, c, ms, xs);
     float base = 0.0f;
     bool pending = false;
     float pm = 0.0f, px = 0.0f;
@@ -465,10 +511,10 @@ static __device__ __forceinline__ float omega_ub(const Screen& p, const HostTerm
         }
     }
     float w = base;
-    if (a.m_term != 0.0f) {
+    if (a.gates & GATE_TERM) {
         const float span = c[1] - c[0];
         const float ispan = (span > 1e-12f) ? 1.0f / span : 0.0f;
-        const float opt = (a.m_term >= 0.0f) ? t.cost_lb : t.cost_ub;
+        const float opt = a.term_ub ? t.cost_ub : t.cost_lb;
         const float x = c[1] - fminf(opt, 1e30f);
         if (pending) w = __fmaf_rn(pm, px, scaled(a.m_term, x * ispan));
         else if (a.m_term == 1.0f) w = __fmaf_rn(x, ispan, base);
@@ -699,10 +745,11 @@ screen_topm_kernel(Screen p, const float* __restrict__ consts, int m_keep, int p
 static Screen plan_of(const ScreenArgs& a) {
     Screen p;
     p.a = a;
-    const float ms[4] = {a.m_over, a.m_pack, a.m_strag, a.churn ? a.m_churn : 0.0f};
+    const bool on[4] = {(a.gates & GATE_OVER) != 0, (a.gates & GATE_PACK) != 0,
+                        (a.gates & GATE_STRAG) != 0, a.churn && (a.gates & GATE_CHURN) != 0};
     p.cnt = 0;
     for (int q = 0; q < 4; ++q)
-        if (ms[q] != 0.0f) p.q[p.cnt++] = q;
+        if (on[q]) p.q[p.cnt++] = q;
     for (int j = p.cnt; j < 4; ++j) p.q[j] = 0;
     return p;
 }

@@ -17,6 +17,12 @@ order).  CPU tensors run them; CUDA tensors launch the kernels or raise.
 
 The request fields ``req_preemptible``, ``req_domain`` and ``exclude_zone``
 are python scalars (a CUDA kernel takes them as launch arguments).
+
+``gates`` (the policy's own multipliers) selects the traced-multiplier
+program of the JAX package's ensemble: ``weigher_multipliers`` are then the
+row's values, the gates say which terms exist and the bound's side, and the
+weigher sum rounds as ``screen_math._traced_chain`` says.  The kernels take
+it as a gate mask and a mode flag.
 """
 from __future__ import annotations
 
@@ -96,11 +102,19 @@ class _ScreenArgs(ctypes.Structure):
             "n", "k", "d", "pre", "rdom", "excl", "require_free_slot",
             "has_thr")] + [
         (name, ctypes.c_float) for name in (
-            "thr", "m_over", "m_term", "m_pack", "m_strag", "m_churn")]
+            "thr", "m_over", "m_term", "m_pack", "m_strag", "m_churn")] + [
+        (name, ctypes.c_int) for name in ("gates", "term_ub", "traced")]
 
 
 def _m_churn(mult: Sequence[float]) -> float:
     return mult[4] if len(mult) > 4 else 0.0
+
+
+def _gate_bits(gates: Sequence[float]) -> int:
+    """The weighers that are on, as bits in the order over, term, pack,
+    straggler, churn."""
+    g = tuple(gates[:4]) + (_m_churn(gates),)
+    return sum(1 << i for i, m in enumerate(g) if m)
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +135,7 @@ def sched_screen_consts_plain(
     free_f, free_n, schedulable, domain, slow, inst_res, inst_cost, inst_valid,
     req_res, req_preemptible, req_domain, weigher_multipliers,
     require_free_slot: bool, churn=None, churn_threshold=None,
-    host_zone=None, exclude_zone=None,
+    host_zone=None, exclude_zone=None, gates=None,
 ) -> torch.Tensor:
     """The packed (10,) ``ScreenConsts`` of the jnp screen."""
     fleet = (free_f, free_n, schedulable, domain, slow, inst_res, inst_cost,
@@ -129,18 +143,20 @@ def sched_screen_consts_plain(
     valid, lb, ub, raw = _stage1(fleet, req_preemptible, req_domain,
                                  require_free_slot, churn, churn_threshold,
                                  host_zone, exclude_zone)
-    return consts_of(tuple(weigher_multipliers), valid, lb, ub, *raw).pack()
+    return consts_of(tuple(weigher_multipliers), valid, lb, ub, *raw,
+                     gates=gates).pack()
 
 
 def sched_screen_topm_plain(
     free_f, free_n, schedulable, domain, slow, inst_res, inst_cost, inst_valid,
     req_res, req_preemptible, req_domain, consts, weigher_multipliers,
     require_free_slot: bool, m_keep: int, churn=None, churn_threshold=None,
-    host_zone=None, exclude_zone=None,
+    host_zone=None, exclude_zone=None, gates=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``omega_ub`` against ``consts`` → the ``m_keep`` best, descending,
     ties at the lowest host index."""
     mult = tuple(weigher_multipliers)
+    side = mult[1] if gates is None else gates[1]
     fleet = (free_f, free_n, schedulable, domain, slow, inst_res, inst_cost,
              inst_valid, req_res)
     valid, lb, ub, raw = _stage1(fleet, req_preemptible, req_domain,
@@ -148,10 +164,11 @@ def sched_screen_topm_plain(
                                  host_zone, exclude_zone)
     c = ScreenConsts.unpack(consts)
     base, pending = base_terms(mult, raw[0], raw[1], raw[2], c,
-                               raw[3] if len(raw) > 3 else None)
+                               raw[3] if len(raw) > 3 else None, gates=gates)
     ispan = inv_span(c.c_lo, c.c_hi)
-    opt = lb if mult[1] >= 0 else ub
-    omega = omega_of(opt, base, valid, c, ispan, mult[1], pending=pending)
+    opt = lb if side >= 0 else ub
+    omega = omega_of(opt, base, valid, c, ispan, mult[1], pending=pending,
+                     gate=None if gates is None else gates[1])
     order = torch.sort(omega, descending=True, stable=True).indices[:m_keep]
     return omega[order], order.to(torch.int32)
 
@@ -164,7 +181,7 @@ def sched_screen_topm_plain(
 def _screen_args(free_f, free_n, schedulable, domain, slow, inst_res,
                  inst_cost, inst_valid, req_res, req_preemptible, req_domain,
                  weigher_multipliers, require_free_slot, churn,
-                 churn_threshold, host_zone, exclude_zone) -> _ScreenArgs:
+                 churn_threshold, host_zone, exclude_zone, gates=None) -> _ScreenArgs:
     """Validate the fleet tensors for the kernels and pack the launch
     arguments.  Raises on anything the kernels do not take."""
     if inst_res.dim() != 3:
@@ -197,6 +214,9 @@ def _screen_args(free_f, free_n, schedulable, domain, slow, inst_res,
     mult = tuple(float(m) for m in weigher_multipliers)
     if len(mult) not in (4, 5):
         raise ValueError("sched_screen: weigher_multipliers needs 4 or 5 entries")
+    gate = mult if gates is None else tuple(float(g) for g in gates)
+    if len(gate) != len(mult):
+        raise ValueError("sched_screen: gates and weigher_multipliers differ in length")
     zone_on = host_zone is not None and exclude_zone is not None
     return _ScreenArgs(
         free_f.data_ptr(), free_n.data_ptr(), schedulable.data_ptr(),
@@ -209,6 +229,7 @@ def _screen_args(free_f, free_n, schedulable, domain, slow, inst_res,
         int(churn_threshold is not None),
         float(churn_threshold) if churn_threshold is not None else 0.0,
         mult[0], mult[1], mult[2], mult[3], _m_churn(mult),
+        _gate_bits(gate), int(gate[1] < 0), int(gates is not None),
     )
 
 
@@ -298,14 +319,14 @@ def sched_screen_consts(
     free_f, free_n, schedulable, domain, slow, inst_res, inst_cost, inst_valid,
     req_res, req_preemptible, req_domain, weigher_multipliers,
     require_free_slot: bool, churn=None, churn_threshold=None,
-    host_zone=None, exclude_zone=None,
+    host_zone=None, exclude_zone=None, gates=None,
 ) -> torch.Tensor:
     """Fold only the 10 normalization constants; returns them packed (10,)."""
     fleet = (free_f, free_n, schedulable, domain, slow, inst_res, inst_cost,
              inst_valid, req_res, req_preemptible, req_domain,
              weigher_multipliers, require_free_slot)
     extra = dict(churn=churn, churn_threshold=churn_threshold,
-                 host_zone=host_zone, exclude_zone=exclude_zone)
+                 host_zone=host_zone, exclude_zone=exclude_zone, gates=gates)
     if _device_of(free_f) == "cpu":
         return sched_screen_consts_plain(*fleet, **extra)
     args = _screen_args(*fleet, **extra)
@@ -324,14 +345,14 @@ def sched_screen_topm(
     free_f, free_n, schedulable, domain, slow, inst_res, inst_cost, inst_valid,
     req_res, req_preemptible, req_domain, consts, weigher_multipliers,
     require_free_slot: bool, m_keep: int, churn=None, churn_threshold=None,
-    host_zone=None, exclude_zone=None,
+    host_zone=None, exclude_zone=None, gates=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Score ``omega_ub`` against ``consts`` and return the top ``m_keep``
     ``(scores, host indices)``."""
     head = (free_f, free_n, schedulable, domain, slow, inst_res, inst_cost,
             inst_valid, req_res, req_preemptible, req_domain)
     extra = dict(churn=churn, churn_threshold=churn_threshold,
-                 host_zone=host_zone, exclude_zone=exclude_zone)
+                 host_zone=host_zone, exclude_zone=exclude_zone, gates=gates)
     if _device_of(free_f) == "cpu":
         _check_m_keep(m_keep, free_f.shape[0])
         return sched_screen_topm_plain(*head, consts, weigher_multipliers,
@@ -347,7 +368,7 @@ def sched_screen(
     free_f, free_n, schedulable, domain, slow, inst_res, inst_cost, inst_valid,
     req_res, req_preemptible, req_domain, weigher_multipliers,
     require_free_slot: bool, m_keep: int, churn=None, churn_threshold=None,
-    host_zone=None, exclude_zone=None,
+    host_zone=None, exclude_zone=None, gates=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stage-1 screen: ``(top_scores (m_keep,), top_idx (m_keep,), consts
     (10,))`` — the constants pass, then the top-M pass against them.
@@ -359,7 +380,7 @@ def sched_screen(
              inst_valid, req_res, req_preemptible, req_domain,
              weigher_multipliers, require_free_slot)
     extra = dict(churn=churn, churn_threshold=churn_threshold,
-                 host_zone=host_zone, exclude_zone=exclude_zone)
+                 host_zone=host_zone, exclude_zone=exclude_zone, gates=gates)
     if _device_of(free_f) == "cpu":
         _check_m_keep(m_keep, free_f.shape[0])
         consts = sched_screen_consts_plain(*fleet, **extra)

@@ -685,3 +685,89 @@ def test_relocate_many_on_card_matches_cpu(cuda_device):
     assert counts["sched_screen_consts"] == counts["sched_screen_topm"] == b
     assert counts["sched_weigh_gathered"] == b and counts["sched_screen"] == 2 * b
     assert counts["sched_weigh"] == b + fb
+
+
+#: the ensemble's multiplier rows: the reference's three, then a zero under a
+#: nonzero gate; and a churn-aware policy's rows
+TRACED_ROWS = ((1.0, 1.0, 0.0, 0.0), (4.0, 0.25, 0.0, 0.0), (0.5, 2.0, 0.0, 0.0),
+               (0.0, 1.0, 0.0, 0.0))
+TRACED_CHURN_ROWS = ((1.0, 1.0, 0.5, 0.25, 2.0), (0.7, 1.3, 0.3, 1.7, 0.5),
+                     (0.0, 1.0, 0.0, 0.25, 0.0))
+
+
+@pytest.mark.parametrize("n", [320, 65536])
+@pytest.mark.parametrize("pre", [False, True])
+def test_sched_screen_traced_mode_matches_plain(cuda_device, n, pre):
+    """The screen's traced-multiplier mode (``gates=``): the row's values do
+    the arithmetic, the policy's multipliers gate the terms; bit for bit
+    against the plain versions, on the integer grid and at a fractional
+    clock, with and without the churn and zone operands."""
+    hosts = fleets.saturated_fleet(n, seed=n)
+    fleet = SoAFleet(hosts, device=cuda_device)
+    st = fleet.state
+    req = torch.tensor(fleets.SIZES["medium"].vec, dtype=torch.float32, device=cuda_device)
+    rng = np.random.default_rng(n)
+    churn = dict(
+        churn=torch.from_numpy((rng.integers(0, 8, n) / 8.0).astype(np.float32)).to(cuda_device),
+        churn_threshold=0.5,
+        host_zone=torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)).to(cuda_device),
+        exclude_zone=2)
+    for now in (fleets.NOW, fleets.NOW + 0.3):
+        costs = fleet_slot_costs(st, now, SchedulerPolicy())
+        head = (st.free_f, st.free_n, st.schedulable, st.domain, st.slow, st.inst_res, costs,
+                st.inst_valid, req, pre, -1)
+        for gates, rows, kw in (((1.0, 1.0, 0.0, 0.0), TRACED_ROWS, {}),
+                                (CHURN_MULT, TRACED_CHURN_ROWS, churn)):
+            for row in rows:
+                got = kernels.sched_screen(*head, row, True, 65, gates=gates, **kw)
+                consts = kernels.sched_screen_consts_plain(*head, row, True, gates=gates, **kw)
+                want = kernels.sched_screen_topm_plain(*head, consts, row, True, 65,
+                                                       gates=gates, **kw)
+                _eq(got[2], consts)
+                _eq(got[0], want[0])
+                _eq(got[1], want[1])
+
+
+def test_simulate_scan_on_card_matches_cpu(cuda_device):
+    """``_bench_scan``'s trace (a storm, a failure and heal, checkpoints) on
+    4,096 Table 1 nodes: ``simulate_scan`` on the card equals it on the CPU
+    and the card's ``run_trace`` (outcomes, counters, samples, final state),
+    and each decision launched the screen twice and the gathered weigh."""
+    from repro_torch.core import scan_sim
+    from repro_torch.core.convert import fleet_state_to_numpy
+    from repro_torch.core.simulator import SoASimulator, WorkloadSpec
+    from repro_torch.core.types import Host
+
+    spec = WorkloadSpec(arrival_rate_per_s=1 / 8.0, lifetime_min_s=300.0,
+                        lifetime_mean_s=1200.0, lifetime_max_s=2400.0,
+                        preemptible_fraction=0.6, flavors=list(fleets.SIZES.items()))
+    trace = scan_sim.trace_from_workload(spec, 1600.0, seed=7, storms=((800.0, 0, 0.5),),
+                                         failures=((640.0, 1, 320.0),), checkpoint_every=4)
+
+    def sim(device):
+        hosts = [Host(name=f"h{j}", capacity=fleets.NODE_CAP, zone=f"z{j % 3}")
+                 for j in range(4096)]
+        return SoASimulator(hosts, spec, seed=7, policy=SchedulerPolicy(), device=device)
+
+    gsim, csim = sim(cuda_device), sim("cpu")
+    kernels.reset_launch_counts()
+    card = scan_sim.simulate_scan(trace, SchedulerPolicy(), gsim.fleet.state)
+    counts = kernels.launch_counts()
+    cpu = scan_sim.simulate_scan(trace, SchedulerPolicy(), csim.fleet.state)
+    gsim.run_trace(trace)
+    decisions = int((trace.kind == scan_sim.ARRIVAL).sum())
+    assert card.decisions == cpu.decisions == decisions
+    assert counts["sched_screen_consts"] == counts["sched_screen_topm"] == decisions
+    assert counts["sched_weigh_gathered"] == decisions
+    assert counts["sched_weigh"] == decisions + card.fallbacks
+    assert card.counters == cpu.counters and card.fallbacks == cpu.fallbacks
+    for name in ("host", "slot", "ok", "n_kill", "sample_t", "sample_free0",
+                 "sample_free0_normal"):
+        assert np.array_equal(getattr(card, name), getattr(cpu, name)), name
+    np.testing.assert_array_equal(
+        np.stack([card.host, card.slot, card.ok.astype(np.int64), card.n_kill], 1),
+        gsim.trace_outcomes)
+    g, c, r = (fleet_state_to_numpy(s) for s in (card.state, cpu.state, gsim.fleet.state))
+    for f in g:
+        np.testing.assert_array_equal(g[f], c[f], err_msg=f)
+        np.testing.assert_array_equal(g[f], r[f], err_msg=f)

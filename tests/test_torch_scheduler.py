@@ -9,6 +9,9 @@ every final state array must be bitwise equal.
 """
 from __future__ import annotations
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -236,3 +239,90 @@ def test_unported_planes_raise():
     assert TPolicy(queue_capacity=64).queue_capacity == 64
     pol = TPolicy(relocate_threshold=0.5)
     assert pol.relocation_on and pol.relocate_exit_threshold == 0.25
+
+
+# ---------------------------------------------------------------------------
+# Traced multipliers (the ensemble's multiplier axis) through one decision
+# ---------------------------------------------------------------------------
+
+_NOW_FRAC = float(np.float32(fleets.NOW + 0.37))
+
+
+def _fractional_arrays(rng, n, k=8):
+    """A fleet off the integer grid: half-unit free resources, fractional
+    straggler factors, slot costs at a fractional clock."""
+    start = (_NOW_FRAC - rng.random((n, k)) * 3e4).astype(np.float32)
+    half = ((rng.random((n, 3)) < 0.3) * 0.5).astype(np.float32)
+    return dict(
+        free_f=rng.integers(0, 5, (n, 3)).astype(np.float32) + half,
+        free_n=rng.integers(4, 12, (n, 3)).astype(np.float32),
+        schedulable=rng.random(n) < 0.95, domain=np.zeros(n, np.int32),
+        slow=(1 + rng.random(n) * 3).astype(np.float32),
+        inst_res=rng.integers(0, 5, (n, k, 3)).astype(np.float32),
+        inst_cost=((np.float32(_NOW_FRAC) - start) % 3600).astype(np.float32),
+        inst_valid=rng.random((n, k)) < 0.8,
+    )
+
+
+_FIELDS = ("free_f", "free_n", "schedulable", "domain", "slow", "inst_res", "inst_cost",
+           "inst_valid")
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted_decision(policy, churn_on):
+    def run(a, req, pre, mv, ch):
+        return jref._decision_core(*(a[f] for f in _FIELDS), req, pre, jnp.int32(-1),
+                                   policy, True, churn=ch if churn_on else None,
+                                   mult_val=mv)
+    return jax.jit(run)
+
+
+#: power-of-two rows (the reference's own), rows that are not, the
+#: policy's own values, and a zero under a nonzero gate
+ROWS4 = [(1.0, 1.0, 0.0, 0.0), (4.0, 0.25, 0.0, 0.0), (0.5, 2.0, 0.0, 0.0),
+         (0.7, 1.3, 0.0, 0.0), (0.0, 1.0, 0.0, 0.0)]
+ROWS5 = [(1.0, 1.0, 0.0, 0.0, 2.0), (4.0, 0.25, 0.0, 0.0, 0.5), (0.7, 1.3, 0.0, 0.0, 0.0),
+         (0.0, 1.0, 0.0, 0.0, 1.7)]
+CHURN = dict(churn_multiplier=2.0, churn_threshold=0.005)
+TRACED_CASES = [
+    (64, dict(shortlist=16), ROWS4), (64, {}, ROWS4), (320, {}, ROWS4),
+    (64, dict(shortlist=4), ROWS4),
+    (64, dict(shortlist=16, **CHURN), ROWS5), (320, CHURN, ROWS5),
+    (320, dict(weigher_multipliers=(1.0, 1.0, 0.5, 0.25)),
+     [(1.0, 1.0, 0.5, 0.25), (0.7, 1.3, 0.3, 1.7), (0.0, 1.0, 0.0, 0.0), (2.0, 2.0, 2.0, 2.0)]),
+    (320, dict(weigher_multipliers=(0.0, -1.0, 0.5, 0.25)),
+     [(0.0, -1.0, 0.5, 0.25), (0.0, -0.3, 1.7, 0.0)]),
+]
+
+
+@pytest.mark.parametrize("n,kw,rows", TRACED_CASES)
+def test_decision_core_traced_multipliers(n, kw, rows):
+    """``_decision_core(mult_val=row)`` equals the jitted reference's
+    ``_decision_core(..., mult_val=jnp.asarray(row))`` bit for bit (host,
+    mask, ok, fell_back, margin) on fractional inputs: the full
+    enumeration (64 hosts), the shortlist (320, or 64 with M = 16 and a
+    fallback-prone M = 4), churn on and off, with normal and preemptible
+    requests."""
+    churn_on = "churn_multiplier" in kw
+    rng = np.random.default_rng(n + len(kw))
+    a = _fractional_arrays(rng, n)
+    ch = (rng.random(n) * 0.01).astype(np.float32)
+    fn = _jitted_decision(JPolicy(**kw), churn_on)
+    tpol = TPolicy(**kw)
+    ta = {f: torch.from_numpy(v) for f, v in a.items()}
+    fell = 0
+    for row in rows:
+        for i in range(10):
+            req = rng.integers(1, 7, 3).astype(np.float32)
+            pre = bool(i % 3 == 0)
+            want = fn(a, req, pre, np.asarray(row, np.float32), ch)
+            got = port._decision_core(*(ta[f] for f in _FIELDS), torch.from_numpy(req), pre,
+                                      -1, tpol, True,
+                                      churn=torch.from_numpy(ch) if churn_on else None,
+                                      mult_val=row)
+            for g, w, what in zip(got, want, ("host", "mask", "ok", "fell_back", "margin")):
+                g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+                np.testing.assert_array_equal(g, np.asarray(w), err_msg=f"{row} {i}: {what}")
+            fell += int(got[3])
+    if kw.get("shortlist") == 4:
+        assert fell > 0

@@ -10,6 +10,9 @@ bitwise there too.
 """
 from __future__ import annotations
 
+import functools
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -387,3 +390,116 @@ def test_repo_policies_on_non_integer_inputs(mult):
                         mult[1], pending=pending)
     _eq(base, want_base)
     _eq(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The traced-multiplier program (the ensemble's multiplier axis)
+# ---------------------------------------------------------------------------
+
+
+def _gate_patterns():
+    """Every static multiplier pattern: each weigher on or off, the
+    termination term on with either sign."""
+    out = []
+    for g in itertools.product((0.0, 1.0), repeat=5):
+        for sign in ((1.0, -1.0) if g[1] else (1.0,)):
+            gates = (g[0], g[1] * sign) + g[2:]
+            if any(gates):
+                out.append(gates)
+    return out
+
+
+def _traced_rows(gates, seed):
+    """Rows of values under ``gates``: inexact with random signs (the
+    termination term keeps its gate's sign), the shared power of two 2,
+    the value 1 (no product in the static program), zeros under every
+    gate, and a mix of 0, ±1, powers of two and inexact values."""
+    rng = np.random.default_rng(3000 + seed)
+    g = np.asarray(gates, np.float32)
+    sign = np.where(np.arange(5) == 1, np.sign(g), rng.choice([-1.0, 1.0], 5))
+    inexact = np.where(g != 0, rng.uniform(0.05, 3.0, 5) * sign, 0.0)
+    mixed = np.where(g != 0, np.abs(rng.choice(MIXED_VALUES, 5)) * sign, 0.0)
+    return [r.astype(np.float32) for r in (inexact, 2.0 * np.abs(g) * np.sign(g),
+                                           np.sign(g), 0.0 * g, mixed)]
+
+
+@functools.lru_cache(maxsize=None)
+def _traced_ref(gates):
+    """consts → base → omega jitted with the multipliers as an argument and
+    the gates static (the reference's ensemble program)."""
+    def run(valid, lb, ub, over, free_sum, slow, ch, mv):
+        mult = tuple(mv[i] for i in range(len(gates)))
+        raw = ref.raw_base_terms(free_sum, slow, over, ch)
+        c = ref.consts_of(gates, valid, lb, ub, *raw)
+        base = ref.base_from_consts(mult, raw[0], raw[1], raw[2], c, churn_raw=raw[3],
+                                    gates=gates)
+        opt = lb if gates[1] >= 0 else ub
+        return c.pack(), base, ref.omega_of(opt, base, valid, c, ref.inv_span(c.c_lo, c.c_hi),
+                                            mult[1], gate=gates[1])
+    return jax.jit(run)
+
+
+def _traced_port(gates, row, valid, lb, ub, over, free_sum, slow, ch):
+    mult = tuple(float(v) for v in row)
+    raw = port.raw_base_terms(_t(free_sum), _t(slow), _t(over), _t(ch))
+    c = port.consts_of(mult, _t(valid), _t(lb), _t(ub), *raw, gates=gates)
+    base, pending = port.base_terms(mult, raw[0], raw[1], raw[2], c, raw[3], gates=gates)
+    opt = _t(lb) if gates[1] >= 0 else _t(ub)
+    omega = port.omega_of(opt, base, _t(valid), c, port.inv_span(c.c_lo, c.c_hi), mult[1],
+                          pending=pending, gate=gates[1])
+    return c.pack(), base, omega
+
+
+def _fractional(n, seed=17):
+    rng = np.random.default_rng(seed)
+    valid = rng.random(n) < 0.9
+    lb = (rng.random(n) * 3000).astype(np.float32)
+    ub = (lb + rng.random(n) * 900).astype(np.float32)
+    over = rng.random(n) < 0.5
+    free_sum = (rng.random(n) * 24).astype(np.float32)
+    slow = (1 + rng.random(n) * 3).astype(np.float32)
+    ch = (rng.random(n) * 2).astype(np.float32)
+    return valid, lb, ub, over, free_sum, slow, ch
+
+
+@pytest.mark.parametrize("gates", _gate_patterns())
+def test_traced_multipliers_on_non_integer_inputs(gates):
+    """The traced program bit for bit: the constants, base and omega of the
+    port's ``gates`` mode equal the jitted reference's with the multipliers
+    passed as a jit argument, for every gate pattern and inexact, power-of-
+    two, unit, zero and mixed rows.  512 hosts: past a few hundred XLA's CPU
+    backend splits the loop, and a chain of three or four weighers led by
+    the overcommit term then rounds otherwise (ROADMAP.md, fault (k))."""
+    inputs = _fractional(512)
+    fn = _traced_ref(gates)
+    for i, row in enumerate(_traced_rows(gates, len(_gate_patterns()))):
+        want = fn(*inputs, row)
+        got = _traced_port(gates, row, *inputs)
+        for g, w, what in zip(got, want, ("consts", "base", "omega")):
+            _eq(g, w, f"row {i} {row.tolist()}: {what}")
+
+
+@pytest.mark.parametrize("gates,row", [
+    ((1.0, 1.0, 0.0, 0.0), (1.0, 1.0, 0.0, 0.0)),      # the default policy's own row
+    ((1.0, 1.0, 0.0, 0.0), (1.0, 0.7, 0.0, 0.0)),
+    ((1.0, 1.0, 0.5, 0.25), (1.0, 1.0, 0.5, 0.25)),
+    ((0.0, 1.0, 0.7, 1.3), (0.0, 1.0, 0.7, 1.3)),
+])
+def test_traced_rounding_differs_from_the_static_program(gates, row):
+    """The same values as the policy's own static multipliers round
+    otherwise: the traced mode is not the static program relabelled.
+    (Rows of powers of two, such as the reference's (4, 0.25) and (0.5,
+    2), make every product exact, and the two programs then agree.)"""
+    valid, lb, ub, over, free_sum, slow, ch = _fractional(512)
+    ch = None
+    raw = port.raw_base_terms(_t(free_sum), _t(slow), _t(over))
+    static = tuple(float(v) for v in row)
+    c = port.consts_of(static, _t(valid), _t(lb), _t(lb), *raw)
+    base, pending = port.base_terms(static, raw[0], raw[1], raw[2], c)
+    omega_s = port.omega_of(_t(lb), base, _t(valid), c, port.inv_span(c.c_lo, c.c_hi),
+                            static[1], pending=pending)
+    c_t = port.consts_of(static, _t(valid), _t(lb), _t(lb), *raw, gates=gates)
+    base_t, pending_t = port.base_terms(static, raw[0], raw[1], raw[2], c_t, gates=gates)
+    omega_t = port.omega_of(_t(lb), base_t, _t(valid), c_t, port.inv_span(c_t.c_lo, c_t.c_hi),
+                            static[1], pending=pending_t, gate=gates[1])
+    assert not torch.equal(omega_s, omega_t)
