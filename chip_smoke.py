@@ -106,6 +106,24 @@ exits non-zero:
                saturated nodes card against CPU, 32 admission-knob lanes;
                every decision kernel's launches against what the path
                implies;
+5f. sharded  — the fleet split host-major into 4 shards on the card
+               (``fleet_mesh(devices=[cuda] * 4)``; the visible device count
+               printed): phase 3's 2^20 packed hosts screened per shard,
+               each shard's forwarded (scores, idx) and the merged
+               constants against the plain route, the constants against
+               the fleet-wide fold and the merge against the unsharded
+               kernel screen, all exact; phase 5's 65,536 saturated hosts
+               in a sharded ``SoAFleet`` and an unsharded one, the same 512
+               decisions in batches of 64 and 128 singles: every (host,
+               slot, ok, kill, fell_back, margin), the mirrors and the final
+               state identical; decisions/s, single p50 / p99, fallbacks,
+               the busy share of 2 traced batches and peak memory of each;
+               ``SoASimulator`` at 4,099 hosts (padded to 4,100) sharded on
+               the card, unsharded on the card and sharded on the CPU:
+               identical; ``test_sharded_parity.py``'s fallback fixture on
+               the shards: host 1, fell back; the same over every visible
+               device where there are several; the launches of each
+               decision kernel against what the sharded path implies;
 6. model_kernels — flash-attention forward and RMSNorm against their plain
                versions at qwen2-1.5b's and gemma-2b's shapes (plus a full
                and a ragged case; the f32 route at S=77 and at every shape
@@ -142,7 +160,9 @@ exits non-zero:
                cases (S=77; 1 x 2,048 at qwen2's heads; gemma-2b's), each
                gap against a stated tolerance, two calls giving the same
                bits, both reductions exactly equal to their plain versions;
-               kernel / plain / bound / library times, the forward's too,
+               kernel / plain / bound / library times (the reduction's
+               library: two torch.sum over the group axis, by the trace and
+               by CUDA events), the forward's too,
                and the f32 route's dq, dk/dv and reduction at 1 x 2,048,
                2 x 4,096 and phase 10's shape;
 10. train_parity — reduced qwen2-1.5b in f32, flash attention, full remat,
@@ -200,8 +220,16 @@ from repro_torch.core import scan_sim  # noqa: E402
 from repro_torch.core.convert import (  # noqa: E402
     fleet_state_from_numpy,
     fleet_state_to_numpy,
+    host_state_from_numpy,
     queue_state_from_numpy,
     queue_state_to_numpy,
+)
+from repro_torch.core import torch_scheduler as tsched  # noqa: E402
+from repro_torch.core.fleet_sharding import (  # noqa: E402
+    fleet_mesh,
+    merge_shortlists,
+    pad_fleet_state,
+    padded_hosts,
 )
 from repro_torch.core.policy import SchedulerPolicy  # noqa: E402
 from repro_torch.core.cluster import Cluster, make_uniform_fleet  # noqa: E402
@@ -1949,6 +1977,283 @@ emit("scan", card=smi, workload="benchmarks/bench_screen.py::_bench_scan (stream
      seconds=time.perf_counter() - t_scan)
 
 # ---------------------------------------------------------------------------
+# 5f. sharded: the fleet split host-major across a mesh of four shards
+# ---------------------------------------------------------------------------
+t_shard = time.perf_counter()
+S_SHARDS = 4
+card_mesh = fleet_mesh(devices=[DEV] * S_SHARDS)     # four shards on the one card
+SH_KERNELS = ("sched_screen_consts", "sched_screen_topm", "sched_screen", "sched_weigh",
+              "sched_weigh_gathered")
+
+
+def shard_absorb(decisions_, fallbacks_, shards_, what, into):
+    """The launches since the last reset against what ``decisions_`` and
+    ``fallbacks_`` on ``shards_`` shards imply: a decision launches each
+    screen pass once a shard and one gathered weigh, a fallback one full
+    weigh a shard (``shards_=None``: the unsharded path, one fused screen
+    of two passes)."""
+    counts_ = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    s_ = shards_ or 1
+    want_ = dict(sched_screen_consts=s_ * decisions_, sched_screen_topm=s_ * decisions_,
+                 sched_screen=0 if shards_ else 2 * decisions_,
+                 sched_weigh=decisions_ + s_ * fallbacks_, sched_weigh_gathered=decisions_)
+    for key, v_ in want_.items():
+        check(counts_[key] == v_, f"sharded: {what}: {key} launched {counts_[key]} times, "
+                                  f"the path implies {v_}")
+        into[0][key] += counts_[key]
+        into[1][key] += v_
+
+
+# the merge at fleet scale: phase 3's 2^20 packed, nearly tied hosts in 4
+# shards; each shard's forwarded (scores, idx) and the merged constants
+# against the plain route on the card, the merged constants against the
+# fleet-wide fold, the merge against the unsharded kernel screen
+packed, preq = fleets.packed_arrays(N_BIG, k, seed=0)
+packed["inst_cost"] = (fleets.NOW - packed["inst_start"]).astype(np.float32)
+big = tuple(torch.from_numpy(np.ascontiguousarray(packed[f])).to(DEV) for f in (
+    "free_f", "free_n", "schedulable", "domain", "slow", "inst_res", "inst_cost",
+    "inst_valid"))
+big_req = torch.from_numpy(preq).to(DEV)
+del packed
+t_big = N_BIG // S_SHARDS
+big_shards = tsched._split_shards(card_mesh, big + (None, None), big_req)
+big_kn = tsched._knobs(policy, N_BIG, False, False, None, None)
+screen_args = (big_shards, DEV, False, -1, big_kn, True, None, M + 1)
+all_s, all_i, merged = tsched._sharded_screen(*screen_args)
+local_p = [kernels.sched_screen_consts_plain(*sh[:8], big_req, False, -1, mult, True)
+           for sh in big_shards]
+stack_p = torch.stack(local_p)
+merged_p = torch.stack([stack_p[:, 0::2].amin(0), stack_p[:, 1::2].amax(0)], dim=1).reshape(-1)
+same(merged, merged_p, "sharded 2^20 merged consts", "sched_screen_consts")
+fleet_consts = kernels.sched_screen_consts_plain(*big, big_req, False, -1, mult, True)
+check(torch.equal(merged.view(torch.int32), fleet_consts.view(torch.int32)),
+      "sharded 2^20: merged constants are not the fleet-wide fold")
+for s_, sh in enumerate(big_shards):
+    sc_p, ix_p = kernels.sched_screen_topm_plain(*sh[:8], big_req, False, -1, merged_p, mult,
+                                                 True, M + 1)
+    part = slice(s_ * (M + 1), (s_ + 1) * (M + 1))
+    same(all_s[part], sc_p, f"sharded 2^20 shard {s_} scores", "sched_screen_topm")
+    same(all_i[part], ix_p + s_ * t_big, f"sharded 2^20 shard {s_} idx", "sched_screen_topm")
+cand_, u_, ju_ = merge_shortlists(all_s, all_i, M)
+top_s_, top_i_, _ = kernels.sched_screen(*big, big_req, False, -1, mult, True, M + 1)
+check(torch.equal(cand_, top_i_[:M]) and torch.equal(u_.view(torch.int32),
+                                                     top_s_[M].view(torch.int32))
+      and int(ju_) == int(top_i_[M]),
+      "sharded 2^20: the merge differs from the unsharded kernel screen")
+sharded_screen_ms = device_ms(lambda: tsched._sharded_screen(*screen_args), reps=10)
+merge_ms = device_ms(lambda: merge_shortlists(all_s, all_i, M), reps=10)
+unsharded_screen_ms = device_ms(lambda: kernels.sched_screen(*big, big_req, False, -1, mult,
+                                                             True, M + 1), reps=10)
+merge_check = dict(hosts=N_BIG, shards=S_SHARDS, m=M, exact=True,
+                   distinct_forwarded_scores=len(set(all_s.tolist())),
+                   sharded_screen_device_ms=sharded_screen_ms, merge_device_ms=merge_ms,
+                   unsharded_screen_device_ms=unsharded_screen_ms)
+del big, big_req, big_shards, all_s, all_i, local_p, stack_p, top_s_, top_i_
+
+# the main path sharded: phase 5's 65,536 saturated Table 1 hosts, one fleet
+# sharded across the mesh and one not, fed the same 512 decisions in batches
+# of 64 (the last two traced for the busy share) and 128 singles, half
+# normal; every decision's outputs recorded where SoAFleet calls the path
+hosts_5f = fleets.saturated_fleet(N_HOSTS, seed=0)      # both fleets read, neither changes it
+t_ = time.perf_counter()
+plain_f = SoAFleet(hosts_5f, device=DEV)
+plain_build_s = time.perf_counter() - t_
+t_ = time.perf_counter()
+shard_f = SoAFleet(hosts_5f, device=DEV, policy=SchedulerPolicy(mesh=card_mesh))
+shard_build_s = time.perf_counter() - t_
+check(shard_f.state.mesh is card_mesh and shard_f.state.n_hosts == N_HOSTS,
+      "sharded: the fleet is not 4 shards of 16,384 hosts")
+del hosts_5f
+rng = np.random.default_rng(57)
+clock_5f = [fleets.NOW]
+
+
+def items_5f(b, tag):
+    out_ = []
+    for i in range(b):
+        clock_5f[0] += float(rng.integers(1, 20))
+        out_.append((Request(id=f"{tag}{i}", resources=sizes[int(rng.integers(0, 3))],
+                             preemptible=bool(i % 2)), clock_5f[0], 1.0))
+    return out_
+
+
+warm_5f = items_5f(16, "w")
+batches_5f = [items_5f(64, f"sb{j}-") for j in range(8)]
+singles_5f = items_5f(128, "ss")
+OUTS = {}
+real_many, real_step = soa_mod.schedule_many, soa_mod.schedule_step
+
+
+def recorded(real, into):
+    def call(*args, **kw):
+        st_, out_ = real(*args, **kw)
+        into.append(out_)
+        return st_, out_
+    return call
+
+
+sh_counts = {key: 0 for key in SH_KERNELS}
+sh_implied = {key: 0 for key in SH_KERNELS}
+plain_counts = {key: 0 for key in SH_KERNELS}
+plain_implied = {key: 0 for key in SH_KERNELS}
+runs_5f = {}
+for name_, fleet_, shards_, into_ in (("sharded", shard_f, S_SHARDS, (sh_counts, sh_implied)),
+                                      ("unsharded", plain_f, None, (plain_counts, plain_implied))):
+    outs_ = OUTS[name_] = []
+    soa_mod.schedule_many = recorded(real_many, outs_)
+    soa_mod.schedule_step = recorded(real_step, outs_)
+    try:
+        fleet_.schedule_batch(warm_5f)
+        outs_.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        d0_, f0_ = fleet_.decisions, fleet_.fallbacks
+        batch_s_, single_s_ = [], []
+        for items_ in batches_5f[:6]:
+            t_ = time.perf_counter()
+            fleet_.schedule_batch(items_)
+            batch_s_.append(time.perf_counter() - t_)
+        for item_ in singles_5f:
+            t_ = time.perf_counter()
+            fleet_.schedule_request(*item_)
+            single_s_.append(time.perf_counter() - t_)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof_:
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            for items_ in batches_5f[6:]:
+                fleet_.schedule_batch(items_)
+            torch.cuda.synchronize()
+            window_s_ = time.perf_counter() - t_
+    finally:
+        soa_mod.schedule_many, soa_mod.schedule_step = real_many, real_step
+    dec_, fb_ = fleet_.decisions - d0_, fleet_.fallbacks - f0_
+    check(dec_ == 640, f"sharded: {name_}: {dec_} decisions, not 640")
+    shard_absorb(dec_, fb_, shards_, name_, into_)
+    busy_ = busy_us(prof_)
+    runs_5f[name_] = dict(
+        decisions=dec_, fallbacks=fb_, build_seconds=shard_build_s if shards_ else plain_build_s,
+        batch_decisions_per_s=6 * 64 / sum(batch_s_),
+        single_p50_ms=float(np.percentile(single_s_, 50)) * 1e3,
+        single_p99_ms=float(np.percentile(single_s_, 99)) * 1e3,
+        peak_device_mib=torch.cuda.max_memory_allocated() / 2**20,
+        traced_window_ms=window_s_ * 1e3, traced_decisions=128, device_busy_ms=busy_ / 1e3,
+        device_busy_share=(busy_ / 1e6) / window_s_ if busy_ else "not measured")
+FIELDS_5F = ("host_idx", "slot", "ok", "kill", "fell_back", "margin")
+check(len(OUTS["sharded"]) == len(OUTS["unsharded"]) == 8 + 128, "sharded: calls differ")
+for j_, (a_, b_) in enumerate(zip(OUTS["sharded"], OUTS["unsharded"])):
+    for f_, x_, y_ in zip(FIELDS_5F, a_, b_):
+        x_, y_ = (x_.view(torch.int32), y_.view(torch.int32)) if f_ == "margin" else (x_, y_)
+        check(torch.equal(x_, y_), f"sharded: call {j_}: {f_} differs from the unsharded fleet's")
+check(shard_f.locator == plain_f.locator and shard_f.slot_ids == plain_f.slot_ids
+      and [i.id for i in shard_f.preempted] == [i.id for i in plain_f.preempted],
+      "sharded: the fleets' mirrors differ")
+sh_arr, pl_arr = fleet_state_to_numpy(shard_f.state), fleet_state_to_numpy(plain_f.state)
+for f in STATE_DTYPES:
+    check(np.array_equal(sh_arr[f], pl_arr[f]), f"sharded: final state {f} differs")
+sharded_preemptions = len(shard_f.preempted)
+del plain_f, shard_f, sh_arr, pl_arr, OUTS
+
+
+# a ragged fleet: the simulator at 4,099 hosts (padded to 4,100), sharded on
+# the card, unsharded on the card and sharded on the CPU, the same seed
+def ragged_sim(device, mesh_):
+    s_ = SoASimulator(fleets.saturated_fleet(4099, seed=5),
+                      WorkloadSpec(arrival_rate_per_s=0.5, flavors=list(fleets.SIZES.items())),
+                      seed=6, device=device, policy=SchedulerPolicy(mesh=mesh_))
+    s_.inject_host_failure("h17", at_s=300.0, heal_after_s=300.0)
+    s_.inject_host_failure("h4098", at_s=500.0)
+    t_ = time.perf_counter()
+    m_ = s_.run(900.0)
+    return s_, m_, time.perf_counter() - t_
+
+
+def ragged_same(a_, b_, what):
+    (sa_, ma_, _), (sb_, mb_, _) = a_, b_
+    strip_ = lambda m__: {key: v_ for key, v_ in m__.summary().items() if "latency" not in key}
+    check(strip_(ma_) == strip_(mb_) and ma_.utilization == mb_.utilization,
+          f"sharded: ragged {what}: summaries differ")
+    check(list(sa_.fleet.instances) == list(sb_.fleet.instances)
+          and sa_.fleet.locator == sb_.fleet.locator, f"sharded: ragged {what}: placements differ")
+    pad_ = lambda st_: fleet_state_to_numpy(
+        st_ if st_.mesh is not None else pad_fleet_state(st_, 4100))
+    xa_, xb_ = pad_(sa_.fleet.state), pad_(sb_.fleet.state)
+    for f in STATE_DTYPES:
+        check(np.array_equal(xa_[f], xb_[f]), f"sharded: ragged {what}: final state {f} differs")
+
+
+kernels.reset_launch_counts()
+rag_card = ragged_sim(DEV, card_mesh)
+check(rag_card[0].fleet.state.n_hosts == 4100, "sharded: 4,099 hosts not padded to 4,100")
+shard_absorb(rag_card[0].fleet.decisions, rag_card[0].fleet.fallbacks, S_SHARDS,
+             "ragged simulator", (sh_counts, sh_implied))
+rag_plain = ragged_sim(DEV, None)
+rag_cpu = ragged_sim("cpu", fleet_mesh(devices=["cpu"] * S_SHARDS))
+kernels.reset_launch_counts()
+ragged_same(rag_card, rag_plain, "sharded card against unsharded card")
+ragged_same(rag_card, rag_cpu, "sharded card against sharded CPU")
+ragged = dict(hosts=4099, padded=4100, decisions=rag_card[0].fleet.decisions,
+              fallbacks=rag_card[0].fleet.fallbacks, preemptions=rag_card[1].preemptions,
+              sharded_card_seconds=rag_card[2], unsharded_card_seconds=rag_plain[2],
+              sharded_cpu_seconds=rag_cpu[2], identical=True)
+del rag_plain, rag_cpu
+
+
+# the fallback on shards: test_sharded_parity.py::test_sharded_fallback_parity's
+# fixture, host A's loose bound winning a 1-candidate shortlist
+def fallback_fixture(mesh_):
+    arrays_ = dict(free_f=np.zeros((2, 2), np.float32), free_n=np.full((2, 2), 4.0, np.float32),
+                   schedulable=np.ones((2,), bool), domain=np.zeros((2,), np.int32),
+                   slow=np.ones((2,), np.float32),
+                   inst_res=np.array([[[4, 0], [0, 4], [4, 4]], [[4, 4], [0, 0], [0, 0]]],
+                                     np.float32),
+                   inst_cost=np.array([[10, 10, 50], [15, 0, 0]], np.float32),
+                   inst_valid=np.array([[1, 1, 1], [1, 0, 0]], bool))
+    n_pad = padded_hosts(2, mesh_.size, m_keep=2)
+    arrays_ = {f: np.concatenate([v_, np.zeros((n_pad - 2,) + v_.shape[1:], v_.dtype)])
+               for f, v_ in arrays_.items()}
+    state_ = host_state_from_numpy(arrays_, mesh=mesh_)
+    kernels.reset_launch_counts()
+    got_ = tsched._rebuild_decision(state_, np.asarray([4.0, 4.0], np.float32), False, -1,
+                                    SchedulerPolicy(shortlist=1, mesh=mesh_), -1)
+    check(got_[0] == 1 and got_[2] and got_[3],
+          f"sharded: fallback fixture: {got_} (want host 1, ok, fell back)")
+    counts_ = kernels.launch_counts()
+    check(counts_["sched_weigh"] == 1 + mesh_.size and counts_["sched_screen_topm"] == mesh_.size,
+          f"sharded: fallback fixture launches {counts_}")
+    return got_
+
+
+fallback = dict(card=fallback_fixture(card_mesh))
+distinct = {}
+if torch.cuda.device_count() > 1:
+    # the same over the distinct devices: shards on every visible card
+    all_mesh = fleet_mesh()
+    fallback["distinct_devices"] = fallback_fixture(all_mesh)
+    rag_all = ragged_sim(all_mesh.lead, all_mesh)
+    ragged_same(rag_all, rag_card, f"{all_mesh.size} devices against 4 shards on one card")
+    distinct = dict(devices=[str(d_) for d_ in all_mesh.devices], ragged_identical=True,
+                    ragged_seconds=rag_all[2])
+    del rag_all
+kernels.reset_launch_counts()
+del rag_card
+for name in records:
+    records[name]["launches"] += sh_counts[name]
+for name in ("sched_screen_consts", "sched_screen_topm", "sched_weigh"):
+    check(sh_counts[name] > 0, f"sharded: kernel {name} was never launched")
+emit("sharded", card=smi, device_count=torch.cuda.device_count(), shards=S_SHARDS,
+     mesh=[str(d_) for d_ in card_mesh.devices], merge_2_20=merge_check,
+     main_path=dict(hosts=N_HOSTS, m=M, preemptions=sharded_preemptions,
+                    identical_decisions_and_state=True, **runs_5f),
+     ragged=ragged, fallback_fixture=fallback, distinct_devices=distinct or "one device visible",
+     method="wall clock per batch of 64 and per single decision (perf_counter; a decision "
+            "reads its result back); busy share over the last 2 batches traced with CUDA "
+            "activity only; device ms by the trace",
+     launches=sh_counts, launches_implied=sh_implied, unsharded_launches=plain_counts,
+     unsharded_launches_implied=plain_implied, seconds=time.perf_counter() - t_shard)
+
+# ---------------------------------------------------------------------------
 # 6. model kernels against their plain versions
 # ---------------------------------------------------------------------------
 #: tolerances (|kernel - plain| <= tol + tol * |plain|), with their reasons:
@@ -2432,6 +2737,14 @@ for a_, b_, what in zip(red, red_p, ("dk", "dv")):
 red_ms = kernel_ms(lambda: kernels.flash_attention_dkv_reduce(*parts, B_T * 2),
                    {"reduce": ("dkv_reduce", "flash_attention_dkv_reduce_launch")})["reduce"]
 red_pms = device_ms(lambda: kernels.flash_attention_dkv_reduce_plain(*parts, B_T * 2), reps=10)
+# the library's call for the same sums: torch.sum over the group axis of
+# each partial (two calls, dk and dv; their f32 results, no cast to bf16),
+# by the trace and by CUDA events
+red_lib_ms = library_time(
+    "dk/dv reduction, 2 x 4,096 (two torch.sum over the group axis)",
+    lambda: [p_.view(B_T * 2, 6, S_T, 128).sum(1) for p_ in parts],
+    bound_of(2 * 4 * B_T * 12 * S_T * 128 + 2 * 4 * B_T * 2 * S_T * 128,
+             2 * B_T * 10 * S_T * 128)[0], reps=10)
 del parts, red, red_p
 BWD_NAMES = {"dq": ("flash_bwd_dq_wgmma", "flash_attention_dq_bf16_launch"),
              "dkv": ("dkv_wgmma", "flash_attention_dkv_bf16_launch")}
@@ -2460,10 +2773,11 @@ record("flash_attention_dkv", "src/repro_torch/kernels/csrc/flash_attention_bwd.
        2 * io_q + 2 * io_kv + 2 * rows_f32 + 2 * io_kv, 8 * 128 * pairs_t, flops=BF16_FLOPS,
        library_ms=lib_bwd_ms)
 # the reduction: f32 partials of 12 heads in, bf16 dk and dv of 2 heads
-# out (no single PyTorch call sums and casts)
+# out; the library's two torch.sum calls do the sums (and leave them f32)
 record("flash_attention_dkv_reduce", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
        "src/repro/kernels/flash_attention.py:191", red_ms, red_pms,
-       2 * 4 * B_T * 12 * S_T * 128 + 2 * io_kv, 2 * B_T * 12 * S_T * 128)
+       2 * 4 * B_T * 12 * S_T * 128 + 2 * io_kv, 2 * B_T * 12 * S_T * 128,
+       library_ms=red_lib_ms)
 # the same launches timed by CUDA events, kernel_ms's fallback, so that
 # path runs on every card and its reading stands beside the trace's
 bwd_event_ms = launch_event_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True),

@@ -530,6 +530,11 @@ class AdmissionFrontEnd:
         policy = fleet.policy
         if policy.queue_capacity <= 0:
             raise ValueError("AdmissionFrontEnd needs policy.queue_capacity > 0")
+        if policy.mesh is not None:
+            raise NotImplementedError(
+                "admission queue + sharded fleet state is future work; "
+                "drop policy.mesh or policy.queue_capacity"
+            )
         self.fleet = fleet
         self.policy = policy
         self.qstate = queue_init(policy.queue_capacity, len(fleet.spec.dims),

@@ -3,12 +3,10 @@
 PyTorch-port copy of ``repro.core.policy``.  Two fields are gone:
 ``use_pallas`` and ``fused_screen`` chose a kernel backend in the JAX package;
 here the device of the state's tensors chooses it (CPU tensors run the plain
-PyTorch versions, CUDA tensors the hand-written kernels).  The one plane this
-port does not carry yet, ``mesh`` (device sharding), raises
-``NotImplementedError`` at construction, naming the ``ROADMAP.md`` item that
-ports it.  ``donate``
-is kept for field parity with the JAX policy; the port always updates the
-state tensors in place.
+PyTorch versions, CUDA tensors the hand-written kernels).  ``mesh`` is a
+``fleet_sharding.FleetMesh`` (a tuple of devices, one a shard) instead of a
+``jax.sharding.Mesh``.  ``donate`` is kept for field parity with the JAX
+policy; the port always updates the state tensors in place.
 
 Contracts:
 
@@ -74,7 +72,9 @@ class SchedulerPolicy:
       enumeration).
     * ``adaptive_shortlist`` / ``adaptive_bounds`` — host-side controller
       resizing M between flushes within [m_min, m_max] (powers of two).
-    * ``mesh`` — device sharding (not ported yet: must be None).
+    * ``mesh`` — a 1-D ``FleetMesh`` (``fleet_sharding.fleet_mesh``): the
+      screen runs per host-major shard with a bit-exact cross-shard merge;
+      ``SoAFleet`` pads and shards its state at build.
     * ``donate`` — kept for parity with the JAX policy; the port updates
       the state in place whatever its value.
     * ``queue_capacity`` — slots in the device-resident admission queue
@@ -221,10 +221,12 @@ class SchedulerPolicy:
                 "full enumeration); pass shortlist=None or a starting M"
             )
         if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh: device sharding is not ported yet (ROADMAP.md, Open "
-                "items §1, item 8: core/fleet_sharding.py on torch.distributed)"
-            )
+            from .fleet_sharding import FleetMesh
+
+            if not isinstance(self.mesh, FleetMesh):
+                raise ValueError(
+                    "mesh must be a 1-D FleetMesh (see fleet_sharding.fleet_mesh)"
+                )
         # -- admission plane --------------------------------------------------
         qc, ab = int(self.queue_capacity), int(self.admit_batch)
         mr, nc = int(self.max_retries), int(self.n_classes)

@@ -534,13 +534,17 @@ class ScanResult:
 # -- input checks ------------------------------------------------------------------
 def _check_policy(policy: SchedulerPolicy, where: str) -> None:
     # everything else, the streaming admission plane included, runs in the
-    # loop; docs/scan_sim.md#which-planes-scan has the support matrix (the
-    # port's policy cannot carry a mesh at all)
+    # loop; docs/scan_sim.md#which-planes-scan has the support matrix
     if policy.relocation_on:
         raise NotImplementedError(
             f"{where}: the relocation plane runs host-side passes between "
             f"events (victim identity bookkeeping) and is not folded into "
             f"the trace loop; see docs/scan_sim.md#which-planes-scan"
+        )
+    if policy.mesh is not None:
+        raise NotImplementedError(
+            f"{where}: sharded fleet state is not supported under the scan; "
+            f"see docs/scan_sim.md#which-planes-scan"
         )
     if policy.adaptive_shortlist:
         raise NotImplementedError(
@@ -552,6 +556,11 @@ def _check_policy(policy: SchedulerPolicy, where: str) -> None:
 
 def _check_trace(trace: EventTrace, state: SoAFleetState,
                  policy: SchedulerPolicy) -> None:
+    if state.mesh is not None:
+        raise NotImplementedError(
+            "sharded fleet state is not supported under the scan; see "
+            "docs/scan_sim.md#which-planes-scan"
+        )
     n = state.inst_valid.shape[0]
     n_zones = state.zone_term.shape[0]
     if trace.n_dims != state.free_f.shape[1]:

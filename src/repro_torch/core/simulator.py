@@ -249,6 +249,10 @@ class SoASimulator:
 
     ``device`` (``None`` = the card) is where the fleet state lives when
     ``hosts`` is a host list; a ready ``SoAFleet`` keeps its own device.
+    ``policy.mesh`` (``fleet_sharding.fleet_mesh``) shards the fleet state
+    host-major across the mesh's devices, the state then on its lead
+    device: every decision runs the sharded screen, bit-identical to the
+    unsharded run.
 
     With ``policy.queue_capacity > 0`` the loop runs in **streaming
     admission mode**: arrivals ``submit`` into the fleet's admission front

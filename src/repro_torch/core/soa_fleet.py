@@ -29,6 +29,11 @@ Differences from the JAX module, all deliberate:
   the flattened loss with a stable descending ``torch.sort`` (``-0.0``
   canonicalised) instead of ``lax.top_k``: the same order, ties to the
   lowest flat index, on the CPU and on the card.
+
+With ``policy.mesh`` set the fleet pads its state to
+``fleet_sharding.padded_hosts_for`` rows and shards it host-major across the
+mesh at build, as the JAX package does; every reader and transition takes
+the sharded state (the victim ranking in global host order).
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import torch
 
 from .admission import PAD_RES, AdmissionFrontEnd, DrainResult
 from .cost import CostFunction
+from .fleet_sharding import canonical_device, pad_fleet_state, padded_hosts_for, shard_fleet_state
 from .policy import COST_KIND_IDS, DEFAULT_SHORTLIST, SchedulerPolicy, ensure_policy
 from .screen_math import NEG_INF, churn_stats, fma, floor_mod
 from .torch_scheduler import (
@@ -123,7 +129,11 @@ def relocation_loss(state: SoAFleetState, zone: int, now: float,
     remaining prepaid billing period (per-slot ``inst_period``; -1 = the
     policy's ``default_period``); ``NEG_INF`` off ``zone`` and on dead
     slots.  The reference's jitted add is contracted into one fused
-    multiply-add, and so is this one."""
+    multiply-add, and so is this one.  A sharded state's blocks are scored
+    on their devices and joined in host order on the lead device."""
+    if state.mesh is not None:
+        return torch.cat([relocation_loss(b, zone, now, default_period).to(state.device)
+                          for b in state.blocks])
     dev = state.device
     now_t = torch.tensor(_f32(now), dtype=torch.float32, device=dev)
     live = state.inst_valid & (state.host_zone[:, None] == int(zone))
@@ -256,10 +266,21 @@ class SoAFleet:
                         f"not in the policy's cost-kind table {table}"
                     )
 
+        mesh = self.policy.mesh
+        if mesh is not None:
+            if device is not None and canonical_device(device) != mesh.lead:
+                raise ValueError(f"SoAFleet: device {device} is not the mesh's lead "
+                                 f"device {mesh.lead}")
+            device = mesh.lead
         self.state, slot_rows = build_fleet_state(
             hosts, k_slots=k_slots, domain_ids=self.domain_ids,
             zone_ids=self.zone_ids, device=device,
         )
+        if mesh is not None:
+            # pad so every shard holds the largest shortlist this fleet can
+            # run plus a witness; the padding rows are invalid everywhere
+            self.state = shard_fleet_state(
+                pad_fleet_state(self.state, padded_hosts_for(len(hosts), self.policy)), mesh)
         #: slot → live preemptible instance id (None = free slot)
         self.slot_ids: List[List[Optional[str]]] = [
             [inst.id if inst is not None else None for inst in row]
@@ -298,6 +319,10 @@ class SoAFleet:
     def device(self) -> torch.device:
         return self.state.device
 
+    @property
+    def mesh(self):
+        return self.policy.mesh
+
     # -- views of the policy fields ----------------------------------------------
     @property
     def cost_kind(self) -> str:
@@ -332,16 +357,22 @@ class SoAFleet:
     def n_hosts(self) -> int:
         return len(self.names)
 
+    def _column(self, name: str) -> torch.Tensor:
+        """A per-host state field, whole (a sharded state's gathered on the
+        lead device; its padding rows are zero)."""
+        st = self.state
+        return getattr(st, name) if st.mesh is None else st.field(name)
+
     def utilization(self) -> float:
         if not self._cap0_total:
             return 0.0
-        free0 = float(self.state.free_f[:, 0].double().sum())
+        free0 = float(self._column("free_f")[:, 0].double().sum())
         return (self._cap0_total - free0) / self._cap0_total
 
     def utilization_normal(self) -> float:
         if not self._cap0_total:
             return 0.0
-        free0 = float(self.state.free_n[:, 0].double().sum())
+        free0 = float(self._column("free_n")[:, 0].double().sum())
         return (self._cap0_total - free0) / self._cap0_total
 
     # -- scheduling ------------------------------------------------------------
@@ -815,8 +846,8 @@ class SoAFleet:
         """Materialize python ``Host`` objects from the mirror records;
         ``Host.place`` re-validates capacity, so a capacity violation in the
         incremental state raises here."""
-        schedulable = self.state.schedulable.cpu().numpy()
-        slow = self.state.slow.cpu().numpy()
+        schedulable = self._column("schedulable").cpu().numpy()
+        slow = self._column("slow").cpu().numpy()
         hosts = [
             Host(
                 name=self.names[i],

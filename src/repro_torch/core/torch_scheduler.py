@@ -28,6 +28,13 @@ and every enumeration launches the hand-written kernels; on a CPU state the
 same calls run their plain PyTorch versions, which reproduce the JAX
 package's default (jnp) path bit for bit on integer-valued inputs.
 
+A policy's ``mesh`` (``fleet_sharding.FleetMesh``) or a state sharded by
+``fleet_sharding.shard_fleet_state`` runs stage 1 per host-major shard
+(``_sharded_screen``: the constants pass on every shard, the constants
+merged, the top-M pass on every shard) and merges the shortlists on the
+lead device (``fleet_sharding.merge_shortlists``); the transitions touch
+only the block that holds the host.
+
 Differences from the JAX module, all deliberate:
 
 * ``lax.scan`` is a Python loop and ``lax.cond`` a Python ``if``: each
@@ -45,13 +52,20 @@ Differences from the JAX module, all deliberate:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..kernels import sched_screen, sched_weigh, sched_weigh_gathered
+from ..kernels import (
+    sched_screen,
+    sched_screen_consts,
+    sched_screen_topm,
+    sched_weigh,
+    sched_weigh_gathered,
+)
 from ..kernels.sched_weigh import subset_masks
 from .policy import COST_KIND_IDS, DEFAULT_SHORTLIST, SchedulerPolicy, ensure_policy
 from .screen_math import (
@@ -116,6 +130,118 @@ def _base_of(mult, raw, consts: ScreenConsts, gates=None):
 # ---------------------------------------------------------------------------
 
 
+class _Knobs(NamedTuple):
+    """What one decision reads off the policy (the static part of
+    ``jax_scheduler._decision_core``)."""
+
+    m_cand: int                  # shortlist size M (0 = full enumeration)
+    churn_on: bool               # the churn column is read
+    zone_on: bool                # the zone-exclusion operand is live
+    mult: Tuple[float, ...]      # the multipliers that do the arithmetic
+    gates: Optional[Tuple[float, ...]]   # the policy's, under traced values
+    thr: Optional[float]         # the hot-zone steering threshold
+    m_term: float
+    gate: Optional[float]        # omega_of's traced program
+    m_term_gate: float
+
+
+def _knobs(policy: SchedulerPolicy, n_hosts: int, has_churn: bool, has_zone: bool,
+           exclude_zone, mult_val) -> _Knobs:
+    shortlist = policy.shortlist
+    if shortlist is None:
+        shortlist = DEFAULT_SHORTLIST if n_hosts > 4 * DEFAULT_SHORTLIST else 0
+    churn_on = has_churn and policy.churn_aware
+    mult = policy.all_multipliers if churn_on else policy.weigher_multipliers
+    gates = None
+    if mult_val is not None:
+        gates = mult
+        mult = tuple(float(mult_val[i]) for i in range(len(gates)))
+    gate = None if gates is None else gates[1]
+    return _Knobs(
+        m_cand=min(int(shortlist), n_hosts), churn_on=churn_on,
+        zone_on=has_zone and exclude_zone is not None and policy.relocation_on,
+        mult=mult, gates=gates,
+        thr=policy.churn_threshold if churn_on else None,
+        m_term=mult[1], gate=gate, m_term_gate=mult[1] if gates is None else gate,
+    )
+
+
+def _use_mesh(mesh, n_hosts: int, m_cand: int) -> bool:
+    """The JAX package's rule for running the screen per shard: a shortlist,
+    and every shard at least M + 1 hosts."""
+    return (mesh is not None and m_cand > 0 and n_hosts % mesh.size == 0
+            and n_hosts // mesh.size >= m_cand + 1)
+
+
+_TRACED_ON_MESH = (
+    "traced multiplier values (ensemble axis) are not supported on the mesh "
+    "stage-1 path, which closes the static multipliers over the per-shard "
+    "screen; run the ensemble with mesh=None"
+)
+
+
+def _stage2(rows_c, req_res, pre: bool, cand, u, j_u, consts: ScreenConsts,
+            valid_c, base_c, pending_c, n_hosts: int, k: int, kn: _Knobs):
+    """Stage 2 on the gathered shortlist rows ``(free_f, inst_res,
+    inst_cost, inst_valid)`` and the admissibility check.  Returns
+    ``([admissible, w_star, mask, ok], margin)``, the list read back in the
+    decision's one host sync."""
+    ispan = inv_span(consts.c_lo, consts.c_hi)
+    bc_s, bm_s, _ = sched_weigh_gathered(*rows_c, req_res)
+    if pre:
+        bc_s = torch.zeros_like(bc_s)
+        bm_s = torch.zeros_like(bm_s)
+    omega_s = omega_of(bc_s, base_c, valid_c, consts, ispan, kn.m_term,
+                       pending=pending_c, gate=kn.gate)
+    best_val = torch.amax(omega_s)
+    # Winner = lowest original index among exact-score ties.
+    tie_idx = torch.where(omega_s == best_val, cand, n_hosts)
+    winner_pos = torch.argmin(tie_idx)
+    w_star = tie_idx[winner_pos]
+    ok_s = best_val > NEG_INF / 2
+
+    # ---- admissibility: can any non-shortlisted host still win? -------------
+    if kn.m_term_gate:
+        scale = abs(kn.m_term) * ispan * (3.0 * k * 1.2e-7)
+        bound = fma(-scale, torch.maximum(torch.abs(consts.c_hi),
+                                          torch.abs(consts.c_lo)), best_val)
+    else:
+        bound = best_val
+    admissible = (u < bound) | ((u == best_val) & (j_u > w_star)) | ~ok_s
+    margin = torch.where(ok_s, best_val - u, POS_INF)
+    out = torch.stack([
+        admissible.to(torch.float64), w_star.to(torch.float64),
+        bm_s[winner_pos].to(torch.float64), ok_s.to(torch.float64),
+    ]).tolist()
+    return out, margin
+
+
+def _full_rows(cols, req_res, pre: bool, dom: int, require_free_slot: bool,
+               exclude_zone, kn: _Knobs):
+    """The full enumeration's stage-1 rows on one block of the ten host
+    columns (churn and zone ignored when off): ``(valid, raw, consts)``,
+    the constants folded over this block alone."""
+    valid, cost_lb, cost_ub, raw = stage1_rows(
+        *cols[:8], req_res, pre, dom, require_free_slot,
+        churn=cols[8] if kn.churn_on else None, churn_threshold=kn.thr,
+        host_zone=cols[9] if kn.zone_on else None, exclude_zone=exclude_zone)
+    return valid, raw, consts_of(kn.mult, valid, cost_lb, cost_ub, *raw, gates=kn.gates)
+
+
+def _full_omega(cols, req_res, pre: bool, valid, raw, consts: ScreenConsts, kn: _Knobs):
+    """Every host's exact score on one block under the fleet's ``consts``,
+    ``sched_weigh`` enumerating its kill subsets: ``(omega, best_mask)``."""
+    base, pending = _base_of(kn.mult, raw, consts, kn.gates)
+    ispan = inv_span(consts.c_lo, consts.c_hi)
+    best_cost, best_mask, _ = sched_weigh(cols[0], cols[5], cols[6], cols[7], req_res)
+    if pre:
+        best_cost = torch.zeros_like(best_cost)
+        best_mask = torch.zeros_like(best_mask)
+    omega = omega_of(best_cost, base, valid, consts, ispan, kn.m_term,
+                     pending=pending, gate=kn.gate)
+    return omega, best_mask
+
+
 def _decision_core(
     free_f: torch.Tensor,
     free_n: torch.Tensor,
@@ -136,7 +262,7 @@ def _decision_core(
     mult_val: Optional[Sequence[float]] = None,
 ) -> Tuple[int, int, bool, bool, torch.Tensor]:
     """The two-stage pipeline on raw fleet tensors (port of
-    ``jax_scheduler._decision_core`` without the mesh branch).
+    ``jax_scheduler._decision_core``).
 
     ``mult_val`` (the ensemble's multiplier axis) is a row of weigher
     multiplier values, as f32 numbers, taking the place of the policy's:
@@ -145,32 +271,36 @@ def _decision_core(
     as the JAX package's program with traced multipliers rounds
     (``screen_math._traced_chain``).  ``None`` is the static program.
 
+    With ``policy.mesh`` set and every shard of at least M + 1 hosts, the
+    tensors are split host-major into one block a shard for this call (as
+    ``shard_map`` splits unplaced arrays) and ``_sharded_decision_core``
+    decides; a ``mult_val`` there raises ``NotImplementedError``.
+
     Returns ``(host_idx, term_mask_idx, ok, fell_back, margin)``: the first
     four as python values (read back in the decision's one host sync),
     ``margin`` as a 0-d tensor on the fleet's device (``POS_INF`` when no
     valid host exists or pruning was off)."""
     n_hosts, k = inst_res.shape[0], inst_res.shape[1]
     dev = free_f.device
-    shortlist = policy.shortlist
-    if shortlist is None:
-        shortlist = DEFAULT_SHORTLIST if n_hosts > 4 * DEFAULT_SHORTLIST else 0
-    m_cand = min(int(shortlist), n_hosts)
-    churn_on = churn is not None and policy.churn_aware
+    kn = _knobs(policy, n_hosts, churn is not None, host_zone is not None,
+                exclude_zone, mult_val)
+    if policy.mesh is not None and _use_mesh(policy.mesh, n_hosts, kn.m_cand):
+        if mult_val is not None:
+            raise NotImplementedError(_TRACED_ON_MESH)
+        shards = _split_shards(policy.mesh, (free_f, free_n, schedulable, domain, slow,
+                                             inst_res, inst_cost, inst_valid, churn,
+                                             host_zone), req_res)
+        h, bm, ok, fell_back, margin = _sharded_decision_core(
+            shards, policy.mesh.lead, req_res.to(policy.mesh.lead), req_preemptible,
+            req_domain, policy, require_free_slot, exclude_zone)
+        return h, bm, ok, fell_back, margin.to(dev)
+    m_cand = kn.m_cand
+    churn_on, zone_on = kn.churn_on, kn.zone_on
     if not churn_on:
         churn = None
-    zone_on = (host_zone is not None and exclude_zone is not None
-               and policy.relocation_on)
     if not zone_on:
         host_zone = exclude_zone = None
-    mult = policy.all_multipliers if churn_on else policy.weigher_multipliers
-    thr = policy.churn_threshold if churn_on else None
-    gates = None
-    if mult_val is not None:
-        gates = mult
-        mult = tuple(float(mult_val[i]) for i in range(len(gates)))
-    m_term = mult[1]
-    gate = None if gates is None else gates[1]     # omega_of's traced program
-    m_term_gate = m_term if gates is None else gate
+    mult, gates, thr = kn.mult, kn.gates, kn.thr
     pre = bool(req_preemptible)
     dom = int(req_domain)
 
@@ -185,21 +315,11 @@ def _decision_core(
 
     def full_decision() -> Tuple[int, int, bool]:
         """Single-stage path: exact enumeration over every host."""
-        valid, cost_lb, cost_ub, raw = stage1_of(
-            free_f, free_n, schedulable, domain, slow,
-            inst_res, inst_cost, inst_valid, churn, host_zone,
-        )
-        consts = consts_of(mult, valid, cost_lb, cost_ub, *raw, gates=gates)
-        base, pending = _base_of(mult, raw, consts, gates)
-        ispan = inv_span(consts.c_lo, consts.c_hi)
-        best_cost, best_mask, _ = sched_weigh(
-            free_f, inst_res, inst_cost, inst_valid, req_res
-        )
-        if pre:
-            best_cost = torch.zeros_like(best_cost)
-            best_mask = torch.zeros_like(best_mask)
-        omega = omega_of(best_cost, base, valid, consts, ispan, m_term,
-                         pending=pending, gate=gate)
+        cols = (free_f, free_n, schedulable, domain, slow,
+                inst_res, inst_cost, inst_valid, churn, host_zone)
+        valid, raw, consts = _full_rows(cols, req_res, pre, dom, require_free_slot,
+                                        exclude_zone, kn)
+        omega, best_mask = _full_omega(cols, req_res, pre, valid, raw, consts, kn)
         host_idx = torch.argmax(omega)
         out = torch.stack([
             host_idx.to(torch.float64), best_mask[host_idx].to(torch.float64),
@@ -235,36 +355,170 @@ def _decision_core(
     base_c, pending_c = _base_of(mult, raw_c, consts, gates)
 
     # ---- stage 2: exact enumeration on the gathered shortlist ---------------
-    ispan = inv_span(consts.c_lo, consts.c_hi)
-    bc_s, bm_s, _ = sched_weigh_gathered(
-        free_f[cand], inst_res[cand], inst_cost[cand], inst_valid[cand],
-        req_res,
-    )
-    if pre:
-        bc_s = torch.zeros_like(bc_s)
-        bm_s = torch.zeros_like(bm_s)
-    omega_s = omega_of(bc_s, base_c, valid_c, consts, ispan, m_term,
-                       pending=pending_c, gate=gate)
-    best_val = torch.amax(omega_s)
-    # Winner = lowest original index among exact-score ties.
-    tie_idx = torch.where(omega_s == best_val, cand, n_hosts)
-    winner_pos = torch.argmin(tie_idx)
-    w_star = tie_idx[winner_pos]
-    ok_s = best_val > NEG_INF / 2
+    out, margin = _stage2(
+        (free_f[cand], inst_res[cand], inst_cost[cand], inst_valid[cand]), req_res, pre,
+        cand, u, j_u, consts, valid_c, base_c, pending_c, n_hosts, k, kn)
+    if out[0]:
+        return int(out[1]), int(out[2]), bool(out[3]), False, margin
+    h, bm, ok = full_decision()
+    return h, bm, ok, True, margin
 
-    # ---- admissibility: can any non-shortlisted host still win? -------------
-    if m_term_gate:
-        scale = abs(m_term) * ispan * (3.0 * k * 1.2e-7)
-        bound = fma(-scale, torch.maximum(torch.abs(consts.c_hi),
-                                          torch.abs(consts.c_lo)), best_val)
-    else:
-        bound = best_val
-    admissible = (u < bound) | ((u == best_val) & (j_u > w_star)) | ~ok_s
-    margin = torch.where(ok_s, best_val - u, POS_INF)
-    out = torch.stack([
-        admissible.to(torch.float64), w_star.to(torch.float64),
-        bm_s[winner_pos].to(torch.float64), ok_s.to(torch.float64),
-    ]).tolist()
+
+# ---------------------------------------------------------------------------
+# The decision on a fleet split across a mesh
+# ---------------------------------------------------------------------------
+
+
+class _Shard(NamedTuple):
+    """One shard's operands of a decision, every tensor on its device."""
+
+    free_f: torch.Tensor
+    free_n: torch.Tensor
+    schedulable: torch.Tensor
+    domain: torch.Tensor
+    slow: torch.Tensor
+    inst_res: torch.Tensor
+    inst_cost: torch.Tensor
+    inst_valid: torch.Tensor
+    churn: Optional[torch.Tensor]
+    host_zone: Optional[torch.Tensor]
+    req_res: torch.Tensor
+
+
+def _split_shards(mesh, columns, req_res) -> List[_Shard]:
+    """Host-major blocks of unsharded columns (None stays None), one a
+    shard, each on its device: views where the device is the same."""
+    t = columns[0].shape[0] // mesh.size
+    return [_Shard(*(None if x is None else x[s * t:(s + 1) * t].to(dev) for x in columns),
+                   req_res.to(dev))
+            for s, dev in enumerate(mesh.devices)]
+
+
+def _merge_consts(local: Sequence[torch.Tensor], lead: torch.device) -> torch.Tensor:
+    """The shards' packed (10,) constants folded on ``lead``: the ``*_lo``
+    entries (even) by min, the ``*_hi`` entries (odd) by max, which is the
+    fleet-wide fold bit for bit."""
+    stacked = torch.stack([c.to(lead) for c in local])
+    return torch.stack([stacked[:, 0::2].amin(0), stacked[:, 1::2].amax(0)], dim=1).reshape(-1)
+
+
+def _shard_extra(sh: _Shard, kn: _Knobs, exclude_zone):
+    return dict(churn=sh.churn if kn.churn_on else None, churn_threshold=kn.thr,
+                host_zone=sh.host_zone if kn.zone_on else None, exclude_zone=exclude_zone)
+
+
+def _sharded_screen(shards: Sequence[_Shard], lead: torch.device, pre: bool, dom: int,
+                    kn: _Knobs, require_free_slot: bool, exclude_zone, m_keep: int):
+    """Stage 1 per shard, split at the constants barrier (port of
+    ``jax_scheduler._sharded_screen``, its kernel route): each shard's
+    ``sched_screen_consts``, the 10 constants merged, each shard's
+    ``sched_screen_topm`` against the merged ones keeping ``m_keep``
+    hosts, the indices shifted to global ones and gathered on ``lead``.
+    Every launch is queued before anything is read.  Returns ``(scores
+    (S·m_keep,), idxs (S·m_keep,) int32, consts (10,))`` on ``lead``."""
+    t = shards[0].free_f.shape[0]
+    local = [sched_screen_consts(*sh[:8], sh.req_res, pre, dom, kn.mult, require_free_slot,
+                                 gates=kn.gates, **_shard_extra(sh, kn, exclude_zone))
+             for sh in shards]
+    merged = _merge_consts(local, lead)
+    scores, idxs = [], []
+    for s, sh in enumerate(shards):
+        sc, ix = sched_screen_topm(
+            *sh[:8], sh.req_res, pre, dom, merged.to(sh.free_f.device), kn.mult,
+            require_free_slot, m_keep, gates=kn.gates, **_shard_extra(sh, kn, exclude_zone))
+        scores.append(sc.to(lead))
+        idxs.append(ix.to(lead) + s * t)
+    return torch.cat(scores), torch.cat(idxs), merged
+
+
+def _gather_rows(shards: Sequence[_Shard], cand: torch.Tensor, lead: torch.device,
+                 kn: _Knobs) -> List[Optional[torch.Tensor]]:
+    """The candidates' rows of the ten host columns (churn and zone None
+    when off), each gathered from its owning shard onto ``lead``."""
+    t = shards[0].free_f.shape[0]
+    owner = torch.div(cand, t, rounding_mode="floor")
+    local = [(cand - owner * t).to(sh.free_f.device) for sh in shards]
+    pick = (owner, torch.arange(cand.shape[0], device=lead))
+    rows = []
+    for col in range(10):
+        if (col == 8 and not kn.churn_on) or (col == 9 and not kn.zone_on):
+            rows.append(None)
+            continue
+        rows.append(torch.stack([sh[col][loc].to(lead) for sh, loc in zip(shards, local)])[pick])
+    return rows
+
+
+def _sharded_decision_core(
+    shards: Sequence[_Shard],
+    lead: torch.device,
+    req_res: torch.Tensor,
+    req_preemptible: bool,
+    req_domain: int,
+    policy: SchedulerPolicy,
+    require_free_slot: bool,
+    exclude_zone: Optional[int] = None,
+    mult_val: Optional[Sequence[float]] = None,
+) -> Tuple[int, int, bool, bool, torch.Tensor]:
+    """``_decision_core`` on a fleet split into equal host-major blocks
+    (``shards``, global host ``s·T + i`` is row ``i`` of block ``s``);
+    ``req_res`` on ``lead``, where the merge, stage 2 and the one host sync
+    run.  Returns what ``_decision_core`` returns, bit for bit.
+
+    With a shortlist, stage 1 is ``_sharded_screen``; the merged top-M's
+    rows come to ``lead`` for stage 2.  A shard of fewer than M + 1 hosts
+    forwards all of them, so the merge is still the fleet-wide ``lax.top_k``
+    and the fallback flag and margin are the unsharded screen's.  The full
+    enumeration (no shortlist, or the admissibility fallback) runs per
+    shard: the screen's rows and ``sched_weigh`` on each block, the
+    constants merged as above, the winner the largest score with ties to
+    the lowest global index."""
+    t = shards[0].free_f.shape[0]
+    n_hosts, k = t * len(shards), shards[0].inst_res.shape[1]
+    kn = _knobs(policy, n_hosts, shards[0].churn is not None,
+                shards[0].host_zone is not None, exclude_zone, mult_val)
+    if mult_val is not None and kn.m_cand > 0 and t >= kn.m_cand + 1:
+        raise NotImplementedError(_TRACED_ON_MESH)
+    excl = exclude_zone if kn.zone_on else None
+    pre, dom = bool(req_preemptible), int(req_domain)
+
+    def full_decision() -> Tuple[int, int, bool]:
+        stage = [_full_rows(sh[:10], sh.req_res, pre, dom, require_free_slot, excl, kn)
+                 for sh in shards]
+        merged = _merge_consts([consts.pack() for _, _, consts in stage], lead)
+        best, where, masks = [], [], []
+        for s, (sh, (valid, raw, _)) in enumerate(zip(shards, stage)):
+            consts = ScreenConsts.unpack(merged.to(sh.free_f.device))
+            omega, best_mask = _full_omega(sh[:10], sh.req_res, pre, valid, raw, consts, kn)
+            i = torch.argmax(omega)
+            best.append(omega[i].to(lead))
+            where.append((i + s * t).to(lead))
+            masks.append(best_mask[i].to(lead))
+        best = torch.stack(best)
+        w = torch.argmax(best)          # the first shard of the largest score
+        out = torch.stack([
+            torch.stack(where)[w].to(torch.float64), torch.stack(masks)[w].to(torch.float64),
+            (best[w] > NEG_INF / 2).to(torch.float64),
+        ]).tolist()
+        return int(out[0]), int(out[1]), bool(out[2])
+
+    if kn.m_cand <= 0 or kn.m_cand >= n_hosts:
+        h, bm, ok = full_decision()
+        return h, bm, ok, False, torch.tensor(POS_INF, dtype=torch.float32, device=lead)
+
+    from .fleet_sharding import merge_shortlists
+
+    all_s, all_i, consts_arr = _sharded_screen(
+        shards, lead, pre, dom, kn, require_free_slot, excl, min(kn.m_cand + 1, t))
+    consts = ScreenConsts.unpack(consts_arr)
+    cand, u, j_u = merge_shortlists(all_s, all_i, kn.m_cand)
+    cand = cand.long()
+    rows = _gather_rows(shards, cand, lead, kn)
+    valid_c, _, _, raw_c = stage1_rows(
+        *rows[:8], req_res, pre, dom, require_free_slot, churn=rows[8],
+        churn_threshold=kn.thr, host_zone=rows[9], exclude_zone=excl)
+    base_c, pending_c = _base_of(kn.mult, raw_c, consts, kn.gates)
+    out, margin = _stage2((rows[0], rows[5], rows[6], rows[7]), req_res, pre, cand, u, j_u,
+                          consts, valid_c, base_c, pending_c, n_hosts, k, kn)
     if out[0]:
         return int(out[1]), int(out[2]), bool(out[3]), False, margin
     h, bm, ok = full_decision()
@@ -298,6 +552,9 @@ class SoAFleetState:
     host_zone: torch.Tensor       # (N,)   int32 zone id
     zone_term: torch.Tensor       # (Z,)   float32 involuntary terminations
     zone_up: torch.Tensor         # (Z,)   float32 accumulated uptime seconds
+
+    #: an unsharded state; ``fleet_sharding.ShardedState`` carries its mesh
+    mesh = None
 
     @property
     def n_hosts(self) -> int:
@@ -538,6 +795,9 @@ class SoAHostState:
     #: optional per-host zone id (None = zone-blind).
     host_zone: Optional[torch.Tensor] = None  # (N,) int32
 
+    #: an unsharded state; ``fleet_sharding.ShardedState`` carries its mesh
+    mesh = None
+
     @property
     def n_hosts(self) -> int:
         return self.free_f.shape[0]
@@ -616,6 +876,22 @@ def _rebuild_decision(
     term_mask_idx, ok, fell_back)``."""
     if not isinstance(req_res, torch.Tensor):
         req_res = torch.from_numpy(np.asarray(req_res, np.float32)).to(state.device)
+    if state.mesh is not None:
+        shards = []
+        for b in state.blocks:
+            churn = b.churn
+            if churn is None and policy.churn_aware:
+                churn = torch.zeros_like(b.slow)
+            host_zone = b.host_zone
+            if host_zone is None and policy.relocation_on:
+                host_zone = torch.zeros_like(b.domain)
+            shards.append(_Shard(b.free_f, b.free_n, b.schedulable, b.domain, b.slow,
+                                 b.inst_res, b.inst_cost, b.inst_valid, churn, host_zone,
+                                 req_res.to(b.device)))
+        return _sharded_decision_core(
+            shards, state.device, req_res.to(state.device), bool(req_preemptible),
+            int(req_domain), policy, require_free_slot=False,
+            exclude_zone=int(req_exclude_zone))[:4]
     churn = state.churn
     if churn is None and policy.churn_aware:
         # a churn-aware policy over a state built without rates: every host
@@ -637,7 +913,7 @@ def _rebuild_decision(
 
 
 def schedule_decision(
-    state: SoAHostState,
+    state,
     req_res,
     req_preemptible: bool,
     req_domain: int,
@@ -649,7 +925,9 @@ def schedule_decision(
     ``jax_scheduler.schedule_decision``).  ``req_res`` is a (D,) tensor on
     the state's device or an array; ``req_domain`` and ``req_exclude_zone``
     are ids, -1 for none.  Unlike the persistent path, a preemptible
-    request needs no free slot: the rebuilt rows hold only live instances."""
+    request needs no free slot: the rebuilt rows hold only live instances.
+    ``state`` may be sharded (``fleet_sharding.shard_fleet_state``): the
+    screen then runs per shard whatever ``policy.mesh`` says."""
     policy = ensure_policy(policy, "schedule_decision")
     return _rebuild_decision(state, req_res, req_preemptible, req_domain,
                              policy, req_exclude_zone)[:3]
@@ -671,7 +949,10 @@ def _seq_sum(vec: torch.Tensor, idx: Sequence[int]) -> Optional[torch.Tensor]:
 
 
 def _zone_add(col: torch.Tensor, zone: torch.Tensor, value: torch.Tensor) -> None:
-    col.index_put_((zone.reshape(1).long(),), value.reshape(1), accumulate=True)
+    """Add ``value`` to ``col[zone]`` (a sharded fleet's zone pair lives on
+    its lead device, the host's row on its shard's)."""
+    col.index_put_((zone.reshape(1).long().to(col.device),), value.reshape(1).to(col.device),
+                   accumulate=True)
 
 
 def _apply_decision(
@@ -740,6 +1021,9 @@ def _req_inputs(state: SoAFleetState, now, policy: SchedulerPolicy):
 def _step_core(state, req_res, req_preemptible, req_domain, now, price,
                req_cost_kind, req_period, policy, req_exclude=None,
                mult_val=None):
+    if state.mesh is not None:
+        return _sharded_step_core(state, req_res, req_preemptible, req_domain, now, price,
+                                  req_cost_kind, req_period, policy, req_exclude, mult_val)
     now = _f32(now)
     inst_cost, churn = _req_inputs(state, now, policy)
     host_idx, mask_idx, ok, fell_back, margin = _decision_core(
@@ -755,6 +1039,34 @@ def _step_core(state, req_res, req_preemptible, req_domain, now, price,
         _f32(price), int(req_cost_kind), _f32(req_period),
     )
     return host_idx, slot, ok, kill, fell_back, margin
+
+
+def _sharded_step_core(state, req_res, req_preemptible, req_domain, now, price,
+                       req_cost_kind, req_period, policy, req_exclude, mult_val):
+    """``_step_core`` on a sharded fleet: each shard's slot costs and churn
+    column (the zone pair copied to the shard's device), the sharded
+    decision, then the decision applied to the winner's block only.  The
+    outputs are on the lead device."""
+    now = _f32(now)
+    lead = state.device
+    shards = []
+    for b in state.blocks:
+        dev = b.device
+        churn = (churn_of(state.zone_term.to(dev), state.zone_up.to(dev), b.host_zone)
+                 if policy.churn_aware else None)
+        shards.append(_Shard(
+            b.free_f, b.free_n, b.schedulable, b.domain, b.slow, b.inst_res,
+            fleet_slot_costs(b, now, policy), b.inst_valid, churn,
+            b.host_zone if req_exclude is not None else None, req_res.to(dev)))
+    host_idx, mask_idx, ok, fell_back, margin = _sharded_decision_core(
+        shards, lead, req_res, bool(req_preemptible), int(req_domain), policy,
+        require_free_slot=True, exclude_zone=req_exclude, mult_val=mult_val)
+    block, row = state.locate(host_idx)
+    slot, kill = _apply_decision(
+        block, row, mask_idx, ok, req_res.to(block.device), bool(req_preemptible), now,
+        _f32(price), int(req_cost_kind), _f32(req_period),
+    )
+    return host_idx, slot.to(lead), ok, kill.to(lead), fell_back, margin
 
 
 def _as_req(state: SoAFleetState, req_res) -> torch.Tensor:
@@ -910,6 +1222,26 @@ def relocate_many(
     )
 
 
+def _on_owner(transition):
+    """Run a one-host transition on a sharded state's block that holds the
+    host (its tensor arguments moved to that block's device); an unsharded
+    state goes straight through.  Returns what the transition returns, with
+    the state itself in place of the block and tensors on the lead
+    device."""
+    @functools.wraps(transition)
+    def routed(state, host_idx, *args, **kw):
+        if state.mesh is None:
+            return transition(state, host_idx, *args, **kw)
+        block, row = state.locate(host_idx)
+        move = lambda a: a.to(block.device) if isinstance(a, torch.Tensor) else a
+        out = transition(block, row, *map(move, args), **{k: move(v) for k, v in kw.items()})
+        if isinstance(out, tuple):
+            return (state,) + tuple(x.to(state.device) for x in out[1:])
+        return state
+    return routed
+
+
+@_on_owner
 def apply_placement(
     state: SoAFleetState,
     host_idx: int,
@@ -942,6 +1274,7 @@ def apply_placement(
     return state, slot
 
 
+@_on_owner
 def apply_termination(
     state: SoAFleetState,
     host_idx: int,
@@ -971,6 +1304,7 @@ def apply_termination(
     return state
 
 
+@_on_owner
 def apply_departure(
     state: SoAFleetState, host_idx: int, res: torch.Tensor
 ) -> SoAFleetState:
@@ -981,6 +1315,7 @@ def apply_departure(
     return state
 
 
+@_on_owner
 def apply_checkpoint(
     state: SoAFleetState, host_idx: int, slot: int, now: float
 ) -> SoAFleetState:
@@ -989,16 +1324,19 @@ def apply_checkpoint(
     return state
 
 
+@_on_owner
 def set_schedulable(state: SoAFleetState, host_idx: int, value: bool) -> SoAFleetState:
     state.schedulable[int(host_idx)] = bool(value)
     return state
 
 
+@_on_owner
 def set_slow_factor(state: SoAFleetState, host_idx: int, value: float) -> SoAFleetState:
     state.slow[int(host_idx)] = _f32(value)
     return state
 
 
+@_on_owner
 def apply_host_failure(
     state: SoAFleetState,
     host_idx: int,
@@ -1039,7 +1377,12 @@ class TorchPreemptibleScheduler:
 
     ``last_build_s`` / ``last_decision_s`` hold the wall-clock split of the
     latest ``schedule`` call; ``calls`` and ``fallbacks`` count decisions
-    and the shortlist fallbacks among them."""
+    and the shortlist fallbacks among them.
+
+    With ``policy.mesh`` the rebuilt state is not padded, so the screen runs
+    per shard only when the host count divides the mesh with at least M + 1
+    hosts a shard (``SoAFleet`` pads its state for that); otherwise the
+    unsharded screen decides, the same decision."""
 
     def __init__(
         self,

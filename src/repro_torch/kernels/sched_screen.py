@@ -270,8 +270,9 @@ def _consts_cuda(args: _ScreenArgs, geo: Geometry, stream: int, ws: torch.Tensor
     fn = _build.entry("sched_screen", "sched_screen_consts_launch",
                       [_ScreenArgs, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
     base = ws.data_ptr()
-    _build.check(fn(args, geo.threads, geo.consts_blocks, base + 8 * _COUNTER_WORDS, base,
-                    consts.data_ptr(), stream), "sched_screen_consts")
+    with torch.cuda.device(consts.device):      # the stream's device current
+        _build.check(fn(args, geo.threads, geo.consts_blocks, base + 8 * _COUNTER_WORDS, base,
+                        consts.data_ptr(), stream), "sched_screen_consts")
     _count(counts)
 
 
@@ -290,9 +291,10 @@ def _topm_cuda(args: _ScreenArgs, geo: Geometry, stream: int, ws: torch.Tensor, 
     base = ws.data_ptr()
     lists = base + 8 * (_COUNTER_WORDS + 5 * geo.consts_blocks)
     group_lists = lists + 8 * geo.topm_blocks * geo.keep_pow2
-    _build.check(fn(args, consts.data_ptr(), m_keep, geo.keep_pow2, geo.threads,
-                    geo.topm_blocks, lists, group_lists, base + 4, base + 8,
-                    scores.data_ptr(), idx.data_ptr(), stream), "sched_screen_topm")
+    with torch.cuda.device(scores.device):
+        _build.check(fn(args, consts.data_ptr(), m_keep, geo.keep_pow2, geo.threads,
+                        geo.topm_blocks, lists, group_lists, base + 4, base + 8,
+                        scores.data_ptr(), idx.data_ptr(), stream), "sched_screen_topm")
     _count(counts)
 
 

@@ -128,7 +128,7 @@ def test_default_device_is_the_card():
 def test_port_imports_neither_jax_nor_the_jax_package():
     modules = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
     for name in ("repro_torch.core.torch_scheduler", "repro_torch.core.preemption",
-                 "repro_torch.core.scan_sim",
+                 "repro_torch.core.scan_sim", "repro_torch.core.fleet_sharding",
                  "repro_torch.configs", "repro_torch.configs.qwen2_1_5b",
                  "repro_torch.models.model", "repro_torch.models.convert",
                  "repro_torch.serving.engine", "repro_torch.kernels.flash_attention",

@@ -233,7 +233,9 @@ def test_apply_placement_matches():
 
 
 def test_unported_planes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the mesh is ported: anything but a 1-D FleetMesh is refused, with the
+    # JAX policy's message
+    with pytest.raises(ValueError, match="mesh must be a 1-D"):
         TPolicy(mesh=object())
     # the admission and relocation planes are ported: their policies build
     assert TPolicy(queue_capacity=64).queue_capacity == 64
