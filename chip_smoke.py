@@ -59,14 +59,14 @@ exits non-zero:
                60 s) on the card and on the CPU: identical counters,
                samples, admission stats (the waits bit for bit),
                placements, preemptions, final state and final queue; at
-               65,536 saturated hosts 1,024 arrivals (half normal, two
+               65,536 saturated hosts 512 arrivals (half normal, two
                classes) in blocking drains every 64, then ``drain_all``:
                decisions/s, drain ms, sim-time waits, wall submit→absorbed
                latency and the counts, conservation, every drain in
                (class, seq) order, no class-1 attempt while a class-0 entry
                waits, then every drain replayed through ``schedule_many``
                from the state before the stream (the same decisions, the
-               same state after each drain); at 65,536 empty hosts 1,024
+               same state after each drain); at 65,536 empty hosts 512
                arrivals in non-blocking drains of 16 and of 64, every one
                admitted: decisions/s and wall latency; the launches of each
                decision kernel against what the path implies;
@@ -79,7 +79,7 @@ exits non-zero:
                and on the CPU: identical metrics, storm kills, relocation
                records, ``relocated_ids``, final state (and queue); at
                65,536 nodes in 4 zones (z0-z2 2 instances a host, z3
-               saturated at 4) one storm of kill_frac 0.25 on z3, then 16
+               saturated at 4) one storm of kill_frac 0.25 on z3, then 8
                relocation passes 60 s apart, direct and through the
                admission plane: moved / failed / lost / stale / pending,
                relocations/s, pass, ranking and batch ms, the device's busy
@@ -101,9 +101,9 @@ exits non-zero:
                draws in 3 zones, the trace cut to 1,600 s, both engines
                identical in outcomes (zone_up by its gap: the storm's uptime
                sum passes 2^24), preemptions, storm kills, events/s; at
-               1,024 nodes 32 seed lanes (trajectories/s; every fourth lane
+               1,024 nodes 8 seed lanes (trajectories/s; every fourth lane
                against its padded single run), the multiplier axis on
-               saturated nodes card against CPU, 32 admission-knob lanes;
+               saturated nodes card against CPU, 8 admission-knob lanes;
                every decision kernel's launches against what the path
                implies;
 5f. sharded  — the fleet split host-major into 4 shards on the card
@@ -125,32 +125,64 @@ exits non-zero:
                device where there are several; the launches of each
                decision kernel against what the sharded path implies;
 6. model_kernels — flash-attention forward and RMSNorm against their plain
-               versions at qwen2-1.5b's and gemma-2b's shapes (plus a full
-               and a ragged case; the f32 route at S=77 and at every shape
-               its paths run: 4 x 1,024, 2 x 4,096, phase 10's, gemma-2b's,
-               ragged and full; RMSNorm at the prefill, decode and training
-               shapes, both type mixes, an odd width and rows off 16-byte
-               alignment), each gap against a stated tolerance, and two
-               calls of the forward (both routes) and of RMSNorm giving the
-               same bits; kernel / plain / bound / library times (bf16
-               tensor-core and f32 routes; the f32 route at 4 x 1,024 and
-               2 x 4,096, by the trace and by CUDA events), and RMSNorm's
-               and the library's at 8, 4,096 and 8,192 rows of 1,536, warm
-               and with the L2 flushed;
+               versions at qwen2-1.5b's, gemma-2b's, moonshot-v1-16b-a3b's (4 x
+               1,024, 16 heads) and arctic-480b's (2 x 512, 56 heads on 8)
+               shapes (plus a full and a ragged case; the f32 route at S=77 and
+               at every shape its paths run: 4 x 1,024, 2 x 4,096, phase 10's,
+               gemma-2b's, ragged and full; RMSNorm at the prefill, decode and
+               training shapes, both type mixes, an odd width, rows off 16-byte
+               alignment, 2,048 and 7,168 wide), each gap against a stated
+               tolerance, and two calls of the forward (both routes) and of
+               RMSNorm giving the same bits; kernel / plain / bound / library
+               times (bf16 tensor-core and f32 routes; the f32 route at 4 x
+               1,024 and 2 x 4,096, by the trace and by CUDA events), and
+               RMSNorm's and the library's at 8, 4,096 and 8,192 rows of 1,536,
+               warm and with the L2 flushed; both kernels' times at phase 8b's
+               prefill shapes;
 7. model_parity — reduced qwen2-1.5b in f32, the same weights on the card
                and on the CPU: flash ``forward_logits`` within 1e-4 (past
                it, the failure's message says which side moved: each
                forward again, both with reference attention, the TF32
                settings, the CPU threads, the BLAS environment), and a
                ``ServingEngine`` run with identical tokens and step counts;
-8. serve     — full-width qwen2-1.5b (28 layers, random f32 master weights
-               from a seed, bf16 compute): ``forward_logits`` with flash and
-               reference attention on 4 x 1,024 tokens against the f32
-               forward, then a ``ServingEngine`` (batch 8, max_len 1,024)
-               answering 8 requests across a preemption halfway through,
-               drained by a second engine: prefill tokens/s, decode ms per
-               step, decode tokens/s, peak memory, launch counts, and the
-               device's busy share over a traced decode window;
+8. serve     — full-width qwen2-1.5b (28 layers, random f32 master weights from
+               a seed, bf16 compute): ``forward_logits`` with flash, reference
+               and blocked attention on 4 x 1,024 tokens against the f32
+               forward (flash and blocked within 1.25x the reference's gap),
+               then a ``ServingEngine`` (batch 8, max_len 1,024) answering 8
+               requests across a preemption halfway through, drained by a
+               second engine: prefill tokens/s, decode ms per step, decode
+               tokens/s, peak memory, launch counts, and the device's busy
+               share over a traced decode window;
+8b. moe      — the mixture-of-experts family, each load after printing the
+               card's free memory: reduced moonshot-v1-16b-a3b in f32, the same
+               weights on the card and on the CPU, flash: every layer's routing
+               (``top_e``, the kept mask) identical (a difference fails with
+               the token's top-k probability gap), ``forward_logits`` no
+               further from an f64 forward than 3x the CPU's f32 (which this
+               network puts 2e-3 from it), a ``ServingEngine`` run with
+               identical tokens; one full-width moonshot MoE layer in f32 on
+               512 tokens at capacity factor 16 against the dense per-token
+               reference (stated bound), two calls the same bits, and the share
+               of choices dropped at the config's 1.25; full-width
+               moonshot-v1-16b-a3b (48 layers, bf16 parameters drawn on the
+               card): ``forward_logits`` on 4 x 1,024 tokens with flash and
+               reference attention (their gap and the share of tokens routed
+               apart, by layer; at depth 4, each against the f32 forward of
+               those layers, flash within 1.25x the reference's gap, phase 8's
+               bound), a ``ServingEngine`` (batch 8, max_len 1,024) answering 8
+               requests of 32 new tokens across a preemption after 16
+               steps, drained by a second engine, with the tokens of an
+               uninterrupted engine (capacity factor 16, so
+               that no choice drops), then at the config's 1.25: prefill
+               tokens/s, decode ms p50 / p99, dropped shares, peak memory,
+               launches against the path, the busy share of a traced decode
+               window; arctic-480b at full width cut to 1 layer (bf16): its
+               layer (128 experts top-2 beside the dense MLP) against the dense
+               reference plus ``glu_mlp`` on 256 tokens (stated bf16 bound),
+               two calls the same bits; then ``forward_logits`` on 2 x 512
+               tokens, flash and reference against the f32 forward (the weights
+               cast in place), flash within 1.25x the reference's gap;
 9. train_kernels — the flash-attention backward kernels (dq, dk/dv and its
                reduction over grouped heads; bf16 on the tensor cores, f32
                on the CUDA cores) against
@@ -165,12 +197,13 @@ exits non-zero:
                by CUDA events), the forward's too,
                and the f32 route's dq, dk/dv and reduction at 1 x 2,048,
                2 x 4,096 and phase 10's shape;
-10. train_parity — reduced qwen2-1.5b in f32, flash attention, full remat,
-               the same weights on the card and on the CPU: three
-               ``make_train_step`` steps agree; then a ``Trainer`` run of 8
-               steps against one preempted after 4 and resumed by a fresh
-               ``Trainer``, which must end bitwise equal; the launches of
-               the f32 flash kernels this path runs;
+10. train_parity — reduced qwen2-1.5b in f32, flash attention, full remat, the
+               same weights on the card and on the CPU: three
+               ``make_train_step`` steps agree, and one more under
+               ``remat="dots"`` and one with blocked attention; then a
+               ``Trainer`` run of 8 steps against one preempted after 4 and
+               resumed by a fresh ``Trainer``, which must end bitwise equal;
+               the launches of the f32 flash kernels this path runs;
 11. train    — full-width qwen2-1.5b (f32 master weights and AdamW state,
                bf16 compute, flash attention, full remat, 4 x 4,096 tokens a
                step as 2 microbatches): 3 steps, a preemption through the
@@ -181,10 +214,18 @@ exits non-zero:
                path, the device's busy share and time by kernel class over
                one traced step, and the first step against reference
                attention on the same batch (its f32 half runs the f32 flash
-               kernels, whose launches are counted against the path);
+               kernels, whose launches are counted against the path); one
+               more step under ``remat="full"`` and one under ``"dots"``,
+               each with its time and peak memory;
 12. every library time of a flash kernel's function by the trace and by
     CUDA events, marking any reading under its bound; the ``kernels`` line,
     then the card's name and power limit, then the result line.
+
+The CPU side of phases 4 to 5f's card-against-CPU simulator runs
+(chip_smoke_cpu.py, the scenarios and what is compared) runs in a process
+of its own, started with the script on 2 CPU threads, while the card
+works; the ``cpu_refs`` line after phase 5f gives the seconds the script
+waited for each run, and every line's ``at_s`` its seconds since the start.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so every f32
 product here is full f32.  The script imports neither JAX nor the JAX
@@ -192,11 +233,15 @@ package.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
+import gc
 import json
 import math
 import os
+import pickle
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -228,13 +273,11 @@ from repro_torch.core import torch_scheduler as tsched  # noqa: E402
 from repro_torch.core.fleet_sharding import (  # noqa: E402
     fleet_mesh,
     merge_shortlists,
-    pad_fleet_state,
     padded_hosts,
 )
 from repro_torch.core.policy import SchedulerPolicy  # noqa: E402
-from repro_torch.core.cluster import Cluster, make_uniform_fleet  # noqa: E402
 from repro_torch.core.scheduler import SCHEDULER_REGISTRY  # noqa: E402
-from repro_torch.core.simulator import Simulator, SoASimulator, WorkloadSpec  # noqa: E402
+from repro_torch.core.simulator import SoASimulator, WorkloadSpec  # noqa: E402
 from repro_torch.core.soa_fleet import SoAFleet  # noqa: E402
 from repro_torch.core.torch_scheduler import (  # noqa: E402
     STATE_DTYPES,
@@ -246,11 +289,13 @@ from repro_torch.core.torch_scheduler import (  # noqa: E402
     schedule_many,
     schedule_step,
 )
-from repro_torch.core.types import Host, Request  # noqa: E402
+from repro_torch.core.types import Request  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.layers import glu_mlp, init_leaf  # noqa: E402
 from repro_torch.serving import ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.core.preemption import PreemptAck, PreemptionController  # noqa: E402
 from repro_torch.core.types import TPU_SPEC, Instance  # noqa: E402
@@ -258,6 +303,58 @@ from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.training import Trainer, TrainerConfig, TrainSettings, make_train_step  # noqa: E402
 from repro_torch.training.trainer import state_tensors  # noqa: E402
+from chip_smoke_cpu import (  # noqa: E402
+    ADMISSION,
+    COUNTERS,
+    MULT_ROWS,
+    RELOC,
+    RELOC_RATE,
+    SCAN_ENS_S,
+    SCAN_POLICY,
+    SCAN_S,
+    SCAN_SPEC,
+    adm_stats,
+    mult_state,
+    mult_trace,
+    on_clock,
+    parity_sim,
+    ragged_sim,
+    ragged_view,
+    rebuild_sim,
+    rebuild_view,
+    reloc_sim,
+    reloc_view,
+    saturated_zoned,
+    scan_trace,
+    scan_view,
+    sim_view,
+    stream_sim,
+    zoned_hosts,
+)
+
+T_START = time.perf_counter()
+# the CPU side of the simulators' card-against-CPU checks (phases 4 to 5f)
+# runs in a process of its own from the start, while the card works; each
+# phase reads its CPU run's view from CPU_DIR.  SIGTERM exits through
+# atexit, which stops that process
+CPU_DIR = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+_cpu_log = open(os.path.join(CPU_DIR, "worker.log"), "wb")
+cpu_proc = subprocess.Popen(
+    [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_cpu.py"),
+     CPU_DIR], stdout=_cpu_log, stderr=subprocess.STDOUT, env=dict(os.environ, OMP_NUM_THREADS="2"))
+CPU_WAITED = {}
+
+
+def _stop_cpu_process() -> None:
+    if cpu_proc.poll() is None:
+        cpu_proc.kill()
+    cpu_proc.wait()
+    _cpu_log.close()
+    shutil.rmtree(CPU_DIR, ignore_errors=True)
+
+
+atexit.register(_stop_cpu_process)
+signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -272,12 +369,48 @@ PEAKS = {"SXM": (3.35e12, 67e12, 989e12), "PCIe": (2.0e12, 51e12, 756e12)}
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def cpu_ref(name: str, timeout_s: float = 900.0) -> dict:
+    """The CPU run ``name`` of chip_smoke_cpu.py, waiting for it; fails if
+    that process ended without it or it takes ``timeout_s``."""
+    path, t = os.path.join(CPU_DIR, f"{name}.pkl"), time.perf_counter()
+    while not os.path.exists(path):
+        if cpu_proc.poll() is not None and not os.path.exists(path):
+            with open(os.path.join(CPU_DIR, "worker.log"), "rb") as fh:
+                tail = fh.read()[-4000:].decode(errors="replace")
+            raise AssertionError(f"chip_smoke_cpu.py ended (rc {cpu_proc.returncode}) before "
+                                 f"its run {name}: {tail}")
+        check(time.perf_counter() - t < timeout_s, f"chip_smoke_cpu.py: no run {name} in {timeout_s} s")
+        time.sleep(0.05)
+    with open(path, "rb") as fh:
+        out = pickle.load(fh)
+    CPU_WAITED[name] = time.perf_counter() - t
+    return out
+
+
+def same_view(got: dict, want: dict, what: str) -> None:
+    """Two views of a run (chip_smoke_cpu.py's ``*_view``) equal entry by
+    entry: arrays by value, dicts of arrays field by field, the rest by
+    ``==``; ``seconds`` aside."""
+    for key, w_ in want.items():
+        if key == "seconds":
+            continue
+        g_ = got[key]
+        if isinstance(w_, dict) and w_ and all(isinstance(v_, np.ndarray) for v_ in w_.values()):
+            for f_, wv_ in w_.items():
+                check(np.array_equal(g_[f_], wv_), f"{what}: {key} {f_} differs")
+        elif isinstance(w_, np.ndarray):
+            check(np.array_equal(g_, w_), f"{what}: {key} differs")
+        else:
+            check(g_ == w_, f"{what}: {key} differ")
 
 
 def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -794,38 +927,15 @@ del big, big_cp, big_tp, big_t, runs
 # ---------------------------------------------------------------------------
 # 4. main-path parity: the simulator on the card and on the CPU
 # ---------------------------------------------------------------------------
-def sim(device):
-    s = SoASimulator(
-        fleets.saturated_fleet(4096, seed=5),
-        WorkloadSpec(arrival_rate_per_s=0.5, flavors=list(fleets.SIZES.items())),
-        seed=6, device=device,
-    )
-    s.inject_stragglers(0.02)
-    s.inject_host_failure("h17", at_s=600.0, heal_after_s=900.0)
-    s.inject_host_failure("h2048", at_s=1500.0)
-    t = time.perf_counter()
-    metrics = s.run(2200.0)
-    return s, metrics, time.perf_counter() - t
-
-
-gsim, gm, g_s = sim(DEV)
-csim, cm, c_s = sim("cpu")
-counters = ("failures_normal", "failures_preemptible", "placed_normal",
-            "placed_preemptible", "preemptions")
-for key in counters:
-    check(getattr(gm, key) == getattr(cm, key), f"parity: {key} differs")
-check(gm.utilization == cm.utilization, "parity: utilization samples differ")
-check(list(gsim.fleet.instances) == list(csim.fleet.instances), "parity: placements differ")
-check(gsim.fleet.locator == csim.fleet.locator, "parity: instance locations differ")
-check([i.id for i in gsim.fleet.preempted] == [i.id for i in csim.fleet.preempted],
-      "parity: preemptions differ")
-g_arr, c_arr = fleet_state_to_numpy(gsim.fleet.state), fleet_state_to_numpy(csim.fleet.state)
-for f in STATE_DTYPES:
-    check(np.array_equal(g_arr[f], c_arr[f]), f"parity: final state {f} differs")
+gsim, gm, g_s = parity_sim(DEV)
+cref = cpu_ref("parity")
+counters = COUNTERS
+same_view(sim_view(gsim, gm), cref, "parity: the card against the CPU")
 check(gsim.fleet.decisions >= 1000, "parity: fewer than 1,000 decisions")
 emit("parity", hosts=4096, decisions=gsim.fleet.decisions,
      fallbacks=gsim.fleet.fallbacks, **{key: getattr(gm, key) for key in counters},
-     gpu_seconds=g_s, cpu_seconds=c_s)
+     gpu_seconds=g_s, cpu_seconds=cref["seconds"])
+del gsim, gm, cref
 
 # ---------------------------------------------------------------------------
 # 5. main path at full size
@@ -860,9 +970,10 @@ for i, item in enumerate(batch(512, "s")):
     t = time.perf_counter()
     fleet.schedule_request(*item)
     single_s.append(time.perf_counter() - t)
-with torch.profiler.profile(
-    activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-) as prof:
+# the trace records device activity only: with the host's ops too it holds
+# several hundred thousand events, which take tens of seconds to read back,
+# and nothing here reads them
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
     torch.cuda.synchronize()
     t = time.perf_counter()
     for j in range(4):
@@ -1050,28 +1161,10 @@ del hosts_, hosts_big, persistent
 
 # the python Simulator with the rebuild scheduler, on the card and the CPU:
 # test_soa_incremental.py's workload, 16 hosts, 24 simulated hours
-sim_runs = {}
-for dev_ in (DEV, "cpu"):
-    sched_ = TorchPreemptibleScheduler(k_slots=4, device=dev_)
-    cluster_ = Cluster(make_uniform_fleet(16, fleets.NODE_CAP))
-    t_ = time.perf_counter()
-    m_ = Simulator(cluster_, sched_, WorkloadSpec(arrival_rate_per_s=1 / 40.0,
-                                                  preemptible_fraction=0.5,
-                                                  flavors=(("medium", medium),)),
-                   seed=5).run(24 * 3600.0)
-    sim_runs[str(dev_)] = (m_, cluster_, time.perf_counter() - t_, sched_)
-    if dev_ is DEV:
-        absorb(sched_, 16)
-(gm_, gc_, gs_, gsch_), (cm_, cc_, cs_, _) = sim_runs["cuda"], sim_runs["cpu"]
-for key in counters:
-    check(getattr(gm_, key) == getattr(cm_, key), f"rebuild Simulator: {key} differs")
-check(gm_.utilization == cm_.utilization and gm_.t == cm_.t,
-      "rebuild Simulator: utilisation series differ")
-check({n_: sorted(h_.instances) for n_, h_ in gc_.hosts.items()}
-      == {n_: sorted(h_.instances) for n_, h_ in cc_.hosts.items()},
-      "rebuild Simulator: placements differ")
-check([i.id for i in gc_.preempted] == [i.id for i in cc_.preempted],
-      "rebuild Simulator: preemptions differ")
+gm_, gc_, gs_, gsch_ = rebuild_sim(DEV)
+absorb(gsch_, 16)
+cref = cpu_ref("rebuild")
+same_view(rebuild_view(gm_, gc_), cref, "rebuild Simulator: the card against the CPU")
 check(gm_.preemptions > 0, "rebuild Simulator: no preemptions")
 
 for name in records:
@@ -1092,16 +1185,15 @@ emit("rebuild", card=smi, method="wall clock per call, p50 of 8 calls (16 where 
                     placed=gm_.placed_normal + gm_.placed_preemptible,
                     preemptions=gm_.preemptions, failures_normal=gm_.failures_normal,
                     failures_preemptible=gm_.failures_preemptible, identical=True,
-                    gpu_seconds=gs_, cpu_seconds=cs_),
+                    gpu_seconds=gs_, cpu_seconds=cref["seconds"]),
      launches=rebuild_counts, launches_implied=implied,
      seconds=time.perf_counter() - t_rebuild)
-del sim_runs, gm_, gc_, cm_, cc_, gsch_
+del gm_, gc_, gsch_, cref
 
 # ---------------------------------------------------------------------------
 # 5c. admission: the streaming admission plane
 # ---------------------------------------------------------------------------
 t_adm = time.perf_counter()
-ADMISSION = dict(queue_capacity=256, admit_batch=64, max_retries=4, slo_target_s=60.0)
 ADM_KERNELS = ("sched_screen_consts", "sched_screen_topm", "sched_screen", "sched_weigh",
                "sched_weigh_gathered")
 adm_counts = {key: 0 for key in ADM_KERNELS}
@@ -1154,64 +1246,25 @@ for cap_ in (1, 7, 256, 4096):
 
 
 # parity: phase 4's simulator, streaming, on the card and on the CPU
-def stream_sim(device):
-    s = SoASimulator(
-        fleets.saturated_fleet(4096, seed=5),
-        WorkloadSpec(arrival_rate_per_s=0.5, flavors=list(fleets.SIZES.items())),
-        seed=6, policy=SchedulerPolicy(**ADMISSION), device=device,
-    )
-    s.inject_stragglers(0.02)
-    s.inject_host_failure("h17", at_s=600.0, heal_after_s=900.0)
-    s.inject_host_failure("h2048", at_s=1500.0)
-    kernels.reset_launch_counts()
-    t = time.perf_counter()
-    metrics = s.run(2200.0)
-    seconds = time.perf_counter() - t
-    if device is DEV:
-        adm_absorb(s.fleet, 0, 0, "parity at 4,096 hosts")
-    return s, metrics, seconds
-
-
-def adm_stats(front):
-    out = dataclasses.asdict(front.stats)
-    del out["wall_wait_s"]
-    return out
-
-
-gsim, gm, g_s = stream_sim(DEV)
-csim, cm, c_s = stream_sim("cpu")
-for key in counters:
-    check(getattr(gm, key) == getattr(cm, key), f"admission parity: {key} differs")
-check(gm.utilization == cm.utilization and gm.t == cm.t,
-      "admission parity: utilization samples differ")
-gfront, cfront = gsim.fleet.admission, csim.fleet.admission
-check(adm_stats(gfront) == adm_stats(cfront),
-      "admission parity: admission stats differ (wall clock aside)")
-check(np.asarray(gfront.stats.wait_s, np.float32).tobytes()
-      == np.asarray(cfront.stats.wait_s, np.float32).tobytes(),
-      "admission parity: waits differ in their bits")
-check(list(gsim.fleet.instances) == list(csim.fleet.instances),
-      "admission parity: placements differ")
-check(gsim.fleet.locator == csim.fleet.locator, "admission parity: locations differ")
-check([i.id for i in gsim.fleet.preempted] == [i.id for i in csim.fleet.preempted],
-      "admission parity: preemptions differ")
-g_arr, c_arr = fleet_state_to_numpy(gsim.fleet.state), fleet_state_to_numpy(csim.fleet.state)
-for f in STATE_DTYPES:
-    check(np.array_equal(g_arr[f], c_arr[f]), f"admission parity: final state {f} differs")
-g_q, c_q = queue_state_to_numpy(gfront.qstate), queue_state_to_numpy(cfront.qstate)
-for f in QUEUE_DTYPES:
-    check(np.array_equal(g_q[f], c_q[f]), f"admission parity: final queue {f} differs")
+gsim, gm, g_s = stream_sim(DEV, before_run=kernels.reset_launch_counts)
+adm_absorb(gsim.fleet, 0, 0, "parity at 4,096 hosts")
+cref = cpu_ref("admission")
+same_view(sim_view(gsim, gm, streaming=True), cref, "admission parity: the card against the CPU")
+gfront = gsim.fleet.admission
 check(gfront.stats.retries > 0 and gfront.stats.admitted >= 500,
       "admission parity: the run should admit and retry")
 parity_out = dict(hosts=4096, decisions=gsim.fleet.decisions, fallbacks=gsim.fleet.fallbacks,
                   **{key: getattr(gm, key) for key in counters},
                   **{key: v_ for key, v_ in adm_stats(gfront).items() if key != "wait_s"},
-                  gpu_seconds=g_s, cpu_seconds=c_s, identical=True)
-del gsim, csim, gm, cm, g_arr, c_arr
+                  gpu_seconds=g_s, cpu_seconds=cref["seconds"], identical=True)
+del gsim, gm, gfront, cref
 
-# full size, contended: phase 5's 65,536 saturated hosts, 1,024 arrivals
+# full size, contended: phase 5's 65,536 saturated hosts, 512 arrivals
 # (half normal, drawn as phase 5 draws them) in blocking drains every 64,
-# then drain_all; every drain replayed afterwards through schedule_many
+# then drain_all; every drain replayed afterwards through schedule_many.
+# The uncontended streams below take 512 arrivals too: each arrival is a
+# host-bound decision, and the whole script must end well inside its limit
+ADM_ARRIVALS = 512
 t_ = time.perf_counter()
 afleet = SoAFleet(fleets.saturated_fleet(N_HOSTS, seed=0), device=DEV,
                   policy=SchedulerPolicy(n_classes=2, **ADMISSION))
@@ -1244,7 +1297,7 @@ def absorb_drain(dr):
 
 kernels.reset_launch_counts()
 d0, f0 = afleet.decisions, afleet.fallbacks
-for i in range(1024):
+for i in range(ADM_ARRIVALS):
     clock_ += float(rng.integers(1, 20))
     req_ = Request(id=f"a{i}", resources=sizes[int(rng.integers(0, 3))], preemptible=bool(i % 2))
     meta[req_.id] = (i % 2, i)
@@ -1263,7 +1316,7 @@ for dr_ in tail:
 adm_absorb(afleet, d0, f0, "contended at 65,536 hosts")
 front = afleet.admission
 s_ = front.stats
-check(s_.arrivals == 1024 and s_.arrivals == s_.admitted + s_.rejected + s_.queue_depth
+check(s_.arrivals == ADM_ARRIVALS and s_.arrivals == s_.admitted + s_.rejected + s_.queue_depth
       + front.pending, "admission: conservation broken at 65,536 hosts")
 check(not out_of_order, f"admission: drains {out_of_order} left (class, seq) order")
 check(not class_1_first,
@@ -1273,7 +1326,7 @@ attempts_n = sum(len(dr_.attempts) for dr_ in drains)
 check(afleet.decisions - d0 == attempts_n, "admission: decisions differ from attempts")
 summary_ = front.stats.summary()
 contended = dict(
-    hosts=N_HOSTS, k=afleet.k_slots, m=M, arrivals=1024, drains=len(drains),
+    hosts=N_HOSTS, k=afleet.k_slots, m=M, arrivals=ADM_ARRIVALS, drains=len(drains),
     blocking_drains=len(drain_s), tail_drains=len(tail), attempts=attempts_n,
     decisions_per_s=attempts_n / (sum(drain_s) + tail_s),
     admitted_per_s=s_.admitted / (sum(drain_s) + tail_s),
@@ -1325,7 +1378,7 @@ for b_ in (16, 64):
     now_ = fleets.NOW
     kernels.reset_launch_counts()
     t_ = time.perf_counter()
-    for i0 in range(0, 1024, b_):
+    for i0 in range(0, ADM_ARRIVALS, b_):
         for j_ in range(i0, i0 + b_):
             now_ += 1.0
             ufleet.submit(Request(id=f"s{j_}", resources=medium,
@@ -1336,8 +1389,8 @@ for b_ in (16, 64):
     elapsed_ = time.perf_counter() - t_
     adm_absorb(ufleet, 0, 0, f"uncontended, batch {b_}")
     us_ = ufleet.admission.stats
-    check(us_.admitted == 1024 and us_.retries == 0 and us_.rejected == 0,
-          f"admission: uncontended batch {b_}: {us_.admitted} of 1,024 admitted")
+    check(us_.admitted == ADM_ARRIVALS and us_.retries == 0 and us_.rejected == 0,
+          f"admission: uncontended batch {b_}: {us_.admitted} of {ADM_ARRIVALS} admitted")
     wall_ = np.asarray(us_.wall_wait_s)
     uncontended[f"batch_{b_}"] = dict(
         decisions=ufleet.decisions, decisions_per_s=us_.admitted / elapsed_,
@@ -1360,12 +1413,6 @@ emit("admission", card=smi, policy=ADMISSION, tied_select_cases_equal=tied_cases
 # 5d. relocation: hot-zone evacuation, zone storms, churn regimes
 # ---------------------------------------------------------------------------
 t_reloc = time.perf_counter()
-#: tests/test_relocation.py::_storm_sim's policy (its budget per run below)
-RELOC = dict(cost_kind="period", churn_multiplier=2.0, churn_threshold=1e-4,
-             relocate_threshold=1e-4, relocate_every_s=60.0, relocate_cooldown_s=600.0)
-#: arrivals a second at 4,096 hosts: the reference test's 1/20 raised
-#: five-fold, so that new spot work keeps arriving as storms and moves thin z2
-RELOC_RATE = 0.25
 reloc_counts = {key: 0 for key in ADM_KERNELS}
 reloc_implied = {key: 0 for key in ADM_KERNELS}
 reloc_calls = []     # every relocate_many call of the phase: inputs, outputs, seconds
@@ -1400,14 +1447,6 @@ def reloc_absorb(fleet_, d0_, f0_, c0_, what):
     pad_ = sum(len(c_["args"][2]) - int(c_["args"][2].sum()) for c_ in reloc_calls[c0_:])
     adm_absorb(fleet_, d0_, f0_, what, extra=pad_, phase="relocation",
                into=(reloc_counts, reloc_implied))
-
-
-def fleet_summary(fleet_):
-    """A fleet's python mirror and relocation records, by identities."""
-    return ([(i.id, i.host, i.start_time, i.last_checkpoint) for i in fleet_.instances.values()],
-            fleet_.locator, [i.id for i in fleet_.preempted],
-            dataclasses.asdict(fleet_.relocation), fleet_.relocated_ids,
-            {z_: dataclasses.asdict(r_) for z_, r_ in fleet_._reloc_zone.items()})
 
 
 # the victim ranking on the card against the CPU from the same state, 65,536
@@ -1454,45 +1493,15 @@ del gst_, cst_, packed_, tied_
 # parity: tests/test_relocation.py::_storm_sim's regime on 4,096 Table 1 nodes
 # in 3 zones, each host holding 3 medium instances started before the run's
 # clock, direct and streaming, on the card and on the CPU
-def reloc_sim(device, streaming):
-    knobs = dict(RELOC, relocate_budget=8,
-                 **(dict(queue_capacity=64, admit_batch=8, slo_target_s=30.0) if streaming else {}))
-    s = SoASimulator(
-        fleets.zoned_fleet(4096, (3, 3, 3), seed=5, now=0.0),
-        WorkloadSpec(arrival_rate_per_s=RELOC_RATE, preemptible_fraction=1.0,
-                     flavors=(("medium", medium),)),
-        seed=11, policy=SchedulerPolicy(**knobs), device=device)
-    s.inject_churn_regime("z2", until_s=4000.0, mean_on_s=300.0, mean_off_s=800.0,
-                          storm_every_s=100.0, kill_frac=0.3, start_s=0.0)
-    s.inject_zone_storm("z2", at_s=3500.0, kill_frac=1.0)
-    kernels.reset_launch_counts()
-    c0_ = len(reloc_calls)
-    t = time.perf_counter()
-    metrics = s.run(4000.0)
-    seconds = time.perf_counter() - t
-    if device is DEV:
-        reloc_absorb(s.fleet, 0, 0, c0_, f"parity at 4,096 hosts, streaming={streaming}")
-    return s, metrics, seconds
-
-
 reloc_parity = {}
 for streaming_ in (False, True):
     mode_ = "streaming" if streaming_ else "direct"
-    (gs_, gm_, gsec_), (cs_, cm_, csec_) = reloc_sim(DEV, streaming_), reloc_sim("cpu", streaming_)
-    gdict, cdict = dataclasses.asdict(gm_), dataclasses.asdict(cm_)
-    check(len(gdict.pop("sched_latency_s")) == len(cdict.pop("sched_latency_s")) and gdict == cdict,
-          f"relocation parity ({mode_}): metrics differ")
-    check(fleet_summary(gs_.fleet) == fleet_summary(cs_.fleet),
-          f"relocation parity ({mode_}): mirrors or relocation records differ")
-    g_arr, c_arr = fleet_state_to_numpy(gs_.fleet.state), fleet_state_to_numpy(cs_.fleet.state)
-    for f in STATE_DTYPES:
-        check(np.array_equal(g_arr[f], c_arr[f]), f"relocation parity ({mode_}): final state {f} differs")
-    if streaming_:
-        check(adm_stats(gs_.fleet.admission) == adm_stats(cs_.fleet.admission),
-              "relocation parity (streaming): admission stats differ")
-        g_q, c_q = (queue_state_to_numpy(f_.admission.qstate) for f_ in (gs_.fleet, cs_.fleet))
-        for f in QUEUE_DTYPES:
-            check(np.array_equal(g_q[f], c_q[f]), f"relocation parity (streaming): queue {f} differs")
+    c0_ = len(reloc_calls)
+    gs_, gm_, gsec_ = reloc_sim(DEV, streaming_, before_run=kernels.reset_launch_counts)
+    reloc_absorb(gs_.fleet, 0, 0, c0_, f"parity at 4,096 hosts, streaming={streaming_}")
+    cref = cpu_ref(f"reloc_{mode_}")
+    same_view(reloc_view(gs_, gm_, streaming_), cref,
+              f"relocation parity ({mode_}): the card against the CPU")
     rs_ = gs_.fleet.relocation
     check(gm_.relocations > 0 and gm_.storm_kills > 0 and rs_.pending == 0
           and rs_.attempted == rs_.relocated + rs_.failed + rs_.lost_victims + rs_.stale,
@@ -1506,21 +1515,21 @@ for streaming_ in (False, True):
         hosts=4096, arrivals_per_s=RELOC_RATE, decisions=gs_.fleet.decisions,
         fallbacks=gs_.fleet.fallbacks, **{key: getattr(gm_, key) for key in counters},
         storms=gm_.storms, storm_kills=gm_.storm_kills, relocation=dataclasses.asdict(rs_),
-        gpu_seconds=gsec_, cpu_seconds=csec_, identical=True)
-    del gs_, cs_, gm_, cm_, g_arr, c_arr
+        gpu_seconds=gsec_, cpu_seconds=cref["seconds"], identical=True)
+    del gs_, gm_, cref
 
 # full size: 65,536 Table 1 nodes in 4 zones of 16,384; z0-z2 hold 2 medium
 # instances a host, z3 is saturated at 4 (half preemptible, drawn as phase 5
 # draws them but started 1-29 minutes ago, see fleets.zoned_fleet); one storm
 # of kill_frac 0.25 on z3 half an hour after the fleets' clock teaches its
-# rate, then 16 relocation passes 60 s apart, once direct and once through
-# the admission plane.  The first 14 passes are timed; the last 2 are traced
+# rate, then 8 relocation passes 60 s apart, once direct and once through
+# the admission plane.  The first 6 passes are timed; the last 2 are traced
 # in one session (CUDA activity only) for the device's busy share, their
 # direct mode's snapshot copies (about 17 MB each) counted as busy.  A
 # session's exit parses its events on the host (a session around each pass
 # added about 5 s a pass on the H100's machine), so the trace stays short
 T_STORM = fleets.NOW + 1800.0
-PASSES, TRACED = 16, 2
+PASSES, TRACED = 8, 2
 full = {}
 for mode_ in ("direct", "admission"):
     t_ = time.perf_counter()
@@ -1656,32 +1665,9 @@ del reloc_calls
 # 5e. scan: the trace-driven simulator
 # ---------------------------------------------------------------------------
 t_scan = time.perf_counter()
-#: benchmarks/bench_screen.py::_bench_scan's workload: Table 1 nodes in 3
-#: zones; small, medium and large; 1/8 arrivals/s; lifetimes 300 / 1,200 /
-#: 2,400 s; 60 % preemptible; 3,200 s from seed 7 with a storm on z0 at
-#: 1,600 s killing half, host 1 failing at 1,280 s and healing 640 s later,
-#: a checkpoint row every 4th preemptible arrival.  Streaming takes
-#: _bench_scan_stream's policy and priorities
-SCAN_SPEC = WorkloadSpec(arrival_rate_per_s=1 / 8.0, lifetime_min_s=300.0,
-                         lifetime_mean_s=1200.0, lifetime_max_s=2400.0,
-                         preemptible_fraction=0.6, flavors=list(fleets.SIZES.items()))
-SCAN_POLICY = {"direct": SchedulerPolicy(), "streaming": SchedulerPolicy(
-    queue_capacity=64, admit_batch=4, slo_target_s=120.0, max_retries=4, n_classes=3,
-    aging_rate=0.005, storm_threshold=0.05)}
-SCAN_S, SCAN_ENS_S = 3200.0, 1200.0
+# the workload and policies: chip_smoke_cpu.SCAN_SPEC and SCAN_POLICY
 scan_counts = {key: 0 for key in ADM_KERNELS}
 scan_implied = {key: 0 for key in ADM_KERNELS}
-
-
-def scan_trace(mode_, duration=SCAN_S, seed=7, storm=True, fail=True, ckpt=4, zone=0):
-    return scan_sim.trace_from_workload(
-        SCAN_SPEC, duration, seed=seed, storms=((duration * 0.5, zone, 0.5),) if storm else (),
-        failures=((duration * 0.4, 1, duration * 0.2),) if fail else (), checkpoint_every=ckpt,
-        priorities=(-1, 0, 1, 2) if mode_ == "streaming" else ())
-
-
-def zoned_hosts(n_):
-    return [Host(name=f"h{j}", capacity=fleets.NODE_CAP, zone=f"z{j % 3}") for j in range(n_)]
 
 
 def scan_absorb(decisions_, fallbacks_, what):
@@ -1691,26 +1677,10 @@ def scan_absorb(decisions_, fallbacks_, what):
                phase="scan", into=(scan_counts, scan_implied))
 
 
-def scan_same(a_, b_, what, skip=()):
-    """Two trajectories equal: counters, outcomes, samples, the final state
-    (but the columns in ``skip``), and streaming the admission counters,
-    waits and queue."""
-    check(a_.counters == b_.counters, f"scan: {what}: counters {a_.counters} vs {b_.counters}")
-    check(a_.decisions == b_.decisions and a_.fallbacks == b_.fallbacks,
-          f"scan: {what}: decisions or fallbacks differ")
-    for name in ("host", "slot", "ok", "n_kill", "sample_t", "sample_free0",
-                 "sample_free0_normal"):
-        check(np.array_equal(getattr(a_, name), getattr(b_, name)), f"scan: {what}: {name} differs")
-    ga_, gb_ = fleet_state_to_numpy(a_.state), fleet_state_to_numpy(b_.state)
-    for f in STATE_DTYPES:
-        if f not in skip:
-            check(np.array_equal(ga_[f], gb_[f]), f"scan: {what}: final state {f} differs")
-    if a_.admission is not None:
-        check(a_.admission == b_.admission, f"scan: {what}: admission counters differ")
-        check(np.array_equal(a_.wait_s, b_.wait_s), f"scan: {what}: waits differ")
-        qa_, qb_ = queue_state_to_numpy(a_.queue), queue_state_to_numpy(b_.queue)
-        for f in QUEUE_DTYPES:
-            check(np.array_equal(qa_[f], qb_[f]), f"scan: {what}: final queue {f} differs")
+def scan_same(a_, b_, what):
+    """Two trajectories (``scan_view``s) equal: counters, outcomes, samples,
+    the final state, and streaming the admission counters, waits and queue."""
+    same_view(a_, b_, f"scan: {what}")
 
 
 def replay_same(res_, sim_, what, skip=()):
@@ -1771,16 +1741,14 @@ scan_parity = {}
 for mode_, pol_ in SCAN_POLICY.items():
     tr_ = scan_trace(mode_)
     gsim_ = SoASimulator(zoned_hosts(4096), SCAN_SPEC, seed=7, policy=pol_, device=DEV)
-    cstate_ = SoAFleet(zoned_hosts(4096), policy=pol_, device="cpu").state
     kernels.reset_launch_counts()
     card_, card_s_ = timed_scan(tr_, pol_, gsim_.fleet.state)
     scan_absorb(card_.decisions, card_.fallbacks, f"parity {mode_}: simulate_scan")
-    t_ = time.perf_counter()
-    cpu_ = scan_sim.simulate_scan(tr_, pol_, cstate_)
-    cpu_s_ = time.perf_counter() - t_
     rt_s_, rt_dec_, rt_fb_ = timed_replay(gsim_, tr_)
     scan_absorb(rt_dec_, rt_fb_, f"parity {mode_}: run_trace")
-    scan_same(card_, cpu_, f"parity {mode_}: card vs CPU")
+    cpu_ = cpu_ref(f"scan_{mode_}")
+    cpu_s_ = cpu_["seconds"]
+    scan_same(scan_view(card_), cpu_, f"parity {mode_}: card vs CPU")
     replay_same(card_, gsim_, f"parity {mode_}")
     check(card_.decisions >= 400 and card_.counters["storm_kills"] > 0,
           f"scan: parity {mode_}: {card_.decisions} decisions, "
@@ -1789,7 +1757,7 @@ for mode_, pol_ in SCAN_POLICY.items():
                               fallbacks=card_.fallbacks, counters=card_.counters,
                               admission=card_.admission, card_s=card_s_, cpu_s=cpu_s_,
                               run_trace_card_s=rt_s_, identical=True)
-    del gsim_, cstate_, card_, cpu_
+    del gsim_, card_, cpu_
 
 # full size, 65,536 empty hosts, the same traces: both engines on the card,
 # each decision timed (perf_counter around _step_core, which reads its
@@ -1843,20 +1811,6 @@ for mode_, pol_ in SCAN_POLICY.items():
         identical=True)
     del sim_, res_, traced_
 
-def on_clock(trace_):
-    """A trace moved onto the fleets' clock (fleets.NOW on; integer times
-    stay exact in f32)."""
-    return dataclasses.replace(trace_, time=trace_.time + np.float32(fleets.NOW))
-
-
-def saturated_zoned(n_, seed_):
-    """Phase 5's saturated draws, the hosts dealt into 3 zones."""
-    hosts_ = fleets.saturated_fleet(n_, seed=seed_)
-    for j_, h_ in enumerate(hosts_):
-        h_.zone = f"z{j_ % 3}"
-    return hosts_
-
-
 # contended: phase 5's saturated fleet (the same draws) in 3 zones, direct,
 # the trace cut to 1,600 s (its storm at 800 s, the failure at 640 s) and
 # put on the fleet's clock, live normal resources from its normal instances;
@@ -1892,49 +1846,50 @@ for mode_, pol_ in (("direct", SCAN_POLICY["direct"]),):
         identical_outcomes=True)
     del sim_, res_, hosts_
 
-# ensembles at 1,024 hosts: 32 seeds of 1,200 s on empty hosts (a quarter
+# ensembles at 1,024 hosts: 8 seeds of 1,200 s on empty hosts (a quarter
 # of the lanes against their padded single runs), the multiplier axis on
 # saturated hosts, where the rows move placements (each lane on the card
-# against the same lane on the CPU), and 32 admission-knob rows drawn as
-# _bench_scan_stream's, on empty hosts
+# against the same lane on the CPU), and 8 admission-knob rows drawn as
+# _bench_scan_stream's, on empty hosts.  Each lane's decisions run one after
+# another, so a lane costs about 1 s on the H100's host: 8 lanes of each axis
+# keep the axes and their checks inside the script's time limit
+SEED_LANES, KNOB_LANES = 8, 8
 ens_state = SoAFleet(zoned_hosts(1024), device=DEV).state
 ens_traces = [scan_trace("direct", SCAN_ENS_S, seed=s_, fail=False, ckpt=0, zone=s_ % 3)
-              for s_ in range(32)]
+              for s_ in range(SEED_LANES)]
 kernels.reset_launch_counts()
 t_ = time.perf_counter()
 lanes_ = scan_sim.simulate_ensemble(ens_traces, SCAN_POLICY["direct"], ens_state)
 torch.cuda.synchronize()
 seeds_s_ = time.perf_counter() - t_
 scan_absorb(sum(l_.decisions for l_ in lanes_), sum(l_.fallbacks for l_ in lanes_),
-            "ensemble of 32 seeds")
+            f"ensemble of {SEED_LANES} seeds")
 emax_ = max(t_.n_events for t_ in ens_traces)
-for i_ in range(0, 32, 4):
+for i_ in range(0, SEED_LANES, 4):
     tr_, lane_ = ens_traces[i_], lanes_[i_]
     single_ = scan_sim.simulate_scan(tr_.padded(emax_), SCAN_POLICY["direct"], ens_state)
     e_ = tr_.n_events
     single_ = dataclasses.replace(single_, host=single_.host[:e_], slot=single_.slot[:e_],
                                   ok=single_.ok[:e_], n_kill=single_.n_kill[:e_])
-    scan_same(lane_, single_, f"seed lane {i_} against its padded single run")
+    scan_same(scan_view(lane_), scan_view(single_), f"seed lane {i_} against its padded single run")
 kernels.reset_launch_counts()                    # the singles' launches are a check's
-MULT_ROWS = np.array([[1.0, 1.0, 0.0, 0.0, 0.0], [4.0, 0.25, 0.0, 0.0, 0.0],
-                      [0.5, 2.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0, 0.0]], np.float32)
-mtrace_ = on_clock(scan_trace("direct", SCAN_ENS_S, seed=3, fail=False, ckpt=0))
-msat_ = SoAFleet(saturated_zoned(1024, 1), device=DEV).state
-ens_cpu_state = SoAFleet(saturated_zoned(1024, 1), device="cpu").state
+mtrace_ = mult_trace()
+msat_ = mult_state(DEV)
 t_ = time.perf_counter()
 mlanes_ = scan_sim.simulate_ensemble([mtrace_], SCAN_POLICY["direct"], msat_, mults=MULT_ROWS)
 torch.cuda.synchronize()
 mult_s_ = time.perf_counter() - t_
 scan_absorb(sum(l_.decisions for l_ in mlanes_), sum(l_.fallbacks for l_ in mlanes_),
             "multiplier lanes")
-clanes_ = scan_sim.simulate_ensemble([mtrace_], SCAN_POLICY["direct"], ens_cpu_state,
-                                     mults=MULT_ROWS)
+clanes_ = cpu_ref("scan_mult")["lanes"]
+check(len(clanes_) == len(mlanes_), "scan: multiplier lanes differ in number on the CPU")
 for i_, (g_, c_) in enumerate(zip(mlanes_, clanes_)):
-    scan_same(g_, c_, f"multiplier lane {i_} {MULT_ROWS[i_].tolist()}: card vs CPU")
+    scan_same(scan_view(g_), c_, f"multiplier lane {i_} {MULT_ROWS[i_].tolist()}: card vs CPU")
 rng_ = np.random.default_rng(42)
 KNOB_ROWS = np.column_stack([
-    rng_.uniform(0.0, 0.05, 32), rng_.uniform(30.0, 300.0, 32),
-    np.where(rng_.random(32) < 0.5, np.inf, rng_.uniform(0.005, 0.5, 32))]).astype(np.float32)
+    rng_.uniform(0.0, 0.05, KNOB_LANES), rng_.uniform(30.0, 300.0, KNOB_LANES),
+    np.where(rng_.random(KNOB_LANES) < 0.5, np.inf,
+             rng_.uniform(0.005, 0.5, KNOB_LANES))]).astype(np.float32)
 ktrace_ = scan_trace("streaming", SCAN_ENS_S, seed=3, fail=False, ckpt=0)
 t_ = time.perf_counter()
 klanes_ = scan_sim.simulate_ensemble([ktrace_], SCAN_POLICY["streaming"], ens_state,
@@ -1948,10 +1903,10 @@ for i_, l_ in enumerate(klanes_):
     check(a_["arrivals"] == a_["admitted"] + a_["rejected_overflow"] + a_["rejected_retry"]
           + a_["queue_depth"], f"scan: knob lane {i_}: admission does not balance")
 scan_ensemble = dict(
-    hosts=1024, seeds=dict(lanes=32, rows_padded=emax_, seconds=seeds_s_,
-                           trajectories_per_s=32 / seeds_s_,
+    hosts=1024, seeds=dict(lanes=SEED_LANES, rows_padded=emax_, seconds=seeds_s_,
+                           trajectories_per_s=SEED_LANES / seeds_s_,
                            decisions=sum(l_.decisions for l_ in lanes_),
-                           lanes_equal_to_their_padded_single=list(range(0, 32, 4))),
+                           lanes_equal_to_their_padded_single=list(range(0, SEED_LANES, 4))),
     multipliers=dict(rows=MULT_ROWS.tolist(), fleet="saturated, seed 1, 3 zones",
                      seconds=mult_s_, preemptions=[l_.counters["preemptions"] for l_ in mlanes_],
                      trajectories_per_s=len(MULT_ROWS) / mult_s_,
@@ -1959,10 +1914,10 @@ scan_ensemble = dict(
                              for l_ in mlanes_],
                      distinct_outcomes=len({l_.host.tobytes() for l_ in mlanes_}),
                      card_equals_cpu=True),
-    knobs=dict(lanes=32, seed=42, seconds=knob_s_, trajectories_per_s=32 / knob_s_,
+    knobs=dict(lanes=KNOB_LANES, seed=42, seconds=knob_s_, trajectories_per_s=KNOB_LANES / knob_s_,
                admitted=[l_.admission["admitted"] for l_ in klanes_],
                degraded=sum(l_.admission["degraded"] for l_ in klanes_)))
-del ens_state, ens_cpu_state, msat_, lanes_, mlanes_, clanes_, klanes_
+del ens_state, msat_, lanes_, mlanes_, clanes_, klanes_
 for name in records:
     records[name]["launches"] += scan_counts[name]
     check(scan_counts[name] > 0, f"scan: kernel {name} was never launched")
@@ -2158,29 +2113,9 @@ del plain_f, shard_f, sh_arr, pl_arr, OUTS
 
 # a ragged fleet: the simulator at 4,099 hosts (padded to 4,100), sharded on
 # the card, unsharded on the card and sharded on the CPU, the same seed
-def ragged_sim(device, mesh_):
-    s_ = SoASimulator(fleets.saturated_fleet(4099, seed=5),
-                      WorkloadSpec(arrival_rate_per_s=0.5, flavors=list(fleets.SIZES.items())),
-                      seed=6, device=device, policy=SchedulerPolicy(mesh=mesh_))
-    s_.inject_host_failure("h17", at_s=300.0, heal_after_s=300.0)
-    s_.inject_host_failure("h4098", at_s=500.0)
-    t_ = time.perf_counter()
-    m_ = s_.run(900.0)
-    return s_, m_, time.perf_counter() - t_
-
-
 def ragged_same(a_, b_, what):
-    (sa_, ma_, _), (sb_, mb_, _) = a_, b_
-    strip_ = lambda m__: {key: v_ for key, v_ in m__.summary().items() if "latency" not in key}
-    check(strip_(ma_) == strip_(mb_) and ma_.utilization == mb_.utilization,
-          f"sharded: ragged {what}: summaries differ")
-    check(list(sa_.fleet.instances) == list(sb_.fleet.instances)
-          and sa_.fleet.locator == sb_.fleet.locator, f"sharded: ragged {what}: placements differ")
-    pad_ = lambda st_: fleet_state_to_numpy(
-        st_ if st_.mesh is not None else pad_fleet_state(st_, 4100))
-    xa_, xb_ = pad_(sa_.fleet.state), pad_(sb_.fleet.state)
-    for f in STATE_DTYPES:
-        check(np.array_equal(xa_[f], xb_[f]), f"sharded: ragged {what}: final state {f} differs")
+    same_view(ragged_view(*a_[:2]), b_ if isinstance(b_, dict) else ragged_view(*b_[:2]),
+              f"sharded: ragged {what}")
 
 
 kernels.reset_launch_counts()
@@ -2189,15 +2124,19 @@ check(rag_card[0].fleet.state.n_hosts == 4100, "sharded: 4,099 hosts not padded 
 shard_absorb(rag_card[0].fleet.decisions, rag_card[0].fleet.fallbacks, S_SHARDS,
              "ragged simulator", (sh_counts, sh_implied))
 rag_plain = ragged_sim(DEV, None)
-rag_cpu = ragged_sim("cpu", fleet_mesh(devices=["cpu"] * S_SHARDS))
+rag_cpu = cpu_ref("ragged")
 kernels.reset_launch_counts()
 ragged_same(rag_card, rag_plain, "sharded card against unsharded card")
 ragged_same(rag_card, rag_cpu, "sharded card against sharded CPU")
 ragged = dict(hosts=4099, padded=4100, decisions=rag_card[0].fleet.decisions,
               fallbacks=rag_card[0].fleet.fallbacks, preemptions=rag_card[1].preemptions,
               sharded_card_seconds=rag_card[2], unsharded_card_seconds=rag_plain[2],
-              sharded_cpu_seconds=rag_cpu[2], identical=True)
+              sharded_cpu_seconds=rag_cpu["seconds"], identical=True)
 del rag_plain, rag_cpu
+cpu_proc.wait()
+check(cpu_proc.returncode == 0, f"chip_smoke_cpu.py exited {cpu_proc.returncode}")
+emit("cpu_refs", method="chip_smoke_cpu.py's CPU runs in a process of their own from the "
+     "script's start; seconds this process waited for each", waited_s=CPU_WAITED)
 
 
 # the fallback on shards: test_sharded_parity.py::test_sharded_fallback_parity's
@@ -2298,6 +2237,10 @@ flash_cases = [  # name, B, S, H, G, hd, dtype, causal
     ("f32 gemma-2b", 1, 512, 8, 1, 256, F32, True),
     ("f32 ragged S=1000", 2, 1000, 12, 2, 128, F32, True),
     ("f32 full", 2, 512, 12, 2, 128, F32, False),
+    # phase 8b's models: moonshot-v1-16b-a3b (16 heads, no grouping) and
+    # arctic-480b (56 heads on 8, a group of 7)
+    ("moonshot-v1-16b-a3b", 4, 1024, 16, 16, 128, BF16, True),
+    ("arctic-480b", 2, 512, 56, 8, 128, BF16, True),
 ]
 #: the kernel each type routes to: bf16 the tensor cores, f32 the CUDA cores
 FWD_ROUTE = {BF16: "flash_attention", F32: "flash_attention_f32"}
@@ -2333,6 +2276,8 @@ for name, rows_, d_, dt, wdt, off in (
         ("decode bf16", 8, 1536, BF16, BF16, 0), ("train bf16", 8192, 1536, BF16, BF16, 0),
         ("x bf16, w f32", 4096, 1536, BF16, F32, 0), ("x f32, w bf16", 64, 2048, F32, BF16, 0),
         ("odd width 1001, bf16", 64, 1001, BF16, BF16, 0),
+        ("moonshot-v1-16b-a3b 2,048 wide, bf16", 4096, 2048, BF16, BF16, 0),
+        ("arctic-480b 7,168 wide, bf16", 1024, 7168, BF16, BF16, 0),
         ("rows one element past 16 bytes, bf16", 37, 1536, BF16, BF16, 1)):
     x = torch.randn((rows_ * d_ + off,), generator=gen, device=DEV).to(dt)[off:].view(rows_, d_)
     w = (0.1 * torch.randn((d_,), generator=gen, device=DEV)).to(wdt)
@@ -2446,6 +2391,33 @@ emit("model_kernel_times", card=smi,
      **{r: {key: records[r][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in ("flash_attention", "flash_attention_f32", "rmsnorm")})
 del q, k, v, qt, kt, vt, x, w, w1, xs
+# the flash forward and RMSNorm at phase 8b's prefill shapes, beside their
+# plain versions and the library's calls: moonshot-v1-16b-a3b (4 x 1,024,
+# 16 heads on 16; 4,096 rows of 2,048) and arctic-480b (2 x 512, 56 heads on
+# 8; 1,024 rows of 7,168)
+moe_shapes = {}
+for what, b_, s_, h_, g_, rows_, d_ in (("moonshot-v1-16b-a3b", 4, 1024, 16, 16, 4096, 2048),
+                                        ("arctic-480b", 2, 512, 56, 8, 1024, 7168)):
+    q, k, v = (torch.randn((b_, s_, n_, 128), generator=gen, device=DEV).to(BF16) for n_ in (h_, g_, g_))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    work = (2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * b_ * h_ * s_,
+            4 * 128 * b_ * h_ * s_ * (s_ + 1) // 2, BF16_FLOPS)
+    x = torch.randn((rows_, d_), generator=gen, device=DEV).to(BF16)
+    w = (0.1 * torch.randn((d_,), generator=gen, device=DEV)).to(BF16)
+    w1 = 1.0 + w
+    moe_shapes[what] = dict(
+        flash_attention=dict(
+            ms=device_ms(lambda: kernels.flash_attention(q, k, v, causal=True)),
+            plain_ms=device_ms(lambda: kernels.flash_attention_plain(q, k, v, causal=True), reps=10),
+            library_ms=library_time(f"forward bf16, {what}", lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), bound_of(*work)[0]),
+            bound_ms=bound_of(*work)[0], bound_by=bound_of(*work)[1]),
+        rmsnorm=dict(ms=device_ms(lambda: kernels.rmsnorm(x, w, 1e-5)),
+                     plain_ms=device_ms(lambda: kernels.rmsnorm_plain(x, w, 1e-5)),
+                     library_ms=device_ms(lambda: F.rms_norm(x, (d_,), weight=w1, eps=1e-5)),
+                     bound_ms=(2 * 2 * rows_ * d_ + 2 * d_) / HBM_BPS * 1e3))
+emit("model_kernel_times_moe_shapes", card=smi, method="as model_kernel_times", **moe_shapes)
+del q, k, v, qt, kt, vt, x, w, w1
 
 # ---------------------------------------------------------------------------
 # 7. model parity: reduced qwen2-1.5b, the card against the CPU, f32
@@ -2509,7 +2481,7 @@ toks = torch.from_numpy(np.random.default_rng(6).integers(2, cfg.vocab_size, (4,
 # the f32 forward (f32 weights and math) is the truth the bf16 paths are held to
 truth = tm.forward_logits(dataclasses.replace(cfg, dtype="float32"), params,
                           {"tokens": toks}, last_only=False)
-impl_cfg = {impl: dataclasses.replace(cfg, attention_impl=impl) for impl in ("flash", "reference")}
+impl_cfg = {impl: dataclasses.replace(cfg, attention_impl=impl) for impl in ("flash", "reference", "blocked")}
 for c in impl_cfg.values():                         # warm-up: cuBLAS's bf16 plans
     tm.forward_logits(c, params, {"tokens": toks})
 torch.cuda.synchronize()
@@ -2536,11 +2508,14 @@ flash_vs_ref = float((fwd["flash"] - fwd["reference"]).abs().max())
 # forward than 1.25x the distance of the JAX package's own bf16 path (the
 # reference attention) — both gaps are bf16 rounding, which these random
 # weights amplify: JAX's init draws layer weights with std 1/sqrt(L), so
-# attention scores are large and softmax is near one-hot
-for stat in ("max", "mean"):
-    check(gaps["flash"][stat] <= 1.25 * gaps["reference"][stat],
-          f"serve: flash logits {stat} gap to f32 {gaps['flash'][stat]} exceeds 1.25x the "
-          f"bf16 reference path's {gaps['reference'][stat]}")
+# attention scores are large and softmax is near one-hot; blocked attention
+# (the flash algorithm in plain PyTorch, scores in f32) is held to the same
+# bound
+for impl in ("flash", "blocked"):
+    for stat in ("max", "mean"):
+        check(gaps[impl][stat] <= 1.25 * gaps["reference"][stat],
+              f"serve: {impl} logits {stat} gap to f32 {gaps[impl][stat]} exceeds 1.25x the "
+              f"bf16 reference path's {gaps['reference'][stat]}")
 del fwd, truth
 
 engine_rng = np.random.default_rng(7)
@@ -2653,6 +2628,436 @@ emit("serve", config="qwen2-1.5b full width: 28 layers, d=1536, 12/2 heads, hd=1
      host_top_ops_per_decode_step={e.key: dict(calls=e.count / 8,
                                                self_cpu_us=e.self_cpu_time_total / 8)
                                    for e in host_ops})
+
+# ---------------------------------------------------------------------------
+# 8b. moe: the mixture-of-experts family (moonshot-v1-16b-a3b, arctic-480b)
+# ---------------------------------------------------------------------------
+# (the engines' timing wrappers close over their engines: the collector,
+# not the reference count, frees the engines and the weights they hold)
+del params, first, second, pc, st, lgt, nxt, wave, prof, toks
+gc.collect()
+torch.cuda.empty_cache()
+t_moe = time.perf_counter()
+
+
+def free_gib(what):
+    """Print the card's free memory before a model is loaded."""
+    free_, total_ = torch.cuda.mem_get_info()
+    emit("moe_memory", before=what, free_gib=free_ / 2**30, total_gib=total_ / 2**30)
+
+
+def dense_moe_reference(x, p, cfg_):
+    """``tests/test_moe.py::dense_reference`` in PyTorch: every expert on
+    every token, the top k combined (ties to the lower expert, as
+    ``lax.top_k``)."""
+    xf = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax((xf @ p.router).float(), dim=-1)
+    top_e = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :cfg_.top_k]
+    top_p = torch.gather(probs, 1, top_e)
+    top_p = top_p / top_p.sum(-1, keepdim=True)
+    act = F.silu(torch.matmul(xf, p.wg)) * torch.matmul(xf, p.wu)          # (E, T, F)
+    out_all = torch.matmul(act, p.wd)                                     # (E, T, D)
+    rows_ = torch.arange(xf.shape[0], device=x.device)
+    y = torch.zeros_like(xf)
+    for j in range(cfg_.top_k):
+        y = y + out_all[top_e[:, j], rows_] * top_p[:, j, None].to(x.dtype)
+    return y.reshape(x.shape)
+
+
+def routing_same(got, want, what):
+    """Every layer's ``top_e`` and kept mask identical; a difference fails
+    with the token's gap between its k-th and (k+1)-th probability."""
+    check(len(got) == len(want), f"{what}: {len(got)} MoE calls against {len(want)}")
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        for key in ("top_e", "keep"):
+            a_, b_ = g_[key].cpu(), w_[key]
+            if not torch.equal(a_, b_):
+                tok = int(torch.nonzero((a_ != b_).reshape(a_.shape[0], -1).any(1))[0])
+                kk = a_.shape[1]
+                gaps_ = {side: float(sp[kk - 1] - sp[kk]) for side, sp in (
+                    ("card", torch.sort(g_["probs"][tok].cpu(), descending=True).values),
+                    ("cpu", torch.sort(w_["probs"][tok], descending=True).values))}
+                check(False, f"{what}: call {i} {key} differs at token {tok}: card {a_[tok].tolist()}, "
+                             f"CPU {b_[tok].tolist()}; top-k probability gap {gaps_}")
+
+
+def forwards(cfg_, params_, toks_):
+    """``forward_logits`` (every position) with flash and with reference
+    attention, each after a warm-up at the same shape (cuBLAS picks its
+    plans on a shape's first call): the logits, the seconds, and each MoE
+    call's ``top_e``."""
+    outs, secs, tops = {}, {}, {}
+    for impl in ("flash", "reference"):
+        c_ = dataclasses.replace(cfg_, attention_impl=impl)
+        tm.forward_logits(c_, params_, {"tokens": toks_})                 # warm-up
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        with tmoe.capture_routing() as r_:
+            outs[impl] = tm.forward_logits(c_, params_, {"tokens": toks_}, last_only=False)
+        torch.cuda.synchronize()
+        secs[impl] = time.perf_counter() - t_
+        tops[impl] = [c["top_e"] for c in r_]
+        check(bool(torch.isfinite(outs[impl]).all()), f"moe: {cfg_.name} {impl} logits not finite")
+        check(outs[impl].shape == (*toks_.shape, cfg_.vocab_padded),
+              f"moe: {cfg_.name} {impl} logits shape {outs[impl].shape}")
+    return outs, secs, tops
+
+
+def logit_gap(a, b):
+    """|a - b| (max, mean), b's RMS and the share of positions whose argmax
+    agrees, a sequence at a time in f32."""
+    rows_ = []
+    for a_, b_ in zip(a, b):
+        a_, b_ = a_.float(), b_.float()
+        d_ = (a_ - b_).abs()
+        rows_.append((float(d_.max()), float(d_.sum()), float(torch.sum(b_ * b_)),
+                      float((a_.argmax(-1) == b_.argmax(-1)).sum())))
+        del a_, b_, d_
+    n_ = b.numel()
+    return dict(max=max(r_[0] for r_ in rows_), mean=sum(r_[1] for r_ in rows_) / n_,
+                rms=math.sqrt(sum(r_[2] for r_ in rows_) / n_),
+                argmax_agree=sum(r_[3] for r_ in rows_) * b.shape[-1] / n_)
+
+
+def against_f32(outs, truth, what):
+    """Each bf16 path's gap to the f32 forward; flash may be no further from
+    it than 1.25x the reference attention's gap (phase 8's bound: both are
+    bf16 rounding, which these random weights amplify)."""
+    gaps_ = {impl: logit_gap(o_, truth) for impl, o_ in outs.items()}
+    for stat in ("max", "mean"):
+        check(gaps_["flash"][stat] <= 1.25 * gaps_["reference"][stat],
+              f"moe: {what}: flash logits {stat} gap to f32 {gaps_['flash'][stat]} exceeds 1.25x the "
+              f"bf16 reference path's {gaps_['reference'][stat]}")
+    return gaps_
+
+
+def routing_flips(tops):
+    """Per MoE call, the share of tokens whose experts differ between flash
+    and reference attention."""
+    return [float((a_ != b_).any(-1).float().mean()) for a_, b_ in zip(tops["flash"], tops["reference"])]
+
+
+# reduced moonshot in f32, the same weights on the card and on the CPU, as
+# phase 7: identical routing, forward_logits within 1e-4, identical tokens
+free_gib("reduced moonshot-v1-16b-a3b")
+mrcfg = dataclasses.replace(reduced(get_config("moonshot-v1-16b-a3b")), attention_impl="flash")
+cpu_m = tm.init_params(mrcfg, torch.Generator().manual_seed(13), device="cpu")
+gpu_m = tm.Model(mrcfg, device="meta")
+gpu_m.load_state_dict({key: t.to(DEV) for key, t in cpu_m.state_dict().items()}, assign=True)
+mtoks = torch.from_numpy(np.random.default_rng(14).integers(2, mrcfg.vocab_size, (3, 200)))
+kernels.reset_launch_counts()
+with tmoe.capture_routing() as r_card:
+    lg = tm.forward_logits(mrcfg, gpu_m, {"tokens": mtoks.to(DEV)}, last_only=False)
+with tmoe.capture_routing() as r_cpu:
+    lc = tm.forward_logits(mrcfg, cpu_m, {"tokens": mtoks}, last_only=False)
+routing_same(r_card, r_cpu, "moe parity forward_logits")
+mparity_gap = max_gap(lg, lc)
+# f32 cannot hold this network to 1e-4: an f64 evaluation of the same
+# weights on the CPU puts the CPU's own f32 logits up to about 2e-3 from the
+# exact ones (reduced qwen2-1.5b's, phase 7: 9e-5), the random experts
+# (std 1/sqrt(L) = 0.5 at d = 128) amplifying rounding.  So the card is held
+# to the exact forward instead: its largest and its norm gap to the f64
+# logits at most 3x the CPU's (an NVIDIA H100 80GB HBM3 at 700 W read 1.55x
+# and 1.34x; a card path that computed anything else reads orders beyond)
+c64 = dataclasses.replace(mrcfg, dtype="float64", attention_impl="reference")
+p64 = tm.Model(c64, device="meta")
+p64.load_state_dict({key: t.double() for key, t in cpu_m.state_dict().items()}, assign=True)
+l64 = tm.forward_logits(c64, p64, {"tokens": mtoks}, last_only=False)
+to_exact = {side: dict(max=float((l_.cpu().double() - l64).abs().max()),
+                       norm=float(torch.linalg.vector_norm(l_.cpu().double() - l64)))
+            for side, l_ in (("card", lg), ("cpu", lc))}
+check(all(to_exact["card"][m_] <= 3 * to_exact["cpu"][m_] for m_ in ("max", "norm")),
+      f"moe parity: forward_logits on the card vs the f64 forward {to_exact['card']}, beyond 3x "
+      f"the CPU's f32 {to_exact['cpu']} (card vs CPU max gap {mparity_gap})")
+del p64, l64
+mdropped = float(1 - torch.cat([r_["keep"].reshape(-1) for r_ in r_cpu]).float().mean())
+rng = np.random.default_rng(15)
+mreqs = [(f"r{i}", rng.integers(2, mrcfg.vocab_size, int(rng.integers(3, 40))), 12) for i in range(5)]
+mserved = []
+for params_ in (gpu_m, cpu_m):
+    eng = ServingEngine(mrcfg, params_, ServeConfig(max_batch=3, max_len=64))
+    for rid, prompt, max_new in mreqs:
+        eng.submit(rid, prompt, max_new=max_new)
+    with tmoe.capture_routing() as r_eng:
+        mserved.append((eng.run_until_drained(), eng.steps_executed))
+    mserved[-1] += (r_eng,)
+routing_same(mserved[0][2], mserved[1][2], "moe parity engine")
+check(mserved[0][:2] == mserved[1][:2], "moe parity: the engines' completed tokens or steps differ")
+mrcounts = kernels.launch_counts()           # the card's forward and engine: the f32 route
+for name in ("flash_attention_f32", "rmsnorm"):
+    check(mrcounts[name] > 0, f"moe parity: kernel {name} was never launched")
+    records[name]["launches"] += mrcounts[name]
+emit("moe_parity", config="moonshot-v1-16b-a3b reduced (4 layers, d=128, 8 experts top-2, "
+     "capacity factor 1.25, f32), flash attention",
+     forward_logits_max_gap=mparity_gap, gap_to_f64_forward=to_exact,
+     bound="the card's max and norm gap to the f64 forward <= 3x the CPU's", routing_identical=True,
+     moe_calls=len(r_cpu), choices_dropped_share=mdropped, requests=len(mreqs),
+     steps_executed=mserved[0][1], engine_moe_calls=len(mserved[0][2]), completed_identical=True,
+     launches={name: mrcounts[name] for name in ("flash_attention_f32", "rmsnorm")})
+del cpu_m, gpu_m, lg, lc, r_card, r_cpu, mserved, eng
+
+# one full-width moonshot-v1-16b-a3b MoE layer in f32 against the dense
+# reference, 512 tokens at capacity factor 16 (cap 768: nothing drops).
+# Stated bound, f32, the same products summed in another order (TF32 off):
+# ||y - ref|| / ||ref|| <= 1e-5 and |y - ref| <= 1e-4 (|ref| + RMS(ref)), each
+# output a sum of products about its RMS (131) in size (an NVIDIA H100 80GB
+# HBM3 at 700 W read 5.0e-8 and 1.22e-4 at most)
+MOE_F32_TOL = dict(rel=1e-5, elem=1e-4)
+free_gib("one moonshot-v1-16b-a3b MoE layer, f32")
+fcfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), capacity_factor=16.0)
+lgen = torch.Generator(device=DEV).manual_seed(16)
+layer = tm.ParamGroup(tmoe.moe_defs(fcfg), DEV, F32)
+with torch.no_grad():
+    for name, d_ in tmoe.moe_defs(fcfg).items():
+        getattr(layer, name).copy_(init_leaf(d_, lgen, DEV, F32, fan_in=fcfg.n_layers))
+    xm = torch.randn((1, 512, fcfg.d_model), generator=lgen, device=DEV)
+    with tmoe.capture_routing() as r_layer:
+        ym, auxm = tmoe.moe_ffn(xm, layer, fcfg)
+    ym2, _ = tmoe.moe_ffn(xm, layer, fcfg)
+    check(bool(r_layer[0]["keep"].all()), "moe layer: a choice dropped at capacity factor 16")
+    check(torch.equal(ym.view(torch.int32), ym2.view(torch.int32)), "moe layer: two calls differ")
+    refm = dense_moe_reference(xm, layer, fcfg)
+    y64, r64 = ym.double(), refm.double()
+    layer_gap = dict(max=float((y64 - r64).abs().max()),
+                     rel=float(torch.linalg.vector_norm(y64 - r64) / torch.linalg.vector_norm(r64)),
+                     ref_rms=float(torch.sqrt(torch.mean(r64 * r64))))
+    check(bool(torch.isfinite(ym).all()), "moe layer: non-finite output")
+    check(layer_gap["rel"] <= MOE_F32_TOL["rel"]
+          and bool(((y64 - r64).abs() <= MOE_F32_TOL["elem"] * (r64.abs() + layer_gap["ref_rms"])).all()),
+          f"moe layer: beyond {MOE_F32_TOL} of the dense reference: {layer_gap}")
+    with tmoe.capture_routing() as r_cf:
+        tmoe.moe_ffn(xm, layer, get_config("moonshot-v1-16b-a3b"))
+    layer_dropped = float(1 - r_cf[0]["keep"].float().mean())
+emit("moe_layer", config="moonshot-v1-16b-a3b, one MoE layer at full width (d=2,048, 64 experts "
+     "top-6, d_ff 1,408), f32, weights by the init's distributions (seed 16)",
+     tokens=512, capacity_factor=16.0, gap_to_dense_reference=layer_gap, tolerance=MOE_F32_TOL,
+     two_calls_bitwise_equal=True, aux_loss=float(auxm),
+     at_config_capacity_factor_1_25=dict(capacity=tmoe.capacity(512, get_config("moonshot-v1-16b-a3b")),
+                                         choices_dropped_share=layer_dropped))
+del layer, xm, ym, ym2, refm, y64, r64, r_layer, r_cf
+
+# full-width moonshot-v1-16b-a3b, all 48 layers, bf16 parameters (the f32
+# master copy would be about 112 GB), drawn on the card
+free_gib("moonshot-v1-16b-a3b, 48 layers, bf16")
+mcfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), params_dtype="bfloat16")
+t0 = time.perf_counter()
+mparams = tm.init_params(mcfg, torch.Generator(device=DEV).manual_seed(17), device=DEV)
+torch.cuda.synchronize()
+minit_s = time.perf_counter() - t0
+mcount = sum(p_.numel() for p_ in mparams.parameters())
+check(mcount == 48 * 570_560_512 + 2 * 163_840 * 2048 + 2048, f"moe: moonshot has {mcount} parameters")
+mtoks = torch.from_numpy(np.random.default_rng(18).integers(2, mcfg.vocab_size, (4, 1024))).to(DEV)
+torch.cuda.reset_peak_memory_stats()
+kernels.reset_launch_counts()
+mouts, mfwd_s, mtops = forwards(mcfg, mparams, mtoks)
+mfwd_counts = kernels.launch_counts()
+L_M = mcfg.n_layers
+# the warm-ups and the two forwards: each 2 norms a layer and the final one;
+# flash twice (its warm-up and its forward)
+check(mfwd_counts["flash_attention"] == 2 * L_M,
+      f"moe: moonshot forward_logits launched flash {mfwd_counts['flash_attention']} times, "
+      f"the path implies {2 * L_M}")
+check(mfwd_counts["rmsnorm"] == 4 * (2 * L_M + 1),
+      f"moe: moonshot forward_logits launched RMSNorm {mfwd_counts['rmsnorm']} times")
+# at 48 layers the two bf16 paths decorrelate: they round the attention
+# differently (flash keeps the scores in f32), the bf16 router turns a
+# rounding step into other experts for a token near a tie (the share of
+# tokens whose experts differ, by layer, is printed), and these random
+# weights (std 1/sqrt(L)) amplify it layer on layer; no elementwise bound
+# holds there, so the gap is printed and the bound is held at depth 4 below
+mgap = logit_gap(mouts["flash"], mouts["reference"])
+mflips = routing_flips(mtops)
+del mouts, mtops
+# serving: batch 8, max_len 1,024, 8 requests preempted halfway and drained
+# by a second engine, against one uninterrupted engine.  At capacity factor
+# 16 nothing drops, so a token's experts do not depend on the requests
+# batched with it (the second engine batches the re-queued requests in
+# another order); then the config's 1.25, uninterrupted, as served
+MOE_NEW, MOE_PREEMPT = 32, 16          # new tokens a request; decode steps before the preemption
+engine_rng = np.random.default_rng(19)
+mprompts = [engine_rng.integers(2, mcfg.vocab_size, int(n_)) for n_ in engine_rng.integers(64, 513, 8)]
+mscfg = ServeConfig(max_batch=8, max_len=1024)
+ncfg = dataclasses.replace(mcfg, capacity_factor=16.0)
+
+
+def serve_all(cfg_, preempt_after=None):
+    """8 requests through one engine, or two across a preemption; the calls
+    go into ``prefill_s`` / ``decode_s``."""
+    eng1 = timed(ServingEngine(cfg_, mparams, mscfg), preempt_after)
+    for i, prompt in enumerate(mprompts):
+        eng1.submit(f"req{i}", prompt, max_new=MOE_NEW)
+    eng1.run_until_drained()
+    if preempt_after is None:
+        return dict(eng1.completed), eng1, None, []
+    requeued_ = [r.rid for r in eng1.queue]
+    eng2 = timed(ServingEngine(cfg_, mparams, mscfg))
+    eng2.queue = eng1.queue
+    eng2.run_until_drained()
+    return {**eng1.completed, **eng2.completed}, eng1, eng2, requeued_
+
+
+prefill_s, decode_s = [], []
+mdone, mfirst, msecond, mrequeued = serve_all(ncfg, MOE_PREEMPT)
+pair_calls = (len(prefill_s), len(decode_s))
+m_pre, m_dec = list(prefill_s), [t_ for t_, _ in decode_s]
+mwhole = serve_all(ncfg)[0]
+check(mfirst.steps_executed == MOE_PREEMPT, f"moe serve: preempted after {mfirst.steps_executed} steps")
+check(len(mrequeued) > 0, "moe serve: the preemption re-queued nothing")
+check(sorted(mdone) == sorted(f"req{i}" for i in range(8)), f"moe serve: completed {sorted(mdone)}")
+check(mdone == mwhole, "moe serve: the preempted and resumed engines' tokens differ from an "
+                       "uninterrupted engine's")
+for rid, out in mdone.items():
+    check(1 <= len(out) <= MOE_NEW and all(0 <= t_ < mcfg.vocab_size for t_ in out),
+          f"moe serve: {rid} returned {len(out)} tokens or an id outside the vocabulary")
+prefill_s, decode_s = [], []
+with tmoe.capture_routing() as r_serve:
+    serve_all(mcfg)
+c_pre, c_dec = list(prefill_s), [t_ for t_, _ in decode_s]
+serve_dropped = {kind_: float(1 - torch.cat([r_["keep"].reshape(-1) for r_ in r_serve
+                                             if (r_["keep"].shape[0] > 8) == (kind_ == "prefill")])
+                              .float().mean()) for kind_ in ("prefill", "decode")}
+del r_serve
+torch.cuda.synchronize()
+mcounts = kernels.launch_counts()
+n_calls = pair_calls[0] + pair_calls[1] + 2 * len(prefill_s) + 2 * len(decode_s)
+mpeak_gib = torch.cuda.max_memory_allocated() / 2**30
+mimplied = dict(flash_attention=2 * L_M, rmsnorm=(2 * L_M + 1) * (4 + n_calls))
+for name, n_ in mimplied.items():
+    check(mcounts[name] == n_, f"moe: {mcounts[name]} launches of {name}, the path implies {n_}")
+    records[name]["launches"] += mcounts[name]
+
+# a traced decode window at the config's capacity factor: 8 steps on a cache
+# primed with the first 64 tokens of every prompt
+mpc = tm._cast(mparams, mcfg)
+wave = torch.from_numpy(np.stack([p_[:64] for p_ in mprompts])).to(DEV)
+lgt, st = tm.prefill(mcfg, mpc, wave, 1024)
+nxt = torch.argmax(lgt[:, -1, :], -1)[:, None]
+torch.cuda.synchronize()
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(8):
+        lgt, st = tm.decode_step(mcfg, mpc, nxt, st)
+        nxt = torch.argmax(lgt[:, -1, :], -1)[:, None]
+        nxt[:, 0].tolist()
+    torch.cuda.synchronize()
+    mwindow_s = time.perf_counter() - t0
+mbusy = busy_us(prof)
+del lgt, st, nxt, wave, prof
+# the stated bound at depth 4: the first 4 layers of these weights (shared,
+# not copied) in bf16 with flash and with reference attention, against the
+# same 4 layers in f32 (an f32 copy of their weights, 11.8 GB)
+m4cfg = dataclasses.replace(mcfg, n_layers=min(4, L_M))
+m4 = tm.Model(m4cfg, device="meta")
+m4.load_state_dict({key: t for key, t in mparams.state_dict().items()
+                    if not key.startswith("layers.") or int(key.split(".")[1]) < m4cfg.n_layers},
+                   assign=True)
+m4outs, _, m4tops = forwards(m4cfg, m4, mtoks)
+m32 = tm.Model(m4cfg, device="meta")
+m32.load_state_dict({key: t.float() for key, t in m4.state_dict().items()}, assign=True)
+m4truth = tm.forward_logits(dataclasses.replace(m4cfg, dtype="float32", params_dtype="float32"), m32,
+                            {"tokens": mtoks}, last_only=False)
+m4gaps = against_f32(m4outs, m4truth, "moonshot, first 4 layers")
+m4gaps["flash_vs_reference"] = logit_gap(m4outs["flash"], m4outs["reference"])
+m4flips = routing_flips(m4tops)
+del m4, m32, m4outs, m4tops, m4truth
+
+
+def serve_figures(pre, dec):
+    return dict(prefill_tokens_per_s=sum(n_ for _, n_ in pre) / sum(t_ for t_, _ in pre),
+                prefill_calls=len(pre), decode_steps=len(dec),
+                decode_p50_ms=float(np.median(dec)) * 1e3, decode_p99_ms=float(np.percentile(dec, 99)) * 1e3)
+
+
+emit("moe_serve", card=smi,
+     config="moonshot-v1-16b-a3b full width: 48 layers, d=2,048, 16/16 heads, hd=128, 64 experts "
+            "top-6, d_ff 1,408, vocab 163,840; bf16 parameters drawn on the card (seed 17), bf16 compute",
+     params=mcount, init_seconds=minit_s,
+     forward_logits_tokens=4 * 1024, forward_logits_seconds=mfwd_s,
+     forward_logits_tokens_per_s={impl: 4 * 1024 / s_ for impl, s_ in mfwd_s.items()},
+     flash_vs_reference=mgap, routing_flips_by_layer=mflips,
+     first_4_layers=dict(gap_to_f32=m4gaps, routing_flips_by_layer=m4flips,
+                         bound="flash's max and mean gap to the f32 forward <= 1.25x the reference's"),
+     requests=8, prompt_lens=[len(p_) for p_ in mprompts], max_new=MOE_NEW,
+     preempted_after_steps=MOE_PREEMPT, requeued=mrequeued, completed_by_first=sorted(mfirst.completed),
+     completed_by_second=sorted(msecond.completed), identical_to_uninterrupted=True,
+     capacity_factor_16_preempted_pair=serve_figures(m_pre, m_dec),
+     capacity_factor_1_25_uninterrupted=dict(serve_figures(c_pre, c_dec),
+                                             choices_dropped_share=serve_dropped),
+     peak_device_gib=mpeak_gib, launches={name: mcounts[name] for name in mimplied},
+     launches_implied=mimplied,
+     traced_decode_window_ms=mwindow_s * 1e3, device_busy_ms=mbusy / 1e3,
+     device_busy_share=(mbusy / 1e6) / mwindow_s if mbusy else "not measured (empty trace)")
+del mparams, mpc, mfirst, msecond
+gc.collect()
+torch.cuda.empty_cache()
+
+# arctic-480b at full width, cut to 1 layer, its own bf16 parameters
+free_gib("arctic-480b, 1 layer, bf16")
+acfg = dataclasses.replace(get_config("arctic-480b"), n_layers=1)
+t0 = time.perf_counter()
+aparams = tm.init_params(acfg, torch.Generator(device=DEV).manual_seed(20), device=DEV)
+torch.cuda.synchronize()
+ainit_s = time.perf_counter() - t0
+acount = sum(p_.numel() for p_ in aparams.parameters())
+atoks = torch.from_numpy(np.random.default_rng(21).integers(2, acfg.vocab_size, (2, 512))).to(DEV)
+kernels.reset_launch_counts()
+aouts, afwd_s, atops = forwards(acfg, aparams, atoks)
+acounts = kernels.launch_counts()
+check(acounts["flash_attention"] == 2 and acounts["rmsnorm"] == 4 * 3,
+      f"moe: arctic forward_logits launched {acounts['flash_attention']} flash and "
+      f"{acounts['rmsnorm']} RMSNorm, the path implies 2 and 12")
+for name in ("flash_attention", "rmsnorm"):
+    records[name]["launches"] += acounts[name]
+aouts = {impl: o_.float() for impl, o_ in aouts.items()}
+# its layer (128 experts top-2 beside the dense MLP) against the dense
+# reference plus glu_mlp, 256 tokens at capacity factor 64 (cap 256: nothing
+# drops), bf16 as served.  Stated bound: the same products rounded to bf16
+# at other steps, one or two bf16 ulps of the element or of the outputs'
+# RMS: ||y - ref|| / ||ref|| <= 1e-2 and |y - ref| <= 2e-2 (|ref| + RMS(ref))
+# (an NVIDIA H100 80GB HBM3 at 700 W read both 0: the same products)
+MOE_BF16_TOL = dict(rel=1e-2, elem=2e-2)
+a64 = dataclasses.replace(acfg, capacity_factor=64.0)
+lp = aparams.layers[0]
+with torch.no_grad():
+    xa = torch.randn((1, 256, acfg.d_model), generator=torch.Generator(device=DEV).manual_seed(22),
+                     device=DEV).to(BF16)
+    with tmoe.capture_routing() as r_a:
+        ya, _ = tm._ffn(xa, lp, a64)
+    ya2, _ = tm._ffn(xa, lp, a64)
+    check(bool(r_a[0]["keep"].all()), "moe: arctic layer dropped a choice at capacity factor 64")
+    check(torch.equal(ya.view(torch.int16), ya2.view(torch.int16)), "moe: arctic layer: two calls differ")
+    refa = dense_moe_reference(xa, lp.moe, a64) + glu_mlp(xa, lp.dense_mlp, acfg.mlp_type)
+    y64, r64 = ya.double(), refa.double()
+    alayer_gap = dict(max=float((y64 - r64).abs().max()),
+                      rel=float(torch.linalg.vector_norm(y64 - r64) / torch.linalg.vector_norm(r64)),
+                      ref_rms=float(torch.sqrt(torch.mean(r64 * r64))))
+    check(bool(torch.isfinite(ya).all()), "moe: arctic layer non-finite")
+    check(alayer_gap["rel"] <= MOE_BF16_TOL["rel"]
+          and bool(((y64 - r64).abs() <= MOE_BF16_TOL["elem"] * (r64.abs() + alayer_gap["ref_rms"])).all()),
+          f"moe: arctic layer beyond {MOE_BF16_TOL} of the dense reference: {alayer_gap}")
+# the f32 forward of the same layer: the weights cast to f32 one leaf at a
+# time (56.3 GB; the bf16 copy goes as they are cast), against which flash
+# and reference attention are held as at moonshot's depth 4
+with torch.no_grad():
+    for p_ in aparams.parameters():
+        p_.data = p_.data.float()
+atruth = tm.forward_logits(dataclasses.replace(acfg, dtype="float32", params_dtype="float32"), aparams,
+                           {"tokens": atoks}, last_only=False)
+agaps = against_f32(aouts, atruth, "arctic, 1 layer")
+agaps["flash_vs_reference"] = logit_gap(aouts["flash"], aouts["reference"])
+del aouts, atops, atruth
+emit("moe_arctic", card=smi,
+     config="arctic-480b full width cut to 1 layer: d=7,168, 56/8 heads, hd=128, 128 experts top-2 "
+            "beside a dense SwiGLU MLP, d_ff 4,864, vocab 32,000; bf16 parameters (seed 20)",
+     params=acount, init_seconds=ainit_s, forward_logits_tokens=2 * 512,
+     forward_logits_seconds=afwd_s, gaps=agaps,
+     bound="flash's max and mean gap to the f32 forward <= 1.25x the reference's",
+     layer_tokens=256, layer_gap_to_dense_reference=alayer_gap, layer_tolerance=MOE_BF16_TOL,
+     two_calls_bitwise_equal=True, launches={name: acounts[name] for name in ("flash_attention", "rmsnorm")})
+del aparams, lp, xa, ya, ya2, refa, y64, r64, r_a
+gc.collect()
+torch.cuda.empty_cache()
+emit("moe", seconds=time.perf_counter() - t_moe)
 
 # ---------------------------------------------------------------------------
 # 9. the backward kernels against their plain version
@@ -2893,12 +3298,13 @@ PARITY_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
 UPDATE_TOL = {"params": 1e-2, "mu": 3e-3, "nu": 5e-3}
 
 
-def card_vs_cpu(impl):
-    """Three ``make_train_step`` steps of reduced qwen2-1.5b with ``impl``
-    attention on the card and on the CPU, each from the CPU's state: per
-    step the two sides' loss and gradient norm, and the largest relative gap
-    of the card's update of params, mu and nu against the CPU's."""
-    cfg_ = dataclasses.replace(pcfg, attention_impl=impl)
+def card_vs_cpu(impl, remat="full", steps=3):
+    """``steps`` ``make_train_step`` steps of reduced qwen2-1.5b with ``impl``
+    attention and ``remat`` on the card and on the CPU, each from the CPU's
+    state: per step the two sides' loss and gradient norm, and the largest
+    relative gap of the card's update of params, mu and nu against the
+    CPU's."""
+    cfg_ = dataclasses.replace(pcfg, attention_impl=impl, remat=remat)
     cpu_params = tm.init_params(cfg_, torch.Generator().manual_seed(8), device="cpu")
     gpu_params = tm.Model(cfg_, device="meta")
     gpu_params.load_state_dict({key: t.to(DEV, copy=True) for key, t in cpu_params.state_dict().items()},
@@ -2907,7 +3313,7 @@ def card_vs_cpu(impl):
     states = {"gpu": (gpu_params, adamw_init(dict(gpu_params.named_parameters()))),
               "cpu": (cpu_params, adamw_init(dict(cpu_params.named_parameters())))}
     rows = []
-    for i in range(3):
+    for i in range(steps):
         with torch.no_grad():
             for dst, src in zip(state_tensors(*states["gpu"]).values(),
                                 state_tensors(*states["cpu"]).values()):
@@ -2939,7 +3345,10 @@ def card_vs_cpu(impl):
 t_parity = time.perf_counter()
 kernels.reset_launch_counts()
 parity = {impl: card_vs_cpu(impl) for impl in ("flash", "reference")}
-emit("train_parity_steps", config="qwen2-1.5b reduced (4 layers, d=128, f32), remat full",
+# one step each under remat="dots" (flash) and under blocked attention
+parity["flash, remat dots"] = card_vs_cpu("flash", remat="dots", steps=1)
+parity["blocked"] = card_vs_cpu("blocked", steps=1)
+emit("train_parity_steps", config="qwen2-1.5b reduced (4 layers, d=128, f32), remat full unless named",
      tolerance=PARITY_TOL, update_tolerance=UPDATE_TOL, **parity)
 for impl, rows in parity.items():
     for i, row in enumerate(rows):
@@ -2976,7 +3385,7 @@ F32_FLASH = ("flash_attention_f32", "flash_attention_dq_f32", "flash_attention_d
              "flash_attention_dkv_reduce_f32")
 BF16_FLASH = ("flash_attention", "flash_attention_dq", "flash_attention_dkv", "flash_attention_dkv_reduce")
 for name in F32_FLASH:
-    records[name]["launches"] = counts[name]
+    records[name]["launches"] += counts[name]
     check(counts[name] > 0, f"train parity: kernel {name} was never launched")
 for name in BF16_FLASH:
     check(counts[name] == 0, f"train parity: f32 launched the bf16 kernel {name} {counts[name]} times")
@@ -3131,9 +3540,7 @@ torch.cuda.synchronize()
 restore_s = time.perf_counter() - t0
 check(second_t.step == PREEMPT_AT, f"train: restored at step {second_t.step}")
 timed_run(second_t, STEPS - 1)
-with torch.profiler.profile(
-    activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-) as prof:
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     second_t.run(until_step=STEPS)
@@ -3153,7 +3560,7 @@ want_counts = dict(flash_attention=STEPS * N_MB * 2 * L_, flash_attention_dq=STE
                    flash_attention_dkv=STEPS * N_MB * L_, flash_attention_dkv_reduce=STEPS * N_MB * L_,
                    rmsnorm=STEPS * N_MB * (2 * 2 * L_ + 1))
 for name, n_ in want_counts.items():
-    records[name]["launches"] = counts[name]
+    records[name]["launches"] += counts[name]
     check(counts[name] == n_, f"train: {counts[name]} launches of {name}, the path implies {n_}")
 for name in F32_FLASH:
     check(counts[name] == 0, f"train: bf16 launched the f32 kernel {name} {counts[name]} times")
@@ -3216,6 +3623,38 @@ emit("train", config="qwen2-1.5b full width: 28 layers, d=1536, 12/2 heads, hd=1
      traced_step_s=traced_s, device_busy_s=busy / 1e6,
      device_busy_share=(busy / 1e6) / traced_s if busy else "not measured (empty trace)",
      device_ms_per_step_by_class={key: v_ / 1e3 for key, v_ in sorted(by_class.items())})
+# one more step under remat="full" and one under "dots" on the trained
+# weights and state, each with its peak memory alone: "dots" keeps the
+# products without batch dimensions (q, k, v, o, gate, up, down: 23,040
+# bf16 values a token a layer, about 9.8 GiB a microbatch of 2 x 4,096)
+remat_steps = {}
+for remat in ("full", "dots"):
+    step_fn = make_train_step(dataclasses.replace(tcfg_, remat=remat), tsettings)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    second_t.params, second_t.opt_state, met_ = step_fn(second_t.params, second_t.opt_state,
+                                                        tdata.batch_at(STEPS + len(remat_steps)))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    remat_steps[remat] = dict(step_seconds=time.perf_counter() - t0,
+                              peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+                              resident_before_gib=base_gib, loss=float(met_["loss"]),
+                              grad_norm=float(met_["grad_norm"]),
+                              launches={name: counts[name] for name in want_counts})
+    check(np.isfinite(remat_steps[remat]["loss"]) and np.isfinite(remat_steps[remat]["grad_norm"]),
+          f"train: the remat={remat} step's loss or gradient norm is not finite")
+    # per step the path's launches, as above: the forward recomputes in the
+    # backward under either policy (the flash and RMSNorm functions are not
+    # products without batch dimensions)
+    for name, n_ in want_counts.items():
+        check(counts[name] == n_ // STEPS, f"train: remat={remat} step launched {name} {counts[name]} "
+                                           f"times, the path implies {n_ // STEPS}")
+        records[name]["launches"] += counts[name]
+emit("train_remat", card=smi, batch=f"{GB} x {SEQ} tokens, {N_MB} microbatches", steps=remat_steps)
 del second_t
 shutil.rmtree(ttmp, ignore_errors=True)
 

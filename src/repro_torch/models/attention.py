@@ -4,15 +4,18 @@
 The reference math is plain PyTorch and differentiable as it stands;
 ``attention`` with ``cfg.attention_impl == "flash"`` runs flash attention
 through its ``torch.autograd.Function`` (the forward and backward kernels on
-a CUDA tensor, their plain versions on a CPU tensor).  Cross-attention waits for the
-encoder-decoder family, and the blocked jnp attention (``"blocked"``) for
-its own item (ROADMAP §1 item 11).
+a CUDA tensor, their plain versions on a CPU tensor); ``"blocked"`` runs
+``_sdpa_blocked``, the flash algorithm in plain PyTorch on both devices, as
+the JAX package has it in jnp.  Cross-attention waits for the
+encoder-decoder family.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.torch_scheduler import resolve_device
@@ -91,6 +94,58 @@ def _sdpa_reference(q, k, v, causal: bool, q_offset: int = 0, kv_len: Optional[i
     return out.reshape(b, sq, h, hd)
 
 
+def _sdpa_blocked(q, k, v, causal: bool, block_q: int = 512, block_k: int = 1024):
+    """Flash-algorithm attention in plain PyTorch: an online softmax in f32
+    over KV blocks, O(bq·bk) live scores instead of O(S²), in the forward
+    and the backward (each KV step is checkpointed, so the backward
+    recomputes its scores, as ``jax.checkpoint(kv_step)`` does).  Block
+    sizes are halved until they divide the lengths.  q: (B, Sq, H, hd);
+    k/v: (B, Skv, G, hd) → (B, Sq, H, hd) in q's type."""
+    b, sq, h, hd = q.shape
+    skv, g = k.shape[1], k.shape[2]
+    rep = h // g
+    bq = min(block_q, sq)
+    while sq % bq:
+        bq //= 2
+    bk = min(block_k, skv)
+    while skv % bk:
+        bk //= 2
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
+    dev = q.device
+
+    def kv_step(m, l, acc, q_blk, k_blk, v_blk, qi: int, kj: int):
+        kf = torch.repeat_interleave(k_blk, rep, dim=2)              # (B,bk,H,hd)
+        vf = torch.repeat_interleave(v_blk, rep, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q_blk.to(torch.float32),
+                         kf.to(torch.float32)) * scale
+        if causal:
+            qpos = qi * bq + torch.arange(bq, device=dev)
+            kpos = kj * bk + torch.arange(bk, device=dev)
+            s = torch.where((kpos[None, :] <= qpos[:, None])[None, None], s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l_new = l * alpha + torch.sum(p, dim=-1)
+        acc_new = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                        vf.to(torch.float32))
+        return m_new, l_new, acc_new
+
+    step = (functools.partial(checkpoint, kv_step, use_reentrant=False)
+            if torch.is_grad_enabled() else kv_step)
+    outs = []
+    for qi in range(sq // bq):
+        q_blk = q[:, qi * bq:(qi + 1) * bq]
+        m = torch.full((b, h, bq), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, h, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, bq, hd), dtype=torch.float32, device=dev)
+        for kj in range(skv // bk):
+            m, l, acc = step(m, l, acc, q_blk, k[:, kj * bk:(kj + 1) * bk],
+                             v[:, kj * bk:(kj + 1) * bk], qi, kj)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]               # (B,H,bq,hd)
+        outs.append(out.transpose(1, 2).to(q.dtype))                    # (B,bq,H,hd)
+    return torch.cat(outs, dim=1)
+
+
 def attention(x: torch.Tensor, p, cfg: ModelConfig, positions: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
     """Full-sequence attention (train / prefill)."""
@@ -99,9 +154,7 @@ def attention(x: torch.Tensor, p, cfg: ModelConfig, positions: torch.Tensor,
     if cfg.attention_impl == "flash" and causal:
         out, _ = flash_attention(q, k, v, causal=True)
     elif cfg.attention_impl == "blocked":
-        raise NotImplementedError(
-            "attention_impl='blocked' (the jnp _sdpa_blocked) is not ported yet "
-            "(ROADMAP §1 item 11); use 'flash' or 'reference'")
+        out = _sdpa_blocked(q, k, v, causal=causal)
     else:
         out = _sdpa_reference(q, k, v, causal=causal)
     return out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) @ p.wo

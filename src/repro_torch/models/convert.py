@@ -2,8 +2,9 @@
 port's modules and dicts, and back.
 
 The JAX tree nests dicts and stacks the L decoder layers on a leading axis
-(``layers/attn/wq`` is (L, d, H*hd)); the port keeps one module per layer
-(``layers.<i>.attn.wq`` is (d, H*hd)) and keys AdamW's moments by the same
+(``layers/attn/wq`` is (L, d, H*hd), an expert leaf ``layers/moe/wg`` (L, E,
+d, F)); the port keeps one module per layer (``layers.<i>.attn.wq`` is (d,
+H*hd), ``layers.<i>.moe.wg`` (E, d, F)) and keys AdamW's moments by the same
 names.  Adafactor's second moment stays stacked in the port too (its
 ``(row, col)`` factors belong to the whole ``(L, ...)`` leaf), keyed
 ``layers.<rest>``.  Every direction copies the values exactly.

@@ -40,7 +40,7 @@ def init_leaf(d: ParamDef, generator: torch.Generator, device, dtype=torch.float
         std = d.scale / math.sqrt(max(1, d.shape[0] if fan_in is None else fan_in))
     out = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                       device=generator.device)
-    return (out * std).to(device=device, dtype=dtype)
+    return out.mul_(std).to(device=device, dtype=dtype)    # in place: one f32 copy at a time
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:

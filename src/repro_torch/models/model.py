@@ -1,29 +1,36 @@
-"""Model assembly for the dense attention family: parameters, the training
-forward, the prefill-style forward, and decode (port of
-``repro.models.model``).
+"""Model assembly for the attention family, dense and mixture-of-experts:
+parameters, the training forward, the prefill-style forward, and decode
+(port of ``repro.models.model``).
 
 Parameters are ``nn.Module``s holding ``nn.Parameter``s named and oriented
 as in the JAX parameter tree, with an ``nn.ModuleList`` of L layers where
 JAX scans stacked parameters.  The port runs ``block_pattern ==
-"attention"`` with text input, no experts and no encoder; every other family
-raises ``NotImplementedError`` naming its ROADMAP item.
+"attention"`` with text input and no encoder, with a dense MLP or experts
+(``moe``, plus ``dense_mlp`` where ``moe_dense_residual``); every other
+family raises ``NotImplementedError`` naming its ROADMAP item.
 
 ``forward_train`` is differentiable in the parameters: it casts them to the
-compute dtype through autograd (``_cast_tree``) and rematerializes each
-layer as ``cfg.remat`` says.  ``forward_logits``, ``prefill`` and
+compute dtype through autograd (``_cast_tree``), rematerializes each layer
+as ``cfg.remat`` says, and adds ``AUX_LOSS_WEIGHT`` times the experts'
+load-balance loss summed over the layers.  ``forward_logits``, ``prefill`` and
 ``decode_step`` are inference entry points and run without autograd.
 Decode writes the KV caches of a ``DecodeState`` in place (the JAX package
 returns updated copies); the state it returns carries the advanced length.
 """
 from __future__ import annotations
 
+import functools
 import types
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ModelConfig
 from ..core.torch_scheduler import resolve_device
@@ -43,8 +50,9 @@ from .layers import (
     norm_defs,
     rms_norm,
 )
+from .moe import moe_defs, moe_ffn
 
-#: weight of the experts' auxiliary loss (0 for the families the port runs)
+#: weight of the experts' auxiliary loss
 AUX_LOSS_WEIGHT = 0.01
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
            "float64": torch.float64}
@@ -63,9 +71,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: xLSTM is not ported yet (ROADMAP §1 item 14)")
     if cfg.block_pattern != "attention":
         raise ValueError(cfg.block_pattern)
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: mixture-of-experts is not ported yet "
-                                  "(ROADMAP §1 item 12)")
     if cfg.encoder_decoder or cfg.modality != "text":
         raise NotImplementedError(f"{cfg.name}: encoder-decoder and the vision/audio stubs "
                                   "are not ported yet (ROADMAP §1 item 15)")
@@ -93,7 +98,11 @@ class DecoderLayer(nn.Module):
         self.attn_norm = nn.Parameter(torch.empty(d, device=device, dtype=dtype))
         self.attn = ParamGroup(attn_defs(cfg), device, dtype)
         self.mlp_norm = nn.Parameter(torch.empty(d, device=device, dtype=dtype))
-        if cfg.mlp_type != "none":
+        if cfg.is_moe:
+            self.moe = ParamGroup(moe_defs(cfg), device, dtype)
+            if cfg.moe_dense_residual:
+                self.dense_mlp = ParamGroup(mlp_defs(d, cfg.d_ff), device, dtype)
+        elif cfg.mlp_type != "none":
             self.mlp = ParamGroup(mlp_defs(d, cfg.d_ff), device, dtype)
 
 
@@ -118,7 +127,8 @@ class Model(nn.Module):
 def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
     """ParamDef tree of the JAX package's ``model_defs`` for the attention
     family; ``layers`` holds one layer's definitions (the port keeps L
-    layers where JAX stacks them)."""
+    layers where JAX stacks them, so a stacked expert leaf (L, E, D, F) is L
+    leaves (E, D, F))."""
     check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab_padded
     defs: Dict[str, Any] = {
@@ -129,7 +139,11 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
         defs["lm_head"] = ParamDef((d, v), scale=1.0)
     layer: Dict[str, Any] = {"attn_norm": norm_defs(d), "attn": attn_defs(cfg),
                              "mlp_norm": norm_defs(d)}
-    if cfg.mlp_type != "none":
+    if cfg.is_moe:
+        layer["moe"] = moe_defs(cfg)
+        if cfg.moe_dense_residual:
+            layer["dense_mlp"] = mlp_defs(d, cfg.d_ff)
+    elif cfg.mlp_type != "none":
         layer["mlp"] = mlp_defs(d, cfg.d_ff)
     defs["layers"] = layer
     return defs
@@ -213,58 +227,86 @@ def _logits(params: Model, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return h @ w.to(h.dtype)
 
 
+def _ffn(hn, lp, cfg: ModelConfig):
+    """The block's feed-forward half → (y, the experts' auxiliary loss)."""
+    if cfg.is_moe:
+        y, aux = moe_ffn(hn, lp.moe, cfg)
+        if cfg.moe_dense_residual:
+            y = y + glu_mlp(hn, lp.dense_mlp, cfg.mlp_type)
+        return y, aux
+    aux = torch.zeros((), dtype=torch.float32, device=hn.device)
+    if cfg.mlp_type != "none":
+        return glu_mlp(hn, lp.mlp, cfg.mlp_type), aux
+    return torch.zeros_like(hn), aux
+
+
 def _attn_layer(h, lp: DecoderLayer, cfg: ModelConfig, positions, causal: bool = True):
-    """One transformer block.  (The JAX package also returns the experts'
-    auxiliary loss, always 0 for the families the port runs.)"""
+    """One transformer block → (h, the experts' auxiliary loss)."""
     a = attention(rms_norm(h, lp.attn_norm, cfg.norm_eps), lp.attn, cfg, positions,
                   causal=causal)
     h = h + a
-    hn = rms_norm(h, lp.mlp_norm, cfg.norm_eps)
-    y = glu_mlp(hn, lp.mlp, cfg.mlp_type) if cfg.mlp_type != "none" else torch.zeros_like(h)
-    return h + y
+    y, aux = _ffn(rms_norm(h, lp.mlp_norm, cfg.norm_eps), lp, cfg)
+    return h + y, aux
+
+
+#: the products ``remat="dots"`` keeps: those without batch dimensions
+#: (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``); ``x @ w``
+#: with a 2-D ``w`` runs as ``aten.mm``, while the attention einsums and the
+#: expert products, which have batch dimensions, run as ``bmm`` and are
+#: recomputed with everything else
+_SAVED_PRODUCTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _maybe_remat(fn, cfg: ModelConfig):
     """``cfg.remat``: ``"none"`` runs ``fn``; ``"full"`` saves only its
-    inputs and recomputes it in the backward (``jax.checkpoint``)."""
+    inputs and recomputes it in the backward (``jax.checkpoint``); ``"dots"``
+    also saves the outputs of the products without batch dimensions."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs, recompute the rest) is not ported "
-            "yet (ROADMAP §1 item 18); use 'full' or 'none'")
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def _decoder_stack(h, params, cfg: ModelConfig, positions):
+    """The layers in turn → (h, the auxiliary loss summed over them)."""
     layer = _maybe_remat(_attn_layer, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in params.layers:
-        h = layer(h, lp, cfg, positions)
-    return h
+        h, a = layer(h, lp, cfg, positions)
+        aux = aux + a
+    return h, aux
 
 
 def _forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
-    """Embeddings → block stack → final norm."""
+    """Embeddings → block stack → final norm → (h, auxiliary loss)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = _embed(params, cfg, tokens)
     positions = torch.arange(s, device=h.device).expand(b, s)
-    h = _decoder_stack(h, params, cfg, positions)
-    return rms_norm(h, params.final_norm, cfg.norm_eps)
+    h, aux = _decoder_stack(h, params, cfg, positions)
+    return rms_norm(h, params.final_norm, cfg.norm_eps), aux
 
 
 def forward_train(cfg: ModelConfig, params: Model, batch: Dict[str, torch.Tensor]):
     """Causal-LM loss of ``batch["tokens"]`` against ``batch["labels"]``
-    (token mean, f32, z-loss 1e-4) → ``(loss, {"lm_loss", "aux_loss"})``;
-    differentiable in ``params``.  ``aux_loss`` is the experts' loss, 0 for
-    the families the port runs."""
+    (token mean, f32, z-loss 1e-4) plus ``AUX_LOSS_WEIGHT`` times the
+    experts' load-balance loss → ``(loss, {"lm_loss", "aux_loss"})``;
+    differentiable in ``params``.  ``aux_loss`` is the weighted term (0
+    without experts)."""
     check_supported(cfg)
     pc = _cast_tree(params, torch_dtype(cfg.dtype))
-    h = _forward_hidden(cfg, pc, batch)
+    h, aux = _forward_hidden(cfg, pc, batch)
     loss = cross_entropy_loss(_logits(pc, cfg, h), batch["labels"])
-    aux_total = AUX_LOSS_WEIGHT * torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss + aux_total, {"lm_loss": loss.detach(), "aux_loss": aux_total}
+    aux_total = AUX_LOSS_WEIGHT * aux
+    return loss + aux_total, {"lm_loss": loss.detach(), "aux_loss": aux_total.detach()}
 
 
 @torch.no_grad()
@@ -273,7 +315,7 @@ def forward_logits(cfg: ModelConfig, params: Model, batch: Dict[str, torch.Tenso
     """Prefill-style forward: logits (last position by default), over the
     padded vocabulary, no loss."""
     params = _cast(params, cfg)
-    h = _forward_hidden(cfg, params, batch)
+    h, _ = _forward_hidden(cfg, params, batch)
     if last_only:
         h = h[:, -1:]
     return _logits(params, cfg, h)
@@ -327,9 +369,8 @@ def decode_step(cfg: ModelConfig, params: Model, token: torch.Tensor, state: Dec
         a, _, _ = attention_decode(rms_norm(h, lp.attn_norm, cfg.norm_eps), lp.attn, cfg,
                                    kc, vc, length)
         h = h + a
-        hn = rms_norm(h, lp.mlp_norm, cfg.norm_eps)
-        h = h + (glu_mlp(hn, lp.mlp, cfg.mlp_type) if cfg.mlp_type != "none"
-                 else torch.zeros_like(h))
+        y, _ = _ffn(rms_norm(h, lp.mlp_norm, cfg.norm_eps), lp, cfg)
+        h = h + y
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     logits = _logits(params, cfg, h)[..., : cfg.vocab_size]  # drop pad ids
     return logits, state._replace(length=length + 1)
@@ -356,9 +397,8 @@ def prefill(cfg: ModelConfig, params: Model, tokens: torch.Tensor, max_len: int)
         q, k, v = _project_qkv(x, lp.attn, cfg, positions)
         o = _sdpa_reference(q, k, v, causal=True)
         h = h + o.reshape(b, s, -1) @ lp.attn.wo
-        hn = rms_norm(h, lp.mlp_norm, cfg.norm_eps)
-        h = h + (glu_mlp(hn, lp.mlp, cfg.mlp_type) if cfg.mlp_type != "none"
-                 else torch.zeros_like(h))
+        y, _ = _ffn(rms_norm(h, lp.mlp_norm, cfg.norm_eps), lp, cfg)   # aux unused, as in JAX
+        h = h + y
         ks[i, :, :s] = k.to(cache_dt)
         vs[i, :, :s] = v.to(cache_dt)
     h = rms_norm(h, params_c.final_norm, cfg.norm_eps)

@@ -771,3 +771,48 @@ def test_simulate_scan_on_card_matches_cpu(cuda_device):
     for f in g:
         np.testing.assert_array_equal(g[f], c[f], err_msg=f)
         np.testing.assert_array_equal(g[f], r[f], err_msg=f)
+
+
+@pytest.mark.parametrize("cf", [16.0, 1.25])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda_device, cf):
+    """The MoE layer (plain PyTorch on both devices) at moonshot-v1-16b-a3b's
+    width, 256 tokens, f32: the routing identical to the CPU's, the output
+    within f32 summation order of it (TF32 off; each output sums products of
+    about its RMS, 130 here, so the bound scales with the RMS as well as the
+    element: 1e-4 (|cpu| + RMS), an NVIDIA H100 80GB HBM3 at 700 W read
+    4.9e-4 at most, and 1e-5 of the norm), and two calls on the card the
+    same bits (no atomics in the combine)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_leaf
+    from repro_torch.models.model import ParamGroup
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), capacity_factor=cf)
+    gen = torch.Generator().manual_seed(0)
+    cpu = ParamGroup(moe.moe_defs(cfg), "cpu")
+    with torch.no_grad():
+        for name, d in moe.moe_defs(cfg).items():
+            getattr(cpu, name).copy_(init_leaf(d, gen, "cpu", fan_in=cfg.n_layers))
+    card = ParamGroup(moe.moe_defs(cfg), cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 128, cfg.d_model), generator=gen)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            with moe.capture_routing() as rc:
+                want, _ = moe.moe_ffn(x, cpu, cfg)
+            with moe.capture_routing() as rg:
+                got, _ = moe.moe_ffn(x.to(cuda_device), card, cfg)
+            again, _ = moe.moe_ffn(x.to(cuda_device), card, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for key in ("top_e", "keep"):
+        _eq(rg[0][key], rc[0][key])
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    g, w = got.cpu().double(), want.double()
+    rms = float(torch.sqrt(torch.mean(w * w)))
+    assert bool(((g - w).abs() <= 1e-4 * (w.abs() + rms)).all())
+    assert float(torch.linalg.vector_norm(g - w)) <= 1e-5 * float(torch.linalg.vector_norm(w))

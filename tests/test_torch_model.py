@@ -1,12 +1,16 @@
 """The port's model stack (``repro_torch.models``) against the JAX package's,
-on reduced qwen2-1.5b, gemma-2b and yi-9b in f32 with the same weights: the
-converter's round trip, ``forward_logits`` with reference and flash
-attention, and ``prefill`` + ``decode_step`` in both cache layouts.
+on reduced qwen2-1.5b, gemma-2b, yi-9b, moonshot-v1-16b-a3b (experts) and
+arctic-480b (experts beside a dense MLP) in f32 with the same weights: the
+converter's round trip, ``forward_logits`` with reference, flash and
+blocked attention, and ``prefill`` + ``decode_step`` in both cache layouts.
 
-Weights come from JAX's ``init_params`` through ``params_from_numpy``;
-tokens from seeded numpy.  Tolerance atol = rtol = 1e-4 (f32, summation
-order differs between XLA and PyTorch), and the greedy argmax must agree
-everywhere.
+Weights of the dense models come from JAX's ``init_params`` through
+``params_from_numpy``; those of the MoE models from seeded numpy in the
+shapes of JAX's tree (JAX's init folds Python's randomized ``hash`` into
+its keys, and a routing decision near a tie would then change from run to
+run); tokens from seeded numpy.  Tolerance atol = rtol = 1e-4 (f32,
+summation order differs between XLA and PyTorch), and the greedy argmax must
+agree everywhere.
 """
 from __future__ import annotations
 
@@ -25,9 +29,11 @@ from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.models import layers as tl
 from repro_torch.models import model as tm
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
+from test_torch_training import _np_params
 
 torch.set_num_threads(1)
-ARCHS = ["qwen2-1.5b", "gemma-2b", "yi-9b"]
+ARCHS = ["qwen2-1.5b", "gemma-2b", "yi-9b", "moonshot-v1-16b-a3b", "arctic-480b"]
+MOE = ["moonshot-v1-16b-a3b", "arctic-480b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 S, B = 12, 2
 
@@ -36,7 +42,10 @@ def _pair(arch, **overrides):
     """(JAX cfg, port cfg, JAX params, port params) at reduced width."""
     jcfg = jreduced(jget(arch), **overrides)
     tcfg = reduced(get_config(arch), **overrides)
-    jp = jm.init_params(jcfg, jax.random.PRNGKey(0))
+    if jcfg.is_moe:
+        jp = jax.tree.map(jnp.asarray, _np_params(jcfg))
+    else:
+        jp = jm.init_params(jcfg, jax.random.PRNGKey(0))
     tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, tcfg, jp, tp
 
@@ -69,7 +78,7 @@ def test_params_round_trip(arch):
     assert sum(p.numel() for p in tp.parameters()) == sum(a.size for a in jax.tree.leaves(tree))
 
 
-@pytest.mark.parametrize("impl", ["reference", "flash"])
+@pytest.mark.parametrize("impl", ["reference", "flash", "blocked"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits_matches_jax(arch, impl):
     jcfg, tcfg, jp, tp = _pair(arch, attention_impl=impl)
@@ -168,14 +177,15 @@ def test_layers_match_jax():
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
-def test_init_params_draws_the_jax_distributions():
+@pytest.mark.parametrize("arch", ["qwen2-1.5b"] + MOE)
+def test_init_params_draws_the_jax_distributions(arch):
     """Same shapes, zeros where JAX has zeros, and each leaf's spread within
     5 % of JAX's (std scale/sqrt(fan-in), the fan-in of a stacked leaf being
-    the layer count, as in ``layers._init_leaf``)."""
-    cfg = reduced(get_config("qwen2-1.5b"), n_layers=3, d_model=256)
+    the layer count, as in ``layers._init_leaf``; the experts' (L, E, D, F)
+    leaves too)."""
+    cfg = reduced(get_config(arch), n_layers=3, d_model=256)
     tp = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    jp = jm.init_params(jreduced(jget("qwen2-1.5b"), n_layers=3, d_model=256),
-                        jax.random.PRNGKey(0))
+    jp = jm.init_params(jreduced(jget(arch), n_layers=3, d_model=256), jax.random.PRNGKey(0))
     tree = params_to_numpy(tp)
     for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jp))[0],
                             jax.tree.leaves(tree)):
@@ -188,8 +198,8 @@ def test_init_params_draws_the_jax_distributions():
         tm.init_params(cfg, torch.Generator().manual_seed(0))   # the card by default
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b", "zamba2-7b",
-                                  "xlstm-125m", "seamless-m4t-medium", "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m", "seamless-m4t-medium",
+                                  "internvl2-26b"])
 def test_unsupported_families_raise(arch):
     cfg = reduced(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -198,10 +208,56 @@ def test_unsupported_families_raise(arch):
         tm.init_decode_state(cfg, 1, 8, device="cpu")
 
 
-def test_blocked_attention_raises():
-    jcfg, tcfg, jp, tp = _pair("yi-9b", attention_impl="blocked")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("arch", MOE)
+def test_decode_matches_teacher_forced_forward(arch):
+    """``tests/test_decode_consistency.py``'s check on the port: decoding
+    token by token from an empty cache gives the logits of the
+    teacher-forced forward at every position.  Capacity factor 16, so that
+    neither path drops a choice (which choices drop depends on the tokens
+    routed together, which differ between the two)."""
+    _, tcfg, _, tp = _pair(arch, capacity_factor=16.0)
+    toks = torch.from_numpy(_tokens(tcfg))
+    full = tm.forward_logits(tcfg, tp, {"tokens": toks}, last_only=False)[..., : tcfg.vocab_size]
+    state = tm.init_decode_state(tcfg, batch=B, max_len=S + 1, dtype=torch.float32, device="cpu")
+    outs = []
+    for t in range(S):
+        logits, state = tm.decode_step(tcfg, tp, toks[:, t:t + 1], state)
+        outs.append(logits[:, 0])
+    _close(torch.stack(outs, dim=1), full.numpy())
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_routing_matches_jax(arch, monkeypatch):
+    """Each layer's routing in ``forward_logits``: ``top_e`` and the kept mask
+    identical to the JAX package's on the same layer inputs (captured from
+    the port, fed to the JAX ``_local_moe``'s own routing lines)."""
+    from repro_torch.models import moe as tmoe
+
+    jcfg, tcfg, jp, tp = _pair(arch)
+    captured = []
+    real = tmoe._local_moe
+
+    def spy(x, *args, **kw):
+        captured.append(x.detach().clone())
+        return real(x, *args, **kw)
+
+    monkeypatch.setattr(tmoe, "_local_moe", spy)
+    with tmoe.capture_routing() as calls:
         tm.forward_logits(tcfg, tp, {"tokens": torch.from_numpy(_tokens(jcfg))})
+    assert len(calls) == len(captured) == tcfg.n_layers
+    k, e = jcfg.top_k, jcfg.n_experts
+    for i, (x, got) in enumerate(zip(captured, calls)):
+        xf = jnp.asarray(x.numpy()).reshape(-1, jcfg.d_model)
+        probs = jax.nn.softmax((xf @ jp["layers"]["moe"]["router"][i]).astype(jnp.float32), -1)
+        top_e = np.asarray(jax.lax.top_k(probs, k)[1])
+        flat = top_e.reshape(-1)
+        order = np.argsort(flat, kind="stable")
+        cap = max(1, int((xf.shape[0] * k * jcfg.capacity_factor) / e + 0.999))
+        sorted_e = flat[order]
+        kept = np.zeros(flat.size, bool)
+        kept[order] = np.arange(flat.size) - np.searchsorted(sorted_e, sorted_e) < cap
+        np.testing.assert_array_equal(got["top_e"].numpy(), top_e, err_msg=f"layer {i}")
+        np.testing.assert_array_equal(got["keep"].numpy(), kept.reshape(-1, k), err_msg=f"layer {i}")
 
 
 def test_init_kv_cache_matches_jax():

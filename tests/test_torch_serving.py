@@ -2,7 +2,9 @@
 ``tests/test_serving.py``: the same weights (JAX's ``init_params`` through
 ``params_from_numpy``) and requests give the same ``completed`` dicts, the
 same decode step counts and the same preemption re-queue.  Reduced
-qwen2-1.5b in f32.
+qwen2-1.5b in f32; reduced moonshot-v1-16b-a3b and arctic-480b (experts,
+seeded numpy weights in the shapes of JAX's tree) serve through the same
+engine unchanged.
 """
 from __future__ import annotations
 
@@ -138,3 +140,24 @@ def test_preemption_controller_drains_the_engine(weights):
     assert records[0] == records[1]
     assert records[1][0] == [("i0", "serve", 1800.0, "drained", 0.0),
                              ("i1", "-", 1800.0, "drained", 0.0)]
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b"])
+def test_moe_engine_matches_jax(arch):
+    """5 requests, batch 3, at the config's capacity factor (1.25: prefill
+    and decode drop choices, each side as the other): the same tokens and
+    step counts as the JAX engine."""
+    from test_torch_training import _np_params
+
+    jcfg, tcfg = jreduced(jget(arch)), reduced(get_config(arch))
+    tree = _np_params(jcfg)
+    je = JEngine(jcfg, jax.tree.map(jax.numpy.asarray, tree), JServeConfig(max_batch=3, max_len=32))
+    te = ServingEngine(tcfg, params_from_numpy(tcfg, tree, device="cpu"),
+                       ServeConfig(max_batch=3, max_len=32))
+    rng = np.random.default_rng(4)
+    _submit((je, te), [(f"r{i}", rng.integers(2, tcfg.vocab_size, rng.integers(3, 9)), 6)
+                       for i in range(5)])
+    out = te.run_until_drained()
+    assert set(out) == {f"r{i}" for i in range(5)}
+    assert out == je.run_until_drained()
+    assert te.steps_executed == je.steps_executed

@@ -2,11 +2,16 @@
 ``repro_torch.training``, ``repro_torch.checkpoint``) against the JAX
 package, on the CPU.
 
-* ``forward_train``'s loss and every gradient against
-  ``jax.value_and_grad(forward_train)``, reduced qwen2-1.5b and gemma-2b in
-  f32 (the JAX flash path runs the Pallas kernel in interpret mode):
+* ``forward_train``'s loss, ``aux_loss`` and every gradient against
+  ``jax.value_and_grad(forward_train)``, reduced qwen2-1.5b, gemma-2b,
+  yi-9b (blocked attention), moonshot-v1-16b-a3b and arctic-480b (experts)
+  in f32 (the JAX flash path runs the Pallas kernel in interpret mode):
   atol = rtol = 1e-4, f32 with another summation order, as the model tests;
-* ``remat="full"`` gives the gradients of ``"none"``, bit for bit;
+  ``aux_loss`` within 1e-6;
+* ``remat="full"`` and ``"dots"`` give the gradients of ``"none"``, bit for
+  bit, and ``"dots"`` recomputes no product without batch dimensions;
+* ``_sdpa_blocked`` against the JAX function: forward 1e-5, gradients 2e-3
+  (as ``tests/test_decode_consistency.py``);
 * ``make_train_step`` over 3 steps against the JAX step (loss and gradient
   norm within 1e-4), with microbatches and int8 compression too;
 * the checkpoint round trip (mirroring ``tests/test_checkpoint.py``) and
@@ -20,6 +25,7 @@ same values.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 
@@ -28,9 +34,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_config as jget, reduced as jreduced
 from repro.data.pipeline import DataConfig as JDataConfig, SyntheticLMDataset as JData
+from repro.models import attention as ja
 from repro.models import model as jm
 from repro.optim import optimizers as jopt
 from repro.training import TrainSettings as JSettings, make_train_step as jmake_step
@@ -38,6 +46,7 @@ from repro_torch.checkpoint import Checkpointer, checkpointer as tck
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.preemption import PreemptAck, PreemptionController
 from repro_torch.data import DataConfig, SyntheticLMDataset
+from repro_torch.models import attention as ta
 from repro_torch.models import model as tm
 from repro_torch.models.convert import (
     _tree_from_flat,
@@ -94,7 +103,10 @@ def _leaves_close(got_tree, want_tree, what, **tol):
 
 
 @pytest.mark.parametrize("arch,impl", [("qwen2-1.5b", "reference"), ("gemma-2b", "reference"),
-                                       ("qwen2-1.5b", "flash")])
+                                       ("qwen2-1.5b", "flash"), ("yi-9b", "blocked"),
+                                       ("moonshot-v1-16b-a3b", "reference"),
+                                       ("moonshot-v1-16b-a3b", "flash"),
+                                       ("arctic-480b", "reference")])
 def test_forward_train_loss_and_grads_match_jax(arch, impl):
     jcfg, tcfg, jp, tp = _pair(arch, attention_impl=impl)
     batch = _batch(jcfg)
@@ -106,7 +118,11 @@ def test_forward_train_loss_and_grads_match_jax(arch, impl):
     grads = torch.autograd.grad(loss, leaves)
     np.testing.assert_allclose(float(loss.detach()), float(jloss), **TOL)
     np.testing.assert_allclose(float(met["lm_loss"]), float(jmet["lm_loss"]), **TOL)
-    assert float(met["aux_loss"]) == float(jmet["aux_loss"]) == 0.0
+    np.testing.assert_allclose(float(met["aux_loss"]), float(jmet["aux_loss"]), atol=1e-6, rtol=0)
+    if tcfg.is_moe:
+        assert float(met["aux_loss"]) > 0
+    else:
+        assert float(met["aux_loss"]) == float(jmet["aux_loss"]) == 0.0
     _leaves_close(_tree_from_flat(dict(zip(names, grads))), jgrads, f"{arch} {impl} grad")
 
 
@@ -122,10 +138,85 @@ def test_remat_full_gives_the_gradients_of_none():
         assert torch.equal(a, b)
 
 
-def test_remat_dots_is_not_ported():
-    _, cfg, _, tp = _pair("qwen2-1.5b", remat="dots")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward_train(cfg, tp, {k: torch.from_numpy(v) for k, v in _batch(cfg).items()})
+def _grads(arch, **overrides):
+    _, cfg, _, tp = _pair(arch, **overrides)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, seed=2).items()}
+    loss, met = tm.forward_train(cfg, tp, batch)
+    return loss, met["aux_loss"], torch.autograd.grad(loss, list(tp.parameters()))
+
+
+@pytest.mark.parametrize("arch,impl", [("qwen2-1.5b", "flash"), ("moonshot-v1-16b-a3b", "reference"),
+                                       ("arctic-480b", "flash"), ("yi-9b", "blocked")])
+def test_remat_dots_and_full_give_the_gradients_of_none(arch, impl):
+    """The loss, the experts' loss and every gradient, bit for bit (blocked
+    attention checkpoints each KV step inside the layer's checkpoint)."""
+    loss, aux, grads = _grads(arch, remat="none", attention_impl=impl)
+    for remat in ("full", "dots"):
+        loss_r, aux_r, grads_r = _grads(arch, remat=remat, attention_impl=impl)
+        assert torch.equal(loss, loss_r) and torch.equal(aux, aux_r), remat
+        for a, b in zip(grads, grads_r):
+            assert torch.equal(a, b), remat
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the ATen ops dispatched inside the block, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func.overloadpacket.__name__] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_ops(arch, remat):
+    _, cfg, _, tp = _pair(arch, remat=remat)
+    loss, _ = tm.forward_train(cfg, tp, {k: torch.from_numpy(v) for k, v in _batch(cfg).items()})
+    with _OpCount() as ops:
+        torch.autograd.grad(loss, list(tp.parameters()))
+    return ops.counts
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "moonshot-v1-16b-a3b"])
+def test_remat_dots_recomputes_no_product_without_batch_dims(arch):
+    """The backward's ops beyond those of ``remat="none"`` are what it
+    recomputes: under ``"dots"`` not one ``mm``/``addmm`` (the projections,
+    the MLP or the router: saved), but the attention's (and the experts')
+    ``bmm``s and the elementwise ops of every layer; under ``"full"`` the
+    ``mm``s too."""
+    L = reduced(get_config(arch)).n_layers
+    none, dots, full = (_backward_ops(arch, r) for r in ("none", "dots", "full"))
+    elementwise = ("mul", "rsqrt", "_softmax", "silu")
+    extra = {r: {op: c[op] - none[op] for op in ("mm", "addmm", "bmm") + elementwise}
+             for r, c in (("dots", dots), ("full", full))}
+    assert extra["dots"]["mm"] == extra["dots"]["addmm"] == 0, extra
+    assert extra["full"]["mm"] >= 5 * L, extra
+    for op in ("bmm",) + elementwise:
+        assert extra["dots"][op] >= L and extra["dots"][op] == extra["full"][op], (op, extra)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,bq,bk", [(16, 4, 8), (16, 8, 4), (24, 16, 16), (24, 512, 1024)])
+def test_sdpa_blocked_matches_jax(s, bq, bk, causal):
+    """Forward within 1e-5 and the gradients of q, k and v within 2e-3, GQA
+    (4 heads on 2); at S = 24 the halving loop picks blocks of 8 (from 16)
+    and of 24 (the defaults cut to S)."""
+    rng = np.random.default_rng(s + bq)
+    q, k, v, g = (rng.standard_normal((2, s, n, 8)).astype(np.float32) for n in (4, 2, 2, 4))
+
+    def jf(q_, k_, v_):
+        return ja._sdpa_blocked(q_, k_, v_, causal=causal, block_q=bq, block_k=bk)
+
+    jo, vjp = jax.vjp(jf, *map(jnp.asarray, (q, k, v)))
+    jgrads = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    to = ta._sdpa_blocked(tq, tk, tv, causal=causal, block_q=bq, block_k=bk)
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), atol=1e-5, rtol=1e-5)
+    ref = ta._sdpa_reference(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(to.detach().numpy(), ref.detach().numpy(), atol=1e-5, rtol=1e-5)
+    for got, want in zip(torch.autograd.grad(to, (tq, tk, tv), torch.from_numpy(g)), jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3, rtol=2e-3)
 
 
 def test_bf16_compute_reaches_the_f32_master_weights():
@@ -178,6 +269,20 @@ def test_train_step_matches_jax_over_three_steps():
     back = opt_state_to_numpy(ts)
     assert int(back.step) == int(js.step) == 3
     _leaves_close(back.mu, jax.tree.map(np.asarray, js.mu), "mu", atol=1e-4, rtol=1e-3)
+
+
+def test_moe_train_step_matches_jax_over_two_steps():
+    """``make_train_step`` runs the experts unchanged: reduced
+    moonshot-v1-16b-a3b, AdamW, loss, ``aux_loss`` (no longer 0) and gradient
+    norm at each step against the JAX step's."""
+    out, _, _ = _steps_against_jax(2, JSettings(**STEP_KW), TrainSettings(**STEP_KW),
+                                   arch="moonshot-v1-16b-a3b")
+    for jmet, tmet in out:
+        for key in ("loss", "lm_loss", "grad_norm"):
+            np.testing.assert_allclose(float(tmet[key]), float(jmet[key]), **TOL, err_msg=key)
+        np.testing.assert_allclose(float(tmet["aux_loss"]), float(jmet["aux_loss"]), atol=1e-6,
+                                   rtol=0)
+        assert float(tmet["aux_loss"]) > 0
 
 
 def test_adafactor_train_step_matches_jax_over_three_steps():
