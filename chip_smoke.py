@@ -8,9 +8,12 @@ exits non-zero:
 1. device    — the card's name and power limit (nvidia-smi), torch and CUDA
                versions;
 2. build     — compile every CUDA source of the port (one nvcc each, all
-               started together): seconds per source, and the count of
-               HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS
-               of each tensor-core kernel, which must not be 0, and ptxas's
+               started together): seconds per source, the flash kernels'
+               instantiations counted apart for the forward (head dims 32,
+               64, 112, 128, 256) and the backward (32, 64, 128, 256), and
+               the count of HGMMA (wgmma) and UTMALDG (TMA load)
+               instructions in the SASS of each tensor-core kernel, which
+               must not be 0, and ptxas's
                registers and spill bytes of each; the f32 kernels' (forward,
                dq, dk/dv) SASS, which must hold no HMMA or HGMMA, and their
                ptxas registers, none with a stack frame or spills; ptxas's
@@ -183,6 +186,33 @@ exits non-zero:
                two calls the same bits; then ``forward_logits`` on 2 x 512
                tokens, flash and reference against the f32 forward (the weights
                cast in place), flash within 1.25x the reference's gap;
+8c. hybrid   — the Mamba2 hybrid and xLSTM: the flash forward at head_dim
+               112 (zamba2-7b's) against its plain version (bf16 at the
+               shared block's prefill shape 4 x 1,024 with 32 heads, ragged
+               S=1,000 and full; f32 at S=77 and 1 x 1,024), two calls the
+               same bits, its SASS (HGMMA and UTMALDG in the bf16
+               instantiation, none in the f32 one), kernel / plain / bound /
+               library times; RMSNorm at 3,584, 7,168 and 768 wide against
+               its plain version and F.rms_norm, with times; reduced
+               zamba2-7b (8 layers at cadence 3, hd 32 and 112) and
+               xlstm-125m in f32, the weights and the CPU's forward from
+               chip_smoke_cpu.py: the card's gap to an f64 forward at most
+               3x the CPU's, 24 decode steps against the card's forward;
+               full-width zamba2-7b (81 layers, 6.75 B bf16 parameters drawn
+               on the card): ``forward_logits`` on 4 x 1,024 tokens with
+               flash and reference attention, at two groups' depth each
+               against the f32 forward (flash within 1.25x the reference's
+               gap), batch 8 served by ``decode_step`` (64 prompt tokens,
+               32 new), decode ms p50 / p99, tokens/s, peak memory, the busy
+               share of a traced decode window; the decode against
+               ``forward_logits`` at every position, in bf16 at two groups'
+               depth (within 2.5x the bf16 forward's gap to the f32
+               forward) and in f32 at 81 layers (16 steps, within 2.5x the
+               f32 forward's spread between chunks of 16 and of 1), the
+               81-layer bf16 gaps printed; full-width xlstm-125m:
+               ``forward_logits`` on 4 x 1,024 tokens, 32 decode steps held
+               to it as zamba2-7b's, tokens/s; every kernel's launches
+               against what the path implies;
 9. train_kernels — the flash-attention backward kernels (dq, dk/dv and its
                reduction over grouped heads; bf16 on the tensor cores, f32
                on the CUDA cores) against
@@ -221,9 +251,9 @@ exits non-zero:
     CUDA events, marking any reading under its bound; the ``kernels`` line,
     then the card's name and power limit, then the result line.
 
-The CPU side of phases 4 to 5f's card-against-CPU simulator runs
-(chip_smoke_cpu.py, the scenarios and what is compared) runs in a process
-of its own, started with the script on 2 CPU threads, while the card
+The CPU side of phases 4 to 5f's card-against-CPU simulator runs and of
+phase 8c's reduced models (chip_smoke_cpu.py, the scenarios and what is
+compared) runs in a process of its own, started with the script on 2 CPU threads, while the card
 works; the ``cpu_refs`` line after phase 5f gives the seconds the script
 waited for each run, and every line's ``at_s`` its seconds since the start.
 
@@ -291,7 +321,7 @@ from repro_torch.core.torch_scheduler import (  # noqa: E402
 )
 from repro_torch.core.types import Request  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
+from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS, FWD_HEAD_DIMS  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
@@ -306,6 +336,7 @@ from repro_torch.training.trainer import state_tensors  # noqa: E402
 from chip_smoke_cpu import (  # noqa: E402
     ADMISSION,
     COUNTERS,
+    HYBRID_CASES,
     MULT_ROWS,
     RELOC,
     RELOC_RATE,
@@ -319,6 +350,8 @@ from chip_smoke_cpu import (  # noqa: E402
     on_clock,
     parity_sim,
     ragged_sim,
+    hybrid_config,
+    hybrid_tokens,
     ragged_view,
     rebuild_sim,
     rebuild_view,
@@ -552,6 +585,7 @@ def max_gap(a, b) -> float:
 #: largest |kernel - plain| measured per kernel (phases 3 and 6)
 GAPS = {"sched_screen_consts": 0.0, "sched_screen_topm": 0.0, "sched_screen": 0.0,
         "sched_weigh": 0.0, "flash_attention": 0.0, "flash_attention_f32": 0.0, "rmsnorm": 0.0,
+        "flash_attention_hd112": 0.0, "flash_attention_f32_hd112": 0.0,
         "flash_attention_dq": 0.0, "flash_attention_dq_f32": 0.0, "flash_attention_dkv": 0.0,
         "flash_attention_dkv_reduce": 0.0, "flash_attention_dkv_f32": 0.0,
         "flash_attention_dkv_reduce_f32": 0.0}
@@ -572,6 +606,63 @@ def busy_us(prof) -> float:
             total += b - max(a, end)
             end = b
     return total
+
+
+# -- the model phases' helpers (8, 8b, 8c) -------------------------------------------
+def free_gib(what, phase="moe_memory"):
+    """Print the card's free memory before a model is loaded."""
+    free_, total_ = torch.cuda.mem_get_info()
+    emit(phase, before=what, free_gib=free_ / 2**30, total_gib=total_ / 2**30)
+
+
+def forwards(cfg_, params_, toks_):
+    """``forward_logits`` (every position) with flash and with reference
+    attention, each after a warm-up at the same shape (cuBLAS picks its
+    plans on a shape's first call): the logits, the seconds, and each MoE
+    call's ``top_e`` (none without experts)."""
+    outs, secs, tops = {}, {}, {}
+    for impl in ("flash", "reference"):
+        c_ = dataclasses.replace(cfg_, attention_impl=impl)
+        tm.forward_logits(c_, params_, {"tokens": toks_})                 # warm-up
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        with tmoe.capture_routing() as r_:
+            outs[impl] = tm.forward_logits(c_, params_, {"tokens": toks_}, last_only=False)
+        torch.cuda.synchronize()
+        secs[impl] = time.perf_counter() - t_
+        tops[impl] = [c["top_e"] for c in r_]
+        check(bool(torch.isfinite(outs[impl]).all()), f"{cfg_.name} {impl} logits not finite")
+        check(outs[impl].shape == (*toks_.shape, cfg_.vocab_padded),
+              f"{cfg_.name} {impl} logits shape {outs[impl].shape}")
+    return outs, secs, tops
+
+
+def logit_gap(a, b):
+    """|a - b| (max, mean), b's RMS and the share of positions whose argmax
+    agrees, a sequence at a time in f32."""
+    rows_ = []
+    for a_, b_ in zip(a, b):
+        a_, b_ = a_.float(), b_.float()
+        d_ = (a_ - b_).abs()
+        rows_.append((float(d_.max()), float(d_.sum()), float(torch.sum(b_ * b_)),
+                      float((a_.argmax(-1) == b_.argmax(-1)).sum())))
+        del a_, b_, d_
+    n_ = b.numel()
+    return dict(max=max(r_[0] for r_ in rows_), mean=sum(r_[1] for r_ in rows_) / n_,
+                rms=math.sqrt(sum(r_[2] for r_ in rows_) / n_),
+                argmax_agree=sum(r_[3] for r_ in rows_) * b.shape[-1] / n_)
+
+
+def against_f32(outs, truth, what):
+    """Each bf16 path's gap to the f32 forward; flash may be no further from
+    it than 1.25x the reference attention's gap (phase 8's bound: both are
+    bf16 rounding, which these random weights amplify)."""
+    gaps_ = {impl: logit_gap(o_, truth) for impl, o_ in outs.items()}
+    for stat in ("max", "mean"):
+        check(gaps_["flash"][stat] <= 1.25 * gaps_["reference"][stat],
+              f"{what}: flash logits {stat} gap to f32 {gaps_['flash'][stat]} exceeds 1.25x the "
+              f"bf16 reference path's {gaps_['reference'][stat]}")
+    return gaps_
 
 
 # ---------------------------------------------------------------------------
@@ -610,15 +701,24 @@ for src in ("flash_attention", "flash_attention_bwd"):
         if "f32_kernel" in fn_name:
             f32_sass[fn_name] = dict(HMMA=chunk.count("HMMA"), HGMMA=chunk.count("HGMMA"),
                                      FFMA=chunk.count("FFMA"))
-# the f32 kernels (the forward, dq and dk/dv at each head dim, the
-# reduction) stay on the CUDA cores in full f32: no tensor-core instruction
-check(len(f32_sass) == 3 * len(HEAD_DIMS) + 1, f"build: {len(f32_sass)} f32 kernels in the SASS")
+# the f32 kernels (the forward at each of its head dims, dq and dk/dv at
+# each of theirs, the reduction) stay on the CUDA cores in full f32: no
+# tensor-core instruction
+check(len(f32_sass) == len(FWD_HEAD_DIMS) + 2 * len(BWD_HEAD_DIMS) + 1,
+      f"build: {len(f32_sass)} f32 kernels in the SASS")
 for f, c in f32_sass.items():
     check(c["HMMA"] == 0 and c["HGMMA"] == 0 and (c["FFMA"] > 0 or "reduce" in f),
           f"build: {f} has {c} in its SASS")
-for kernel_name in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+# instantiations of the forward (FWD_HEAD_DIMS, 112 among them) and of the
+# backward (BWD_HEAD_DIMS), counted apart
+instantiations = dict(head_dims=dict(forward=FWD_HEAD_DIMS, backward=BWD_HEAD_DIMS),
+                      f32_kernels=len(f32_sass))
+for kernel_name, dims in (("flash_fwd_wgmma_kernel", FWD_HEAD_DIMS),
+                          ("flash_bwd_dq_wgmma_kernel", BWD_HEAD_DIMS),
+                          ("flash_bwd_dkv_wgmma_kernel", BWD_HEAD_DIMS)):
     found = {f: c for f, c in sass_counts.items() if kernel_name in f}
-    check(len(found) == len(HEAD_DIMS), f"build: {len(found)} instantiations of {kernel_name}")
+    check(len(found) == len(dims), f"build: {len(found)} instantiations of {kernel_name}")
+    instantiations[kernel_name] = len(found)
     for f, c in found.items():
         check(c["HGMMA"] > 0 and c["UTMALDG"] > 0, f"build: {f} has {c} in its SASS")
 # ptxas's registers and spills of each tensor-core kernel instantiation
@@ -629,12 +729,13 @@ for src in ("flash_attention", "flash_attention_bwd"):
         ptxas[src] = "library cached from an earlier build: no report"
         continue
     found = {f: c for f, c in _build.ptxas_report(src).items() if "wgmma_kernel" in f}
-    check(len(found) == (1 if src == "flash_attention" else 2) * len(HEAD_DIMS),
+    check(len(found) == (len(FWD_HEAD_DIMS) if src == "flash_attention" else 2 * len(BWD_HEAD_DIMS)),
           f"build: ptxas reported {len(found)} tensor-core kernels of {src}.cu")
     ptxas.update(found)
 # and of the f32 kernels, none with a stack frame or spills
 f32_ptxas = {}
-for src, count in (("flash_attention", len(HEAD_DIMS)), ("flash_attention_bwd", 2 * len(HEAD_DIMS) + 1)):
+for src, count in (("flash_attention", len(FWD_HEAD_DIMS)),
+                   ("flash_attention_bwd", 2 * len(BWD_HEAD_DIMS) + 1)):
     if src not in _build.BUILD_LOG:
         f32_ptxas[src] = "library cached from an earlier build: no report"
         continue
@@ -678,6 +779,7 @@ for src, tags, count, main in (
         main_path={f: c for f, c in found.items() if all(m_ in f for m_ in main)})
     check(len(small_ptxas[src]["main_path"]) == 1, f"build: {main} not found in {src}.cu")
 emit("build", seconds=build_s, seconds_by_source=dict(_build.BUILD_SECONDS),
+     flash_instantiations=instantiations,
      libraries=sorted(os.path.basename(p) for p in paths.values()),
      sass_hgmma_utmaldg=sass_counts, ptxas_registers_spills=ptxas,
      sass_f32_hmma_hgmma_ffma=f32_sass, ptxas_f32=f32_ptxas,
@@ -2243,33 +2345,43 @@ flash_cases = [  # name, B, S, H, G, hd, dtype, causal
     ("arctic-480b", 2, 512, 56, 8, 128, BF16, True),
 ]
 #: the kernel each type routes to: bf16 the tensor cores, f32 the CUDA cores
+#: (head_dim 112's instantiations count under their own key)
 FWD_ROUTE = {BF16: "flash_attention", F32: "flash_attention_f32"}
-flash_rows = {}
-for name, b_, s_, h_, g_, hd_, dt, causal in flash_cases:
+
+
+def flash_vs_plain(name, b_, s_, h_, g_, hd_, dt, causal):
+    """The forward on random inputs against its plain version (the route's
+    launch, both tolerances) and a second call's bits: a row of the
+    phase's line."""
+    route = FWD_ROUTE[dt] + ("_hd112" if hd_ == 112 else "")
     qkv = [torch.randn((b_, s_, n_, hd_), generator=gen, device=DEV).to(dt) for n_ in (h_, g_, g_)]
     kernels.reset_launch_counts()
     o, lse = kernels.flash_attention(*qkv, causal=causal)
-    check(kernels.launch_counts()[FWD_ROUTE[dt]] == 1, f"flash {name}: not the {FWD_ROUTE[dt]} route")
+    check(kernels.launch_counts()[route] == 1, f"flash {name}: not the {route} route")
     po, plse = kernels.flash_attention_plain(*qkv, causal=causal)
     check(o.dtype == dt and o.shape == po.shape, f"flash {name} o: type or shape")
     o64, po64 = o.double(), po.double()
     o_rel = float(torch.linalg.vector_norm(o64 - po64) / torch.linalg.vector_norm(po64))
     check(o_rel <= OUT_REL[dt], f"flash {name} o: relative gap {o_rel} beyond {OUT_REL[dt]}")
-    flash_rows[name] = dict(
-        route=FWD_ROUTE[dt],
-        o_gap=within(o, po, OUT_TOL[dt], f"flash {name} o", FWD_ROUTE[dt]),
+    row = dict(
+        route=route,
+        o_gap=within(o, po, OUT_TOL[dt], f"flash {name} o", route),
         o_tol=OUT_TOL[dt], o_rel_gap=o_rel, o_rel_tol=OUT_REL[dt],
         o_rms_plain=float(torch.sqrt(torch.mean(po64 * po64))),
-        lse_gap=within(lse, plse, LSE_TOL, f"flash {name} lse", FWD_ROUTE[dt]),
+        lse_gap=within(lse, plse, LSE_TOL, f"flash {name} lse", route),
         lse_tol=LSE_TOL)
-    del o64, po64
     # no atomics: a second call gives the same bits
     o2, lse2 = kernels.flash_attention(*qkv, causal=causal)
     bits = torch.int16 if dt == BF16 else torch.int32
     check(torch.equal(o.view(bits), o2.view(bits)) and torch.equal(lse.view(torch.int32), lse2.view(torch.int32)),
           f"flash {name}: two calls differ")
-    flash_rows[name]["two_calls_bitwise_equal"] = True
-    del qkv, o, lse, po, plse, o2, lse2
+    row["two_calls_bitwise_equal"] = True
+    return row
+
+
+flash_rows = {}
+for name, b_, s_, h_, g_, hd_, dt, causal in flash_cases:
+    flash_rows[name] = flash_vs_plain(name, b_, s_, h_, g_, hd_, dt, causal)
 rms_rows = {}
 for name, rows_, d_, dt, wdt, off in (
         ("prefill bf16", 4096, 1536, BF16, BF16, 0), ("prefill f32", 4096, 1536, F32, F32, 0),
@@ -2640,12 +2752,6 @@ torch.cuda.empty_cache()
 t_moe = time.perf_counter()
 
 
-def free_gib(what):
-    """Print the card's free memory before a model is loaded."""
-    free_, total_ = torch.cuda.mem_get_info()
-    emit("moe_memory", before=what, free_gib=free_ / 2**30, total_gib=total_ / 2**30)
-
-
 def dense_moe_reference(x, p, cfg_):
     """``tests/test_moe.py::dense_reference`` in PyTorch: every expert on
     every token, the top k combined (ties to the lower expert, as
@@ -2679,56 +2785,6 @@ def routing_same(got, want, what):
                     ("cpu", torch.sort(w_["probs"][tok], descending=True).values))}
                 check(False, f"{what}: call {i} {key} differs at token {tok}: card {a_[tok].tolist()}, "
                              f"CPU {b_[tok].tolist()}; top-k probability gap {gaps_}")
-
-
-def forwards(cfg_, params_, toks_):
-    """``forward_logits`` (every position) with flash and with reference
-    attention, each after a warm-up at the same shape (cuBLAS picks its
-    plans on a shape's first call): the logits, the seconds, and each MoE
-    call's ``top_e``."""
-    outs, secs, tops = {}, {}, {}
-    for impl in ("flash", "reference"):
-        c_ = dataclasses.replace(cfg_, attention_impl=impl)
-        tm.forward_logits(c_, params_, {"tokens": toks_})                 # warm-up
-        torch.cuda.synchronize()
-        t_ = time.perf_counter()
-        with tmoe.capture_routing() as r_:
-            outs[impl] = tm.forward_logits(c_, params_, {"tokens": toks_}, last_only=False)
-        torch.cuda.synchronize()
-        secs[impl] = time.perf_counter() - t_
-        tops[impl] = [c["top_e"] for c in r_]
-        check(bool(torch.isfinite(outs[impl]).all()), f"moe: {cfg_.name} {impl} logits not finite")
-        check(outs[impl].shape == (*toks_.shape, cfg_.vocab_padded),
-              f"moe: {cfg_.name} {impl} logits shape {outs[impl].shape}")
-    return outs, secs, tops
-
-
-def logit_gap(a, b):
-    """|a - b| (max, mean), b's RMS and the share of positions whose argmax
-    agrees, a sequence at a time in f32."""
-    rows_ = []
-    for a_, b_ in zip(a, b):
-        a_, b_ = a_.float(), b_.float()
-        d_ = (a_ - b_).abs()
-        rows_.append((float(d_.max()), float(d_.sum()), float(torch.sum(b_ * b_)),
-                      float((a_.argmax(-1) == b_.argmax(-1)).sum())))
-        del a_, b_, d_
-    n_ = b.numel()
-    return dict(max=max(r_[0] for r_ in rows_), mean=sum(r_[1] for r_ in rows_) / n_,
-                rms=math.sqrt(sum(r_[2] for r_ in rows_) / n_),
-                argmax_agree=sum(r_[3] for r_ in rows_) * b.shape[-1] / n_)
-
-
-def against_f32(outs, truth, what):
-    """Each bf16 path's gap to the f32 forward; flash may be no further from
-    it than 1.25x the reference attention's gap (phase 8's bound: both are
-    bf16 rounding, which these random weights amplify)."""
-    gaps_ = {impl: logit_gap(o_, truth) for impl, o_ in outs.items()}
-    for stat in ("max", "mean"):
-        check(gaps_["flash"][stat] <= 1.25 * gaps_["reference"][stat],
-              f"moe: {what}: flash logits {stat} gap to f32 {gaps_['flash'][stat]} exceeds 1.25x the "
-              f"bf16 reference path's {gaps_['reference'][stat]}")
-    return gaps_
 
 
 def routing_flips(tops):
@@ -3058,6 +3114,393 @@ del aparams, lp, xa, ya, ya2, refa, y64, r64, r_a
 gc.collect()
 torch.cuda.empty_cache()
 emit("moe", seconds=time.perf_counter() - t_moe)
+
+# ---------------------------------------------------------------------------
+# 8c. hybrid: the Mamba2 hybrid (zamba2-7b) and xLSTM (xlstm-125m)
+# ---------------------------------------------------------------------------
+t_hyb = time.perf_counter()
+ZAMBA, XLSTM = get_config("zamba2-7b"), get_config("xlstm-125m")
+
+
+def rms_per_pass(cfg_):
+    """RMSNorm launches of one forward or one decode step: Mamba 2 a layer
+    (norm, gate norm) and the shared block 2 a group; mLSTM 2 a layer, sLSTM
+    3; the final norm."""
+    if cfg_.block_pattern == "zamba_hybrid":
+        return 2 * cfg_.n_layers + 2 * (cfg_.n_layers // cfg_.shared_attn_every) + 1
+    return sum(3 if i % cfg_.slstm_every == cfg_.slstm_every - 1 else 2
+               for i in range(cfg_.n_layers)) + 1
+
+
+def flash_per_forward(cfg_):
+    """Flash forward launches of one ``forward_logits``: the shared block's,
+    one a group (decode attends by reference attention)."""
+    return cfg_.n_layers // cfg_.shared_attn_every if cfg_.block_pattern == "zamba_hybrid" else 0
+
+
+def flash_key(cfg_):
+    key = FWD_ROUTE[tm.torch_dtype(cfg_.dtype)]
+    return key + "_hd112" if cfg_.resolved_head_dim == 112 else key
+
+
+def count_launches(counts, implied, what):
+    """Each kernel's launches equal to what the path implies, added to the
+    kernels line."""
+    for name, n_ in implied.items():
+        check(counts[name] == n_, f"{what}: {counts[name]} launches of {name}, the path implies {n_}")
+        records[name]["launches"] += counts[name]
+
+
+# the flash forward at zamba2-7b's head_dim 112 (the hd-128 tiling over rows
+# zero padded past 112) against its plain version: the shared block's
+# prefill shape (4 x 1,024, 32 heads, no grouping), ragged, full, and the f32
+# route at S=77 and 1 x 1,024 (phase 6's tolerances and bits)
+hd112_rows = {name: flash_vs_plain(name, *shape) for name, shape in (
+    ("bf16 zamba2-7b prefill 4 x 1,024", (4, 1024, 32, 32, 112, BF16, True)),
+    ("bf16 ragged S=1000", (2, 1000, 32, 32, 112, BF16, True)),
+    ("bf16 full", (2, 512, 32, 32, 112, BF16, False)),
+    ("f32 S=77", (2, 77, 32, 32, 112, F32, True)),
+    ("f32 1 x 1,024", (1, 1024, 32, 32, 112, F32, True)))}
+# phase 2 held every instantiation's SASS; these are the hd-112 ones
+hd112_sass = {f: c for f, c in {**sass_counts, **f32_sass}.items() if "flash_fwd" in f and "Li112E" in f}
+check(len(hd112_sass) == 2, f"hybrid: {len(hd112_sass)} hd-112 forward instantiations in the SASS")
+for f, c in hd112_sass.items():
+    check(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0 if "wgmma" in f else
+          c["HGMMA"] == 0 and c["HMMA"] == 0, f"hybrid: {f} has {c} in its SASS")
+# times at the prefill shape: the kernel's own span (the call also lays q,
+# k, v out by head) and the whole call, beside the plain version, the
+# bound (4 * 112 flops a kept pair, or the bytes) and the library's
+BF16_FWD = {"fwd": ("flash_fwd_wgmma", "flash_attention_fwd_bf16_launch")}
+hd112_times = {}
+for dt, b_, name in ((BF16, 4, "flash_attention_hd112"), (F32, 1, "flash_attention_f32_hd112")):
+    q, k, v = (torch.randn((b_, 1024, 32, 112), generator=gen, device=DEV).to(dt) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    size = q.element_size()
+    work = (size * (q.numel() * 2 + k.numel() + v.numel()) + 4 * b_ * 32 * 1024,
+            4 * 112 * b_ * 32 * 1024 * 1025 // 2) + ((BF16_FLOPS,) if dt == BF16 else ())
+    bound = bound_of(*work)[0]
+    call = lambda: kernels.flash_attention(q, k, v, causal=True)  # noqa: E731
+    spans = BF16_FWD if dt == BF16 else F32_FWD
+    row = dict(ms=kernel_ms(call, spans)["fwd"],
+               events_ms=launch_event_ms(call, {"fwd": spans["fwd"][1]}, reps=10)["fwd"],
+               call_ms=device_ms(call),
+               plain_ms=device_ms(lambda: kernels.flash_attention_plain(q, k, v, causal=True), reps=10),
+               library_ms=library_time(f"forward {'bf16' if dt == BF16 else 'f32'} hd 112, {b_} x 1,024",
+                                       lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                                       bound),
+               bound_ms=bound)
+    hd112_times[name] = row
+    record(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention.py:52", row["ms"], row["plain_ms"], *work,
+           library_ms=row["library_ms"])
+del q, k, v, qt, kt, vt
+# RMSNorm at the new widths (zamba2-7b's 3,584 and its gate norm's 7,168
+# over d_inner; xlstm-125m's 768), prefill and decode rows, bf16: against
+# the plain version and F.rms_norm (phase 6's tolerance), two calls the
+# same bits, the times
+hyb_rms = {}
+for what, rows_, d_ in (("zamba2-7b prefill 4,096 x 3,584", 4096, 3584),
+                        ("zamba2-7b decode 8 x 3,584", 8, 3584),
+                        ("zamba2-7b gate norm 4,096 x 7,168", 4096, 7168),
+                        ("xlstm-125m prefill 4,096 x 768", 4096, 768),
+                        ("xlstm-125m decode 4 x 768", 4, 768)):
+    x = torch.randn((rows_, d_), generator=gen, device=DEV).to(BF16)
+    w = (0.1 * torch.randn((d_,), generator=gen, device=DEV)).to(BF16)
+    w1 = 1.0 + w
+    got = kernels.rmsnorm(x, w, 1e-5)
+    hyb_rms[what] = dict(
+        gap=within(got, kernels.rmsnorm_plain(x, w, 1e-5), RMS_TOL[BF16], f"rmsnorm {what}", "rmsnorm"),
+        library_gap=max_gap(got, F.rms_norm(x, (d_,), weight=w1, eps=1e-5)), tol=RMS_TOL[BF16],
+        ms=device_ms(lambda: kernels.rmsnorm(x, w, 1e-5)),
+        plain_ms=device_ms(lambda: kernels.rmsnorm_plain(x, w, 1e-5)),
+        library_ms=device_ms(lambda: F.rms_norm(x, (d_,), weight=w1, eps=1e-5)),
+        bound_ms=(2 * 2 * rows_ * d_ + 2 * d_) / HBM_BPS * 1e3)
+    check(hyb_rms[what]["library_gap"] <= RMS_TOL[BF16] * (1 + float(got.float().abs().max())),
+          f"rmsnorm {what}: {hyb_rms[what]['library_gap']} from F.rms_norm")
+    check(torch.equal(got.view(torch.int16), kernels.rmsnorm(x, w, 1e-5).view(torch.int16)),
+          f"rmsnorm {what}: two calls differ")
+del x, w, w1, got
+emit("hybrid_kernels", card=smi, flash_attention_hd112=hd112_rows, sass_hd112=hd112_sass,
+     times_hd112=hd112_times, rmsnorm=hyb_rms,
+     method="as model_kernel_times; ms the kernel's span (trace), events_ms its launch by CUDA "
+            "events, call_ms the whole call", tolerance="phase 6's")
+
+# reduced zamba2-7b (8 layers at cadence 3: two groups and a tail of 2; once
+# at head_dim 112) and reduced xlstm-125m, f32, flash: the weights and the
+# CPU's forward from chip_smoke_cpu.py.  Stated bound, as phase 8b's: these
+# random networks amplify f32 rounding (reduced zamba2's CPU logits lie
+# about 2e-3 from an f64 forward of the same weights), so the card's max
+# and norm gap to the f64 forward may be at most 3x the CPU's f32 gap (plus
+# 1e-6); then 24 decode steps on the card against the card's own forward at
+# tests/test_decode_consistency.py's bound (2e-2) with every argmax equal
+hyb_parity = {}
+for name, arch, over, seed in HYBRID_CASES:
+    ref = cpu_ref(f"hybrid {name}")
+    cfg_ = hybrid_config(arch, over)
+    gp = tm.Model(cfg_, device="meta")
+    gp.load_state_dict({key: torch.from_numpy(a_).to(DEV) for key, a_ in ref["state"].items()},
+                       assign=True)
+    toks_ = hybrid_tokens(cfg_, seed).to(DEV)
+    kernels.reset_launch_counts()
+    lg = tm.forward_logits(cfg_, gp, {"tokens": toks_}, last_only=False)
+    exact = torch.from_numpy(ref["exact"])
+    to_exact = {side: dict(max=float((l_.cpu().double() - exact).abs().max()),
+                           norm=float(torch.linalg.vector_norm(l_.cpu().double() - exact)))
+                for side, l_ in (("card", lg), ("cpu", torch.from_numpy(ref["logits"])))}
+    check(all(to_exact["card"][m_] <= 3 * to_exact["cpu"][m_] + 1e-6 for m_ in ("max", "norm")),
+          f"hybrid parity {name}: the card's forward_logits {to_exact['card']} from the f64 "
+          f"forward, beyond 3x the CPU's f32 {to_exact['cpu']}")
+    state_ = tm.init_decode_state(cfg_, toks_.shape[0], 25, dtype=F32, device=DEV)
+    steps_ = []
+    for t_ in range(24):
+        l_, state_ = tm.decode_step(cfg_, gp, toks_[:, t_:t_ + 1], state_)
+        steps_.append(l_[:, 0])
+    dec = torch.stack(steps_, dim=1)
+    fwd = lg[:, :24, : cfg_.vocab_size]
+    check(bool(torch.allclose(dec, fwd, atol=2e-2, rtol=2e-2)) and torch.equal(dec.argmax(-1), fwd.argmax(-1)),
+          f"hybrid parity {name}: decode against forward_logits {max_gap(dec, fwd)} (2e-2) or argmax")
+    count_launches(kernels.launch_counts(), {
+        flash_key(cfg_): flash_per_forward(cfg_),
+        "rmsnorm": 25 * rms_per_pass(cfg_)}, f"hybrid parity {name}")
+    hyb_parity[name] = dict(card_vs_cpu_max=max_gap(lg, torch.from_numpy(ref["logits"])),
+                            gap_to_f64_forward=to_exact, decode_vs_forward_max=max_gap(dec, fwd),
+                            cpu_forward_seconds=ref["seconds"])
+    del gp, lg, dec, fwd, state_
+emit("hybrid_parity", configs="zamba2-7b reduced (8 layers, d=128, shared cadence 3, hd 32 and 112), "
+     "xlstm-125m reduced (4 layers, d=128), f32, flash; 3 x 192 tokens", cases=hyb_parity,
+     bound="the card's max and norm gap to the f64 forward <= 3x the CPU's f32 (+1e-6); 24 decode "
+           "steps against the card's forward within 2e-2, argmax equal")
+
+# full-width zamba2-7b, all 81 layers (13 groups of 6, a tail of 3; the
+# shared block at head_dim 112), bf16 parameters drawn on the card
+free_gib("zamba2-7b, 81 layers, bf16", "hybrid_memory")
+zcfg = dataclasses.replace(ZAMBA, params_dtype="bfloat16")
+Z_GROUPS = zcfg.n_layers // zcfg.shared_attn_every
+t0 = time.perf_counter()
+zparams = tm.init_params(zcfg, torch.Generator(device=DEV).manual_seed(34), device=DEV)
+torch.cuda.synchronize()
+zinit_s = time.perf_counter() - t0
+zcount = sum(p_.numel() for p_ in zparams.parameters())
+check(zcount == 6_751_130_832, f"hybrid: zamba2-7b has {zcount} parameters")
+ztoks = torch.from_numpy(np.random.default_rng(35).integers(2, zcfg.vocab_size, (4, 1024))).to(DEV)
+torch.cuda.reset_peak_memory_stats()
+kernels.reset_launch_counts()
+zouts, zfwd_s, _ = forwards(zcfg, zparams, ztoks)
+# the warm-ups and the two forwards: flash twice (its warm-up and forward)
+count_launches(kernels.launch_counts(), {"flash_attention_hd112": 2 * Z_GROUPS,
+                                         "rmsnorm": 4 * rms_per_pass(zcfg)}, "hybrid: zamba2-7b forward")
+zgap = logit_gap(zouts["flash"], zouts["reference"])
+del zouts
+# the stated bound at two groups' depth (12 Mamba layers, the shared block
+# twice): these layers' weights (shared, not copied) in bf16 with flash and
+# with reference attention against an f32 copy of them, flash within 1.25x
+# the reference's gap (phase 8's bound)
+z2cfg = dataclasses.replace(zcfg, n_layers=2 * zcfg.shared_attn_every)
+z2_state = {key: t for key, t in zparams.state_dict().items()
+            if not key.startswith("mamba_") or key.startswith(("mamba_groups.0.", "mamba_groups.1."))}
+z2 = tm.Model(z2cfg, device="meta")
+z2.load_state_dict(z2_state, assign=True)
+kernels.reset_launch_counts()
+z2outs, _, _ = forwards(z2cfg, z2, ztoks)
+z32cfg = dataclasses.replace(z2cfg, dtype="float32", params_dtype="float32")
+z32 = tm.Model(z32cfg, device="meta")
+z32.load_state_dict({key: t.float() for key, t in z2_state.items()}, assign=True)
+z2truth = tm.forward_logits(z32cfg, z32, {"tokens": ztoks}, last_only=False)
+count_launches(kernels.launch_counts(), {"flash_attention_hd112": 2 * 2,
+                                         "rmsnorm": 5 * rms_per_pass(z2cfg)}, "hybrid: zamba2-7b at 2 groups")
+z2gaps = against_f32(z2outs, z2truth, "zamba2-7b, first 2 groups")
+z2gaps["flash_vs_reference"] = logit_gap(z2outs["flash"], z2outs["reference"])
+del z2outs, z2truth
+# serving by decode_step, as the JAX package serves these families: batch 8,
+# a 64-token prompt fed token by token, then 32 greedy tokens, timed; each
+# step's logits against forward_logits over the same 96 tokens at its
+# position.  Stated bounds.  bf16: the decode path rounds at other places
+# than the bf16 forward (an f32 conv window and SSD state, attention over
+# the cache), so each may be as far from the f32 forward of the same
+# weights as bf16 puts the forward: |decode - forward| <= 2.5x the
+# forward's gap to the f32 forward (max and mean).  At 81 layers these
+# random weights decorrelate every bf16 path from the f32 one (argmax
+# agreement near chance), where that bound cannot tell a wrong decode from
+# a right one, so it is held at two groups' depth on the same 96 tokens (a
+# wrong state reads about 5x there) and the 81-layer bf16 gaps are printed.
+# f32, 81 layers (an f32 copy of every layer, 27 GB), 16 steps: the chunked
+# forward's cumulated decays (sums of dt * A over a chunk reach 1e4 with
+# these weights) cost it f32 digits, so the f32 forward's own spread is
+# measured, as its gap to the same forward in chunks of one token (the
+# decode's recurrence written as the chunk math), and the decode held
+# within 2.5x that spread (max and mean; a wrong state reads the logits'
+# RMS, about 1)
+ZP, ZN, ZB = 64, 32, 8
+zprompt = torch.from_numpy(np.random.default_rng(36).integers(2, zcfg.vocab_size, (ZB, ZP))).to(DEV)
+zstate = tm.init_decode_state(zcfg, ZB, ZP + ZN, dtype=BF16, device=DEV)
+zseq, zdec, zstep_s = [zprompt[:, :1]], [], []
+kernels.reset_launch_counts()
+torch.cuda.synchronize()
+for t_ in range(ZP + ZN):
+    t0 = time.perf_counter()
+    lgt, zstate = tm.decode_step(zcfg, zparams, zseq[-1], zstate)
+    nxt = zprompt[:, t_ + 1:t_ + 2] if t_ + 1 < ZP else torch.argmax(lgt[:, -1], -1)[:, None]
+    nxt[:, 0].tolist()
+    zstep_s.append(time.perf_counter() - t0)
+    zdec.append(lgt[:, 0].float())
+    if t_ + 1 < ZP + ZN:
+        zseq.append(nxt)
+count_launches(kernels.launch_counts(), {"flash_attention_hd112": 0,
+                                         "rmsnorm": (ZP + ZN) * rms_per_pass(zcfg)}, "hybrid: zamba2-7b decode")
+zdec = torch.stack(zdec, dim=1)                                            # (8, 96, V)
+zall = torch.cat(zseq, dim=1)
+kernels.reset_launch_counts()
+zfwd = tm.forward_logits(dataclasses.replace(zcfg, attention_impl="flash"), zparams,
+                         {"tokens": zall}, last_only=False)[..., : zcfg.vocab_size]
+z32full = tm.Model(dataclasses.replace(zcfg, dtype="float32", params_dtype="float32"), device="meta")
+z32full.load_state_dict({key: t.float() for key, t in zparams.state_dict().items()}, assign=True)
+ztruth = tm.forward_logits(dataclasses.replace(zcfg, dtype="float32", params_dtype="float32"), z32full,
+                           {"tokens": zall}, last_only=False)[..., : zcfg.vocab_size]
+count_launches(kernels.launch_counts(), {"flash_attention_hd112": Z_GROUPS,
+                                         "rmsnorm": 2 * rms_per_pass(zcfg)}, "hybrid: zamba2-7b forward of 96")
+zdec_gap, zfwd_truth = logit_gap(zdec, zfwd), logit_gap(zfwd, ztruth)
+zdec_truth = logit_gap(zdec, ztruth)
+
+
+def decode_run(cfg_, params_, toks_, dtype):
+    """``decode_step`` over ``toks_`` from an empty state: the logits of
+    every step (B, S, vocab_size) in f32."""
+    st_, out_ = tm.init_decode_state(cfg_, toks_.shape[0], toks_.shape[1], dtype=dtype, device=DEV), []
+    for t_ in range(toks_.shape[1]):
+        l_, st_ = tm.decode_step(cfg_, params_, toks_[:, t_:t_ + 1], st_)
+        out_.append(l_[:, 0].float())
+    return torch.stack(out_, dim=1)
+
+
+def decode_bound(dec, fwd, truth, what):
+    """|decode - forward| within 2.5x the bf16 forward's gap to the f32
+    forward (max and mean)."""
+    gap_, ref_ = logit_gap(dec, fwd), logit_gap(fwd, truth)
+    for stat in ("max", "mean"):
+        check(gap_[stat] <= 2.5 * ref_[stat],
+              f"hybrid: {what} decode against forward_logits, {stat} {gap_[stat]}, beyond 2.5x the "
+              f"bf16 forward's gap to the f32 forward ({ref_[stat]})")
+    return dict(vs_forward_logits=gap_, forward_vs_f32=ref_, decode_vs_f32=logit_gap(dec, truth))
+
+
+# 81 layers in f32: 16 decode steps against the f32 forward
+kernels.reset_launch_counts()
+z32c = dataclasses.replace(zcfg, dtype="float32", params_dtype="float32")
+zdec32 = decode_run(z32c, z32full, zall[:, :16], F32)
+zfwd32, zfwd32_1 = (tm.forward_logits(dataclasses.replace(z32c, ssm_chunk=c_), z32full,
+                                      {"tokens": zall[:, :16]}, last_only=False)[..., : zcfg.vocab_size]
+                    for c_ in (16, 1))
+zdepth81_f32 = dict(steps=16, vs_forward_logits=logit_gap(zdec32, zfwd32),
+                    forward_spread=logit_gap(zfwd32_1, zfwd32), vs_forward_chunks_of_1=logit_gap(zdec32, zfwd32_1))
+for stat in ("max", "mean"):
+    check(zdepth81_f32["vs_forward_logits"][stat] <= 2.5 * zdepth81_f32["forward_spread"][stat],
+          f"hybrid: zamba2-7b f32 decode against the f32 forward, {stat} {zdepth81_f32['vs_forward_logits']}, "
+          f"beyond 2.5x the forward's spread {zdepth81_f32['forward_spread']}")
+del z32full, zdec32, zfwd32, zfwd32_1
+# two groups' depth in bf16 (z2 shares the weights; z32 their f32 copy)
+z2dec = decode_run(z2cfg, z2, zall, BF16)
+z2fwd = tm.forward_logits(dataclasses.replace(z2cfg, attention_impl="flash"), z2, {"tokens": zall},
+                          last_only=False)[..., : zcfg.vocab_size]
+z2truth96 = tm.forward_logits(z32cfg, z32, {"tokens": zall}, last_only=False)[..., : zcfg.vocab_size]
+zdepth2 = decode_bound(z2dec, z2fwd, z2truth96, "zamba2-7b at 2 groups")
+count_launches(kernels.launch_counts(), {
+    "flash_attention_hd112": 2,
+    "rmsnorm": 18 * rms_per_pass(zcfg) + (ZP + ZN + 2) * rms_per_pass(z2cfg)}, "hybrid: zamba2-7b decode checks")
+del z2, z32, z2_state, z2dec, z2fwd, z2truth96
+zpeak_gib = torch.cuda.max_memory_allocated() / 2**30
+# a traced decode window: 8 more steps past the 96 would overrun the cache,
+# so 8 steps from a fresh state on the prompt's first 8 tokens
+zstate = tm.init_decode_state(zcfg, ZB, 8, dtype=BF16, device=DEV)
+kernels.reset_launch_counts()
+torch.cuda.synchronize()
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for t_ in range(8):
+        lgt, zstate = tm.decode_step(zcfg, zparams, zprompt[:, t_:t_ + 1], zstate)
+        torch.argmax(lgt[:, -1], -1).tolist()
+    torch.cuda.synchronize()
+    zwindow_s = time.perf_counter() - t0
+zbusy = busy_us(prof)
+count_launches(kernels.launch_counts(), {"rmsnorm": 8 * rms_per_pass(zcfg)}, "hybrid: traced decode")
+del zdec, zfwd, ztruth, zall, zseq, zstate, lgt, prof
+zsteps_ms = np.array(zstep_s) * 1e3
+emit("hybrid_zamba", card=smi,
+     config="zamba2-7b full width and depth: 81 Mamba2 layers (d=3,584, d_inner 7,168, 112 SSM heads "
+            "of 64, state 64) in 13 groups of 6 and a tail of 3, ONE shared attention + MLP block "
+            "(32/32 heads, hd=112, d_ff 14,336) after each group, vocab 32,000; bf16 parameters drawn "
+            "on the card (seed 34), bf16 compute",
+     params=zcount, param_gib_bf16=zcount * 2 / 2**30, init_seconds=zinit_s,
+     forward_logits_tokens=4 * 1024, forward_logits_seconds=zfwd_s,
+     forward_logits_tokens_per_s={impl: 4 * 1024 / s_ for impl, s_ in zfwd_s.items()},
+     flash_vs_reference=zgap,
+     first_2_groups=dict(gap_to_f32=z2gaps,
+                         bound="flash's max and mean gap to the f32 forward <= 1.25x the reference's"),
+     decode=dict(batch=ZB, prompt=ZP, new_tokens=ZN, steps=ZP + ZN,
+                 depth_81_bf16_printed=dict(vs_forward_logits=zdec_gap, forward_vs_f32=zfwd_truth,
+                                            decode_vs_f32=zdec_truth),
+                 depth_81_f32=zdepth81_f32, depth_2_groups_bf16=zdepth2,
+                 bound="at 2 groups, bf16: |decode - forward| <= 2.5x |forward - f32 forward|; at 81 "
+                       "layers, f32: |decode - forward| <= 2.5x |forward - forward in chunks of 1| "
+                       "(max, mean)",
+                 step_p50_ms=float(np.median(zsteps_ms)), step_p99_ms=float(np.percentile(zsteps_ms, 99)),
+                 tokens_per_s=ZB / float(np.median(zstep_s))),
+     peak_device_gib=zpeak_gib, traced_decode_window_ms=zwindow_s * 1e3, device_busy_ms=zbusy / 1e3,
+     device_busy_share=(zbusy / 1e6) / zwindow_s if zbusy else "not measured (empty trace)")
+del zparams
+gc.collect()
+torch.cuda.empty_cache()
+
+# full-width xlstm-125m (12 layers, sLSTM at 3, 7, 11), bf16 parameters:
+# forward_logits on 4 x 1,024 tokens, then 32 decode steps of the same
+# sequences against it at the bf16 bound stated for zamba2-7b, which holds
+# here at full depth (the decode states are f32, so past the first sLSTM
+# block the decode computes in f32, as the JAX package's does)
+free_gib("xlstm-125m, 12 layers, bf16", "hybrid_memory")
+xcfg = dataclasses.replace(XLSTM, params_dtype="bfloat16")
+xparams = tm.init_params(xcfg, torch.Generator(device=DEV).manual_seed(37), device=DEV)
+xcount = sum(p_.numel() for p_ in xparams.parameters())
+check(xcount == 189_088_584, f"hybrid: xlstm-125m has {xcount} parameters")
+xtoks = torch.from_numpy(np.random.default_rng(38).integers(2, xcfg.vocab_size, (4, 1024))).to(DEV)
+kernels.reset_launch_counts()
+tm.forward_logits(xcfg, xparams, {"tokens": xtoks})                       # warm-up
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+xfwd = tm.forward_logits(xcfg, xparams, {"tokens": xtoks}, last_only=False)[..., : xcfg.vocab_size]
+torch.cuda.synchronize()
+xfwd_s = time.perf_counter() - t0
+check(bool(torch.isfinite(xfwd).all()), "hybrid: xlstm-125m logits not finite")
+x32cfg = dataclasses.replace(xcfg, dtype="float32", params_dtype="float32")
+x32 = tm.Model(x32cfg, device="meta")
+x32.load_state_dict({key: t.float() for key, t in xparams.state_dict().items()}, assign=True)
+xtruth = tm.forward_logits(x32cfg, x32, {"tokens": xtoks}, last_only=False)[:, :32, : xcfg.vocab_size]
+del x32
+XN = 32
+xstate = tm.init_decode_state(xcfg, 4, XN, dtype=BF16, device=DEV)
+xdec, xstep_s = [], []
+for t_ in range(XN):
+    t0 = time.perf_counter()
+    lgt, xstate = tm.decode_step(xcfg, xparams, xtoks[:, t_:t_ + 1], xstate)
+    torch.argmax(lgt[:, -1], -1).tolist()
+    xstep_s.append(time.perf_counter() - t0)
+    xdec.append(lgt[:, 0].float())
+count_launches(kernels.launch_counts(), {"rmsnorm": (3 + XN) * rms_per_pass(xcfg)}, "hybrid: xlstm-125m")
+xdec = torch.stack(xdec, dim=1)
+xfwd32 = xfwd[:, :XN]
+xgaps = decode_bound(xdec, xfwd32, xtruth, "xlstm-125m")
+xsteps_ms = np.array(xstep_s) * 1e3
+emit("hybrid_xlstm", card=smi,
+     config="xlstm-125m full width: 12 layers (mLSTM d_inner 1,536 over 4 heads of 384; sLSTM at 3, "
+            "7, 11, 4 heads of 192, GeGLU 1,024), d=768, vocab 50,304; bf16 parameters (seed 37)",
+     params=xcount, forward_logits_tokens=4 * 1024, forward_logits_seconds=xfwd_s,
+     forward_logits_tokens_per_s=4 * 1024 / xfwd_s,
+     decode=dict(batch=4, steps=XN, **xgaps,
+                 bound="|decode - forward| <= 2.5x |forward - f32 forward| (max, mean)",
+                 step_p50_ms=float(np.median(xsteps_ms)), step_p99_ms=float(np.percentile(xsteps_ms, 99)),
+                 tokens_per_s=4 / float(np.median(xstep_s))))
+del xparams, xfwd, xtruth, xdec, xfwd32, xstate, lgt
+gc.collect()
+torch.cuda.empty_cache()
+emit("hybrid", seconds=time.perf_counter() - t_hyb)
 
 # ---------------------------------------------------------------------------
 # 9. the backward kernels against their plain version

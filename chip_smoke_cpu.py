@@ -1,4 +1,6 @@
-"""The CPU side of ``chip_smoke.py``'s card-against-CPU simulator checks.
+"""The CPU side of ``chip_smoke.py``'s card-against-CPU checks: the
+simulators' (phases 4 to 5f) and the reduced hybrid and xLSTM models'
+(phase 8c).
 
     python3 chip_smoke_cpu.py OUT_DIR
 
@@ -39,6 +41,8 @@ from repro_torch.core.simulator import Simulator, SoASimulator, WorkloadSpec  # 
 from repro_torch.core.soa_fleet import SoAFleet  # noqa: E402
 from repro_torch.core.torch_scheduler import TorchPreemptibleScheduler  # noqa: E402
 from repro_torch.core.types import Host  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.models import model as tm  # noqa: E402
 
 MEDIUM = fleets.SIZES["medium"]
 COUNTERS = ("failures_normal", "failures_preemptible", "placed_normal",
@@ -297,10 +301,49 @@ def _ragged():
     return dict(ragged_view(s, m), seconds=sec)
 
 
+#: phase 8c's reduced models in f32, flash attention: (name, arch, config
+#: overrides, weight seed); zamba2-7b reduced has 8 layers at shared cadence
+#: 3 (two groups and a tail of 2), once at its own head_dim 112
+HYBRID_CASES = (("zamba2-7b", "zamba2-7b", {}, 31),
+                ("zamba2-7b hd 112", "zamba2-7b", {"head_dim": 112}, 32),
+                ("xlstm-125m", "xlstm-125m", {}, 33))
+#: their tokens: 3 sequences of 192 (12 chunks of 16)
+HYBRID_TOKENS = (3, 192)
+
+
+def hybrid_config(arch, overrides):
+    return dataclasses.replace(reduced(get_config(arch)), attention_impl="flash", **overrides)
+
+
+def hybrid_tokens(cfg, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(2, cfg.vocab_size, HYBRID_TOKENS))
+
+
+def _hybrid(arch, overrides, seed):
+    """The reduced model's weights (drawn here, sent to the card), its f32
+    ``forward_logits`` on the CPU and, as the exact reference, the same
+    weights' f64 forward (reference attention: the flash plain version
+    computes in f32)."""
+    cfg = hybrid_config(arch, overrides)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    toks = hybrid_tokens(cfg, seed)
+    t = time.perf_counter()
+    logits = tm.forward_logits(cfg, params, {"tokens": toks}, last_only=False)
+    sec = time.perf_counter() - t
+    c64 = dataclasses.replace(cfg, dtype="float64", attention_impl="reference")
+    p64 = tm.Model(c64, device="meta")
+    p64.load_state_dict({k: v.double() for k, v in params.state_dict().items()}, assign=True)
+    exact = tm.forward_logits(c64, p64, {"tokens": toks}, last_only=False)
+    return dict(state={k: v.numpy() for k, v in params.state_dict().items()},
+                logits=logits.numpy(), exact=exact.numpy(), seconds=sec)
+
+
 JOBS = (("parity", _parity), ("rebuild", _rebuild), ("admission", _admission),
         ("reloc_direct", lambda: _reloc(False)), ("reloc_streaming", lambda: _reloc(True)),
         ("scan_direct", lambda: _scan("direct")), ("scan_streaming", lambda: _scan("streaming")),
-        ("scan_mult", _mult), ("ragged", _ragged))
+        ("scan_mult", _mult), ("ragged", _ragged)) + tuple(
+    (f"hybrid {name}", lambda a=arch, o=over, sd=seed: _hybrid(a, o, sd))
+    for name, arch, over, seed in HYBRID_CASES)
 
 
 #: CPU threads of this process: it runs beside chip_smoke.py's host loop on

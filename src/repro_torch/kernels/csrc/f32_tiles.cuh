@@ -60,16 +60,19 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
-// start copying rows 0 .. B-1 of a [rows][HD] tile (rows past `valid` read
-// as zeros) into its swizzled place
-template <int HD>
+// start copying rows 0 .. B-1 of a [rows][GHD] tile in global memory (rows
+// past `valid` read as zeros) into its swizzled [B][HD] place; GHD < HD
+// pads each row with zeros past column GHD (the forward at hd 112 runs the
+// hd-128 tiling)
+template <int HD, int GHD = HD>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int valid) {
+    static_assert(GHD <= HD && GHD % 4 == 0, "a row of GHD floats in HD columns");
     constexpr int CH = HD / 4, B = Cfg<HD>::B;
 #pragma unroll
     for (int idx = threadIdx.x; idx < B * CH; idx += kThreads) {
         const int row = idx / CH, c = idx % CH;
-        const bool in = row < valid;
-        cp_async16(dst + swz<HD>(row, 4 * c), in ? src + static_cast<size_t>(row) * HD + 4 * c : src, in);
+        const bool in = row < valid && 4 * c < GHD;
+        cp_async16(dst + swz<HD>(row, 4 * c), in ? src + static_cast<size_t>(row) * GHD + 4 * c : src, in);
     }
 }
 
@@ -200,8 +203,9 @@ struct Place {
     }
 };
 
-// rows r0 .. r0+TR-1 of out[rows][HD] from acc (rows at or past `valid` are not stored)
-template <int HD>
+// rows r0 .. r0+TR-1 of out[rows][GHD] from acc (rows at or past `valid`,
+// and columns at or past GHD, are not stored)
+template <int HD, int GHD = HD>
 __device__ __forceinline__ void store_rows(float* out, const float (&acc)[Cfg<HD>::TR][Cfg<HD>::TC],
                                            int r0, int cg, int valid) {
     using C = Cfg<HD>;
@@ -209,9 +213,12 @@ __device__ __forceinline__ void store_rows(float* out, const float (&acc)[Cfg<HD
     for (int r = 0; r < C::TR; ++r) {
         if (r0 + r >= valid) continue;
 #pragma unroll
-        for (int t = 0; t < C::TC / 4; ++t)
-            *reinterpret_cast<float4*>(out + static_cast<size_t>(r0 + r) * HD + 4 * (cg + C::NCG * t)) =
+        for (int t = 0; t < C::TC / 4; ++t) {
+            const int col = 4 * (cg + C::NCG * t);
+            if (GHD < HD && col >= GHD) continue;
+            *reinterpret_cast<float4*>(out + static_cast<size_t>(r0 + r) * GHD + col) =
                 make_float4(acc[r][4 * t], acc[r][4 * t + 1], acc[r][4 * t + 2], acc[r][4 * t + 3]);
+        }
     }
 }
 

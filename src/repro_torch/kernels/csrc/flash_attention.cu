@@ -51,6 +51,12 @@
 //     accumulator at hd 128, rescaled by alpha once a tile, summed over the
 //     tile's keys in order.  No atomics: two calls give the same bits.
 //
+// Head dims 32, 64, 112, 128 and 256.  hd 112 (zamba2-7b) runs the hd-128
+// tiling of either route over rows of 112 values: the bf16 route's tensor
+// maps are 112 columns wide, so TMA fills the second slab's columns 112-127
+// with zeros; the f32 route's cp.async loads zero-fill them; both products
+// add exact zeros there, and only 112 columns are stored.
+//
 // Semantics of the TPU kernel, both routes: masked scores are -1e30 (not
 // -inf); keys past a ragged Skv weigh exactly 0; o = acc / max(l, 1e-30) and
 // lse = m + log(max(l, 1e-30)) in f32; causal masking compares absolute
@@ -84,7 +90,7 @@ constexpr int fwd_smem_bytes() {
     return static_cast<int>(sizeof(float)) * (5 * C::T + C::B * C::B + 3 * C::B);
 }
 
-template <int HD>
+template <int HD, int GHD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
@@ -102,15 +108,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int q0 = (gridDim.y - 1 - blockIdx.y) * B;  // the last (heaviest, when causal) tiles first
     const int kv_end = causal ? min(skv, q0 + B) : skv;  // keys the block's rows see
     const int n_kt = (kv_end + B - 1) / B;
-    const size_t qoff = (static_cast<size_t>(bh) * sq + q0) * HD;
-    const float* kh = k + static_cast<size_t>(bh / rep) * skv * HD;
-    const float* vh = v + static_cast<size_t>(bh / rep) * skv * HD;
+    const size_t qoff = (static_cast<size_t>(bh) * sq + q0) * GHD;
+    const float* kh = k + static_cast<size_t>(bh / rep) * skv * GHD;
+    const float* vh = v + static_cast<size_t>(bh / rep) * skv * GHD;
 
-    load_tile<HD>(qs, q + qoff, sq - q0);
+    load_tile<HD, GHD>(qs, q + qoff, sq - q0);
     auto load_kv = [&](int it) {
         const int st = it & 1, kv0 = it * B;
-        load_tile<HD>(kvs + 2 * st * T, kh + static_cast<size_t>(kv0) * HD, skv - kv0);
-        load_tile<HD>(kvs + (2 * st + 1) * T, vh + static_cast<size_t>(kv0) * HD, skv - kv0);
+        load_tile<HD, GHD>(kvs + 2 * st * T, kh + static_cast<size_t>(kv0) * GHD, skv - kv0);
+        load_tile<HD, GHD>(kvs + (2 * st + 1) * T, vh + static_cast<size_t>(kv0) * GHD, skv - kv0);
     };
     if (n_kt > 0) load_kv(0);
     cp_async_commit();
@@ -208,7 +214,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < C::TC; ++c) acc[r][c] /= lc;
     }
-    store_rows<HD>(o + qoff, acc, r0, cg, sq - q0);
+    store_rows<HD, GHD>(o + qoff, acc, r0, cg, sq - q0);
     if (kg == 0) {
 #pragma unroll
         for (int i = 0; i < TS; ++i) {
@@ -220,15 +226,16 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-template <int HD>
+// HD the tile's columns, GHD a row's in global memory (GHD < HD: zero padded)
+template <int HD, int GHD = HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int bg,
            int sq, int skv, int causal, float scale, cudaStream_t stream) {
     constexpr int bytes = fwd_smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<HD, GHD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(bh, (sq + Cfg<HD>::B - 1) / Cfg<HD>::B);
-    flash_fwd_f32_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+    flash_fwd_f32_kernel<HD, GHD><<<grid, kThreads, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), lse, bh / bg, sq, skv, causal, scale);
     return static_cast<int>(cudaGetLastError());
@@ -260,7 +267,7 @@ struct Cfg {
     static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 64 + 1024;
 };
 
-template <int HD>
+template <int HD, int GHD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -399,28 +406,32 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int row = row0 + r_lo + 8 * h;
         if (row >= sq) continue;
         const float lc = fmaxf(l[h], 1e-30f);
-        __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * sq + row) * HD;
+        __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * sq + row) * GHD;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
+        for (int j = 0; j < GHD / 8; ++j)  // columns past GHD hold the tile's zero padding
             *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c_lo) =
                 __floats2bfloat162_rn(acc[4 * j + 2 * h] / lc, acc[4 * j + 2 * h + 1] / lc);
         if (lane % 4 == 0) lse[static_cast<size_t>(bh) * sq + row] = m[h] * kLn2 + logf(lc);
     }
 }
 
-template <int HD>
+// HD the tile's columns, GHD a row's in global memory: with GHD < HD the
+// tensor maps have GHD columns, so TMA fills the tile's columns past GHD
+// with zeros (the box still counts its full bytes), and only GHD are stored
+template <int HD, int GHD = HD>
 int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o, float* lse, int bh,
            int bg, int sq, int skv, int causal, float scale, cudaStream_t stream) {
     using C = Cfg<HD>;
+    static_assert(GHD <= HD && GHD % 8 == 0, "a row of GHD bf16 values, 16-byte strides");
     CUtensorMap tq, tk, tv;
-    if (!encode_3d(&tq, q, HD, sq, bh, C::SW, C::BM) || !encode_3d(&tk, k, HD, skv, bg, C::SW, C::BN) ||
-        !encode_3d(&tv, v, HD, skv, bg, C::SW, C::BN))
+    if (!encode_3d(&tq, q, GHD, sq, bh, C::SW, C::BM) || !encode_3d(&tk, k, GHD, skv, bg, C::SW, C::BN) ||
+        !encode_3d(&tv, v, GHD, skv, bg, C::SW, C::BN))
         return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<HD, GHD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(bh, (sq + C::BM - 1) / C::BM);
-    flash_fwd_wgmma_kernel<HD><<<grid, kThreads, C::SMEM, stream>>>(
+    flash_fwd_wgmma_kernel<HD, GHD><<<grid, kThreads, C::SMEM, stream>>>(
         tq, tk, tv, o, lse, bh / bg, sq, skv, causal, scale * kLog2e);
     return static_cast<int>(cudaGetLastError());
 }
@@ -438,6 +449,7 @@ extern "C" int flash_attention_fwd_f32_launch(const void* q, const void* k, cons
     switch (hd) {
         case 32: return f32::launch<32>(q, k, v, o, lsep, bh, bg, sq, skv, causal, scale, s);
         case 64: return f32::launch<64>(q, k, v, o, lsep, bh, bg, sq, skv, causal, scale, s);
+        case 112: return f32::launch<128, 112>(q, k, v, o, lsep, bh, bg, sq, skv, causal, scale, s);
         case 128: return f32::launch<128>(q, k, v, o, lsep, bh, bg, sq, skv, causal, scale, s);
         case 256: return f32::launch<256>(q, k, v, o, lsep, bh, bg, sq, skv, causal, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
@@ -454,6 +466,7 @@ extern "C" int flash_attention_fwd_bf16_launch(const void* q, const void* k, con
     switch (hd) {
         case 32: return wg::launch<32>(q, k, v, op, lsep, bh, bg, sq, skv, causal, scale, s);
         case 64: return wg::launch<64>(q, k, v, op, lsep, bh, bg, sq, skv, causal, scale, s);
+        case 112: return wg::launch<128, 112>(q, k, v, op, lsep, bh, bg, sq, skv, causal, scale, s);
         case 128: return wg::launch<128>(q, k, v, op, lsep, bh, bg, sq, skv, causal, scale, s);
         case 256: return wg::launch<256>(q, k, v, op, lsep, bh, bg, sq, skv, causal, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);

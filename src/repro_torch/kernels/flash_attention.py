@@ -31,14 +31,19 @@ import torch
 from . import _build
 
 #: launches of the CUDA kernels: the bf16 forward, dq and dk/dv (tensor
-#: cores) and the dk/dv reduction over grouped heads, and their f32 routes.
-LAUNCHES = {"flash_attention": 0, "flash_attention_f32": 0, "flash_attention_dq": 0,
+#: cores) and the dk/dv reduction over grouped heads, and their f32 routes;
+#: the forward's hd-112 instantiations (zamba2-7b's) count apart.
+LAUNCHES = {"flash_attention": 0, "flash_attention_f32": 0, "flash_attention_hd112": 0,
+            "flash_attention_f32_hd112": 0, "flash_attention_dq": 0,
             "flash_attention_dq_f32": 0, "flash_attention_dkv": 0,
             "flash_attention_dkv_reduce": 0, "flash_attention_dkv_f32": 0,
             "flash_attention_dkv_reduce_f32": 0}
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)
+#: the head dims of the forward kernels (112, zamba2-7b's, through the
+#: hd-128 tiling zero padded) and of the backward kernels
+FWD_HEAD_DIMS = (32, 64, 112, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 #: ``flash_attention_fwd_{bf16,f32}_launch``: q, k, v, o, lse, bh, bg, sq,
 #: skv, hd, causal, scale, stream
@@ -110,13 +115,17 @@ def flash_attention_plain(
     return o.reshape(b, h, sq, hd).transpose(1, 2).to(q.dtype), lse
 
 
-def _check_cuda(q, k, v):
-    """What the CUDA kernels take: shapes, head dims, one float type and one
-    device for q, k and v."""
+def _check_cuda(q, k, v, head_dims=FWD_HEAD_DIMS):
+    """What the CUDA kernels take: shapes, head dims (``head_dims``: the
+    forward's or the backward's), one float type and one device for q, k
+    and v."""
     _check_shapes(q, k, v)
     hd = q.shape[3]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    if hd not in head_dims:
+        more = (" (the backward at head_dim 112 is ROADMAP §1 item 20)"
+                if hd in FWD_HEAD_DIMS else "")
+        raise ValueError(f"flash_attention: the kernel takes head_dim in {head_dims}, got {hd}"
+                         + more)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype or t.dtype not in _DTYPES:
             raise ValueError(f"flash_attention: q, k, v must share float32 or bfloat16; "
@@ -136,6 +145,8 @@ def _flash_cuda(q, k, v, causal):
         key, symbol = (("flash_attention", "flash_attention_fwd_bf16_launch")
                        if q.dtype == torch.bfloat16 else
                        ("flash_attention_f32", "flash_attention_fwd_f32_launch"))
+        if hd == 112:
+            key += "_hd112"
         fn = _build.entry("flash_attention", symbol, _LAUNCH_ARGTYPES)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -222,7 +233,7 @@ def flash_attention_bwd_plain(
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal):
-    _check_cuda(q, k, v)
+    _check_cuda(q, k, v, BWD_HEAD_DIMS)
     b, sq, h, hd = q.shape
     g, skv = k.shape[2], k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b * h, sq):

@@ -1,13 +1,17 @@
 """The JAX package's parameter tree and optimizer state (as numpy) to the
 port's modules and dicts, and back.
 
-The JAX tree nests dicts and stacks the L decoder layers on a leading axis
+The JAX tree nests dicts and stacks scanned layers on leading axes
 (``layers/attn/wq`` is (L, d, H*hd), an expert leaf ``layers/moe/wg`` (L, E,
-d, F)); the port keeps one module per layer (``layers.<i>.attn.wq`` is (d,
-H*hd), ``layers.<i>.moe.wg`` (E, d, F)) and keys AdamW's moments by the same
-names.  Adafactor's second moment stays stacked in the port too (its
-``(row, col)`` factors belong to the whole ``(L, ...)`` leaf), keyed
-``layers.<rest>``.  Every direction copies the values exactly.
+d, F); the hybrid's ``mamba_groups/in_proj`` (groups, every, d, ·) and
+``mamba_tail/in_proj`` (tail, d, ·)); the port keeps one module per layer
+(``layers.<i>.attn.wq`` is (d, H*hd), ``layers.<i>.moe.wg`` (E, d, F),
+``mamba_groups.<g>.<i>.in_proj``, ``mamba_tail.<i>.in_proj``) and keys
+AdamW's moments by the same names (``model.stacks`` says which subtrees
+are stacked; xLSTM's unrolled ``layers.mlstm_<i>`` are not).  Adafactor's
+second moment stays stacked in the port too (its ``(row, col)`` factors
+belong to the whole ``(L, ...)`` leaf), keyed ``layers.<rest>``.  Every
+direction copies the values exactly.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.torch_scheduler import resolve_device
 from ..optim.optimizers import OptState
-from .model import Model, _leaves
+from .model import Model, _leaves, stacks
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -32,16 +36,18 @@ def _to_tensor(a, device) -> torch.Tensor:
 def _flat_from_tree(cfg: ModelConfig, tree: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """A JAX tree (numpy leaves, stacked layers) as tensors keyed by the
     port's parameter names."""
-    flat = {}
+    flat, stacked = {}, stacks(cfg)
     for name, a in _leaves(tree):
-        if name.startswith("layers."):
-            if np.shape(a)[0] != cfg.n_layers:
-                raise ValueError(f"{name}: {np.shape(a)[0]} stacked layers, config has "
-                                 f"{cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                flat[f"layers.{i}.{name[7:]}"] = _to_tensor(np.asarray(a)[i], device)
-        else:
+        prefix, _, rest = name.partition(".")
+        if prefix not in stacked:
             flat[name] = _to_tensor(a, device)
+            continue
+        lead = stacked[prefix][0]
+        if np.shape(a)[:len(lead)] != lead:
+            raise ValueError(f"{name}: stacked {np.shape(a)[:len(lead)]}, config has {lead}")
+        for index in np.ndindex(*lead):
+            key = ".".join((prefix, *map(str, index), rest))
+            flat[key] = _to_tensor(np.asarray(a)[index], device)
     return flat
 
 
@@ -67,17 +73,25 @@ def _put(tree: Dict[str, Any], name: str, value) -> None:
 
 def _tree_from_flat(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Tensors keyed by the port's parameter names as a JAX tree: numpy
-    leaves, layers stacked."""
+    leaves, layers stacked (every numeric part of a name is a stack index:
+    ``mamba_groups.<g>.<i>.<rest>`` stacks to (groups, every, ...))."""
     tree: Dict[str, Any] = {}
-    stacks: Dict[str, list] = {}
+    stacked: Dict[str, list] = {}
     for name, t in flat.items():
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            stacks.setdefault(rest, []).append((int(i), _numpy(t)))
+        parts = name.split(".")
+        index = tuple(int(p) for p in parts if p.isdigit())
+        if index:
+            key = ".".join(p for p in parts if not p.isdigit())
+            stacked.setdefault(key, []).append((index, _numpy(t)))
         else:
             _put(tree, name, _numpy(t))
-    for rest, items in stacks.items():
-        _put(tree, f"layers.{rest}", np.stack([a for _, a in sorted(items, key=lambda x: x[0])]))
+    for key, items in stacked.items():
+        items.sort(key=lambda x: x[0])
+        lead = tuple(n + 1 for n in items[-1][0])
+        if [i for i, _ in items] != list(np.ndindex(*lead)):
+            raise ValueError(f"{key}: stack indices {[i for i, _ in items]} are not a full grid")
+        arr = np.stack([a for _, a in items])
+        _put(tree, key, arr.reshape(lead + arr.shape[1:]))
     return tree
 
 
@@ -111,10 +125,12 @@ def opt_state_from_numpy(cfg: ModelConfig, state, device=None) -> OptState:
     step, mu, nu = state
     step = torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device)
     if mu is None:
+        stacked = stacks(cfg)
         for name, a in _leaves(nu):
-            n = np.shape(a[0] if isinstance(a, tuple) else a)[0]
-            if name.startswith("layers.") and n != cfg.n_layers:
-                raise ValueError(f"{name}: {n} stacked layers, config has {cfg.n_layers}")
+            lead = stacked.get(name.partition(".")[0], ((),))[0]
+            n = np.shape(a[0] if isinstance(a, tuple) else a)[:len(lead)]
+            if n != lead:
+                raise ValueError(f"{name}: stacked {n}, config has {lead}")
         return OptState(step=step, mu=None, nu=_nu_from_tree(nu, device))
     return OptState(step=step, mu=_flat_from_tree(cfg, mu, device),
                     nu=_flat_from_tree(cfg, nu, device))

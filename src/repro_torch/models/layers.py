@@ -21,19 +21,28 @@ from ..kernels.rmsnorm import rmsnorm
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | zeros | embed
+    init: str = "normal"          # normal | zeros | ones | embed | ssm_dt | ssm_alog
     scale: float = 1.0            # fan-in style divisor applied to normal init
 
 
 def init_leaf(d: ParamDef, generator: torch.Generator, device, dtype=torch.float32,
               fan_in: Optional[int] = None) -> torch.Tensor:
-    """The distribution of ``repro.models.layers._init_leaf``: zeros; normal
-    with std ``scale`` (embed); else normal with std ``scale/sqrt(fan_in)``,
-    where the JAX package takes ``fan_in`` as the leading dimension of the
-    definition it materializes (for the scanned layer stack that is the
-    layer count, which callers pass as ``fan_in``)."""
+    """The distribution of ``repro.models.layers._init_leaf``: zeros; ones;
+    the SSM's dt bias (the inverse softplus of U[1e-3, 1e-1]) and A (the log
+    of U[1, 16]); normal with std ``scale`` (embed); else normal with std
+    ``scale/sqrt(fan_in)``, where the JAX package takes ``fan_in`` as the
+    leading dimension of the definition it materializes (for a scanned
+    layer stack that is its outer count, which callers pass as ``fan_in``)."""
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init in ("ssm_dt", "ssm_alog"):
+        lo, hi = (1e-3, 1e-1) if d.init == "ssm_dt" else (1.0, 16.0)
+        u = torch.rand(d.shape, generator=generator, dtype=torch.float32,
+                       device=generator.device) * (hi - lo) + lo
+        u = u + torch.log(-torch.expm1(-u)) if d.init == "ssm_dt" else torch.log(u)
+        return u.to(device=device, dtype=dtype)
     if d.init == "embed":
         std = d.scale
     else:

@@ -1,13 +1,22 @@
-"""Model assembly for the attention family, dense and mixture-of-experts:
-parameters, the training forward, the prefill-style forward, and decode
-(port of ``repro.models.model``).
+"""Model assembly: parameters, the training forward, the prefill-style
+forward, and decode (port of ``repro.models.model``) for the attention
+family (dense, or experts: ``moe``, plus ``dense_mlp`` where
+``moe_dense_residual``), the Mamba2 hybrid (``zamba_hybrid``: groups of
+``shared_attn_every`` Mamba layers, each group followed by ONE shared
+attention + MLP block, then a tail of Mamba layers) and xLSTM (``xlstm``:
+an sLSTM block every ``slstm_every``-th layer, mLSTM blocks elsewhere).
+The encoder-decoder and the vision/audio stubs raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Parameters are ``nn.Module``s holding ``nn.Parameter``s named and oriented
-as in the JAX parameter tree, with an ``nn.ModuleList`` of L layers where
-JAX scans stacked parameters.  The port runs ``block_pattern ==
-"attention"`` with text input and no encoder, with a dense MLP or experts
-(``moe``, plus ``dense_mlp`` where ``moe_dense_residual``); every other
-family raises ``NotImplementedError`` naming its ROADMAP item.
+as in the JAX parameter tree, with an ``nn.ModuleList`` where JAX scans
+stacked parameters: ``layers.<i>`` for the L attention layers,
+``mamba_groups.<g>.<i>`` for the hybrid's (groups, every) stack and
+``mamba_tail.<i>`` for its tail; xLSTM's ``layers`` is an ``nn.ModuleDict``
+keyed ``mlstm_<i>`` / ``slstm_<i>``, as in the JAX tree.  ``prefill`` and
+the serving engine take the attention family only, as in the JAX package;
+the other two serve by ``forward_logits`` and token-by-token
+``decode_step``.
 
 ``forward_train`` is differentiable in the parameters: it casts them to the
 compute dtype through autograd (``_cast_tree``), rematerializes each layer
@@ -20,6 +29,7 @@ returns updated copies); the state it returns carries the advanced length.
 from __future__ import annotations
 
 import functools
+import itertools
 import types
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -50,7 +60,9 @@ from .layers import (
     norm_defs,
     rms_norm,
 )
+from . import xlstm as xl
 from .moe import moe_defs, moe_ffn
+from .ssm import MambaState, mamba_decode_step, mamba_defs, mamba_forward, mamba_init_state
 
 #: weight of the experts' auxiliary loss
 AUX_LOSS_WEIGHT = 0.01
@@ -64,16 +76,43 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run yet."""
-    if cfg.block_pattern == "zamba_hybrid":
-        raise NotImplementedError(f"{cfg.name}: the SSM hybrid is not ported yet "
-                                  "(ROADMAP §1 item 13)")
-    if cfg.block_pattern == "xlstm":
-        raise NotImplementedError(f"{cfg.name}: xLSTM is not ported yet (ROADMAP §1 item 14)")
-    if cfg.block_pattern != "attention":
+    if cfg.block_pattern not in ("attention", "zamba_hybrid", "xlstm"):
         raise ValueError(cfg.block_pattern)
     if cfg.encoder_decoder or cfg.modality != "text":
         raise NotImplementedError(f"{cfg.name}: encoder-decoder and the vision/audio stubs "
                                   "are not ported yet (ROADMAP §1 item 15)")
+
+
+def check_prefill(cfg: ModelConfig) -> None:
+    """``prefill`` and the serving engine take the attention family only
+    (the JAX package asserts as much)."""
+    check_supported(cfg)
+    if cfg.block_pattern != "attention":
+        raise ValueError(f"{cfg.name}: prefill and the serving engine take the attention "
+                         f"family; {cfg.block_pattern} serves by forward_logits and decode_step")
+
+
+def _is_slstm(cfg: ModelConfig, i: int) -> bool:
+    return i % cfg.slstm_every == cfg.slstm_every - 1
+
+
+def _xlstm_name(cfg: ModelConfig, i: int) -> str:
+    return f"{'slstm' if _is_slstm(cfg, i) else 'mlstm'}_{i}"
+
+
+def stacks(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
+    """The JAX tree's stacked subtrees: prefix → (its leading stack shape,
+    the fan-in the JAX package's init gives a normal leaf there: the outer
+    stack count, ``d.shape[0]`` of the stacked definition)."""
+    if cfg.block_pattern == "attention":
+        return {"layers": ((cfg.n_layers,), cfg.n_layers)}
+    if cfg.block_pattern == "zamba_hybrid":
+        groups, tail = divmod(cfg.n_layers, cfg.shared_attn_every)
+        out = {"mamba_groups": ((groups, cfg.shared_attn_every), groups)}
+        if tail:
+            out["mamba_tail"] = ((tail,), tail)
+        return out
+    return {}
 
 
 # ---------------------------------------------------------------------------
@@ -121,14 +160,32 @@ class Model(nn.Module):
         self.final_norm = nn.Parameter(torch.empty(d, device=device, dtype=dtype))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty((d, v), device=device, dtype=dtype))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device, dtype) for _ in range(cfg.n_layers))
+        if cfg.block_pattern == "attention":
+            self.layers = nn.ModuleList(DecoderLayer(cfg, device, dtype)
+                                        for _ in range(cfg.n_layers))
+        elif cfg.block_pattern == "zamba_hybrid":
+            groups, tail = divmod(cfg.n_layers, cfg.shared_attn_every)
+            mamba = lambda: ParamGroup(mamba_defs(cfg), device, dtype)  # noqa: E731
+            self.mamba_groups = nn.ModuleList(
+                nn.ModuleList(mamba() for _ in range(cfg.shared_attn_every))
+                for _ in range(groups))
+            if tail:
+                self.mamba_tail = nn.ModuleList(mamba() for _ in range(tail))
+            # the shared block: attention + MLP, one set of weights for every group
+            self.shared = DecoderLayer(cfg, device, dtype)
+        else:
+            self.layers = nn.ModuleDict({
+                _xlstm_name(cfg, i): ParamGroup(
+                    xl.slstm_defs(cfg) if _is_slstm(cfg, i) else xl.mlstm_defs(cfg), device, dtype)
+                for i in range(cfg.n_layers)})
 
 
 def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    """ParamDef tree of the JAX package's ``model_defs`` for the attention
-    family; ``layers`` holds one layer's definitions (the port keeps L
-    layers where JAX stacks them, so a stacked expert leaf (L, E, D, F) is L
-    leaves (E, D, F))."""
+    """ParamDef tree of the JAX package's ``model_defs``, a stacked subtree
+    (``stacks``) holding one layer's definitions: the port keeps a module a
+    layer where JAX stacks them, so a stacked expert leaf (L, E, D, F) is L
+    leaves (E, D, F), and a hybrid leaf (groups, every, ...) groups × every
+    leaves."""
     check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab_padded
     defs: Dict[str, Any] = {
@@ -137,15 +194,23 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v), scale=1.0)
-    layer: Dict[str, Any] = {"attn_norm": norm_defs(d), "attn": attn_defs(cfg),
+    block: Dict[str, Any] = {"attn_norm": norm_defs(d), "attn": attn_defs(cfg),
                              "mlp_norm": norm_defs(d)}
-    if cfg.is_moe:
-        layer["moe"] = moe_defs(cfg)
-        if cfg.moe_dense_residual:
-            layer["dense_mlp"] = mlp_defs(d, cfg.d_ff)
-    elif cfg.mlp_type != "none":
-        layer["mlp"] = mlp_defs(d, cfg.d_ff)
-    defs["layers"] = layer
+    if cfg.block_pattern == "zamba_hybrid":
+        for prefix in stacks(cfg):
+            defs[prefix] = mamba_defs(cfg)
+        defs["shared"] = {**block, "mlp": mlp_defs(d, cfg.d_ff)}
+    elif cfg.block_pattern == "xlstm":
+        defs["layers"] = {_xlstm_name(cfg, i): xl.slstm_defs(cfg) if _is_slstm(cfg, i)
+                          else xl.mlstm_defs(cfg) for i in range(cfg.n_layers)}
+    else:
+        if cfg.is_moe:
+            block["moe"] = moe_defs(cfg)
+            if cfg.moe_dense_residual:
+                block["dense_mlp"] = mlp_defs(d, cfg.d_ff)
+        elif cfg.mlp_type != "none":
+            block["mlp"] = mlp_defs(d, cfg.d_ff)
+        defs["layers"] = block
     return defs
 
 
@@ -167,12 +232,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Mo
     dtype = torch_dtype(cfg.params_dtype)
     model = Model(cfg, device=device, dtype=dtype)
     params = dict(model.named_parameters())
+    stacked = stacks(cfg)
     for name, d in _leaves(model_defs(cfg)):
-        if name.startswith("layers."):
-            # JAX draws the scanned stack at once: its fan-in is the layer count
-            for i in range(cfg.n_layers):
-                params[f"layers.{i}.{name[7:]}"].copy_(
-                    init_leaf(d, generator, device, dtype, fan_in=cfg.n_layers))
+        prefix, _, rest = name.partition(".")
+        if prefix in stacked:
+            # JAX draws a scanned stack at once: its fan-in is the outer count
+            shape, fan_in = stacked[prefix]
+            for index in itertools.product(*map(range, shape)):
+                key = ".".join((prefix, *map(str, index), rest))
+                params[key].copy_(init_leaf(d, generator, device, dtype, fan_in=fan_in))
         else:
             params[name].copy_(init_leaf(d, generator, device, dtype))
     return model
@@ -205,12 +273,13 @@ def _cast_tree(module: nn.Module, dt: torch.dtype):
     ``torch.func.functional_call``: the layers' recomputation under
     ``remat="full"`` runs during the backward, after a functional call would
     have put the f32 parameters back.)"""
+    if isinstance(module, nn.ModuleList):
+        return [_cast_tree(c, dt) for c in module]
     out = types.SimpleNamespace()
     for name, p in module.named_parameters(recurse=False):
         setattr(out, name, p.to(dt) if p.dtype == torch.float32 else p)
     for name, child in module.named_children():
-        setattr(out, name, [_cast_tree(c, dt) for c in child]
-                if isinstance(child, nn.ModuleList) else _cast_tree(child, dt))
+        setattr(out, name, _cast_tree(child, dt))
     return out
 
 
@@ -284,6 +353,32 @@ def _decoder_stack(h, params, cfg: ModelConfig, positions):
     return h, aux
 
 
+def _zamba_group(h, gp, shared, cfg: ModelConfig, positions):
+    """One group of the hybrid: its Mamba layers, then the shared block."""
+    for lp in gp:
+        h = h + mamba_forward(h, lp, cfg)
+    return _attn_layer(h, shared, cfg, positions)[0]
+
+
+def _zamba_stack(h, params, cfg: ModelConfig, positions):
+    """The hybrid's groups (each rematerialized as ``cfg.remat`` says, as the
+    JAX package's scanned group body), then its tail."""
+    group = _maybe_remat(_zamba_group, cfg)
+    for gp in params.mamba_groups:
+        h = group(h, gp, params.shared, cfg, positions)
+    for lp in getattr(params, "mamba_tail", ()):
+        h = h + mamba_forward(h, lp, cfg)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _xlstm_stack(h, params, cfg: ModelConfig):
+    """The xLSTM blocks in turn, unrolled as in the JAX package."""
+    for i in range(cfg.n_layers):
+        fwd = xl.slstm_forward if _is_slstm(cfg, i) else xl.mlstm_forward
+        h = h + fwd(h, getattr(params.layers, _xlstm_name(cfg, i)), cfg)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
 def _forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """Embeddings → block stack → final norm → (h, auxiliary loss)."""
     check_supported(cfg)
@@ -291,7 +386,12 @@ def _forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     b, s = tokens.shape
     h = _embed(params, cfg, tokens)
     positions = torch.arange(s, device=h.device).expand(b, s)
-    h, aux = _decoder_stack(h, params, cfg, positions)
+    if cfg.block_pattern == "zamba_hybrid":
+        h, aux = _zamba_stack(h, params, cfg, positions)
+    elif cfg.block_pattern == "xlstm":
+        h, aux = _xlstm_stack(h, params, cfg)
+    else:
+        h, aux = _decoder_stack(h, params, cfg, positions)
     return rms_norm(h, params.final_norm, cfg.norm_eps), aux
 
 
@@ -333,13 +433,38 @@ class DecodeState(NamedTuple):
     #: per-layer cache layout (serving mode): tuples of L × (B,S,G,hd)
     kv_layers_k: Optional[Tuple[torch.Tensor, ...]] = None
     kv_layers_v: Optional[Tuple[torch.Tensor, ...]] = None
+    #: the hybrid: ``MambaState``s stacked (groups, every, ...) and (tail, ...)
+    mamba_groups: Optional[MambaState] = None
+    mamba_tail: Optional[MambaState] = None
+    #: the shared block's caches, one per application: (groups,B,S,G,hd)
+    shared_k: Optional[torch.Tensor] = None
+    shared_v: Optional[torch.Tensor] = None
+    #: xLSTM: an ``MLSTMState`` or ``SLSTMState`` a layer
+    xlstm: Optional[Tuple] = None
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                       device=None) -> DecodeState:
+    """An empty decode state.  ``dtype`` is the KV caches' type; the
+    recurrent states are f32 (the Mamba conv window too), as in the JAX
+    package."""
     check_supported(cfg)
     device = resolve_device(device)
     g, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.block_pattern == "zamba_hybrid":
+        groups, tail = divmod(cfg.n_layers, cfg.shared_attn_every)
+        one = mamba_init_state(cfg, batch, device=device)
+        stacked = lambda lead: MambaState(*(  # noqa: E731
+            x.expand(*lead, *x.shape).clone() for x in one))
+        sk = (groups, batch, max_len, g, hd)
+        return DecodeState(length=0, mamba_groups=stacked((groups, cfg.shared_attn_every)),
+                           mamba_tail=stacked((tail,)) if tail else None,
+                           shared_k=torch.zeros(sk, dtype=dtype, device=device),
+                           shared_v=torch.zeros(sk, dtype=dtype, device=device))
+    if cfg.block_pattern == "xlstm":
+        return DecodeState(length=0, xlstm=tuple(
+            xl.slstm_init_state(cfg, batch, device=device) if _is_slstm(cfg, i)
+            else xl.mlstm_init_state(cfg, batch, device=device) for i in range(cfg.n_layers)))
     if cfg.decode_cache_layout == "per_layer":
         per = (batch, max_len, g, hd)
         return DecodeState(
@@ -354,23 +479,55 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bf
                        kv_v=torch.zeros(kv, dtype=dtype, device=device))
 
 
+def _attn_decode_layer(h, lp, cfg: ModelConfig, kc, vc, length: int):
+    """One transformer block on one token, its K/V written into kc/vc."""
+    a, _, _ = attention_decode(rms_norm(h, lp.attn_norm, cfg.norm_eps), lp.attn, cfg,
+                               kc, vc, length)
+    h = h + a
+    y, _ = _ffn(rms_norm(h, lp.mlp_norm, cfg.norm_eps), lp, cfg)
+    return h + y
+
+
+def _mamba_decode_into(h, lp, cfg: ModelConfig, st: MambaState, at) -> torch.Tensor:
+    """One Mamba layer on one token, its new state written into ``st[at]``."""
+    y, new = mamba_decode_step(h, lp, cfg, MambaState(st.conv[at], st.ssd[at]))
+    st.conv[at].copy_(new.conv)
+    st.ssd[at].copy_(new.ssd)
+    return h + y
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Model, token: torch.Tensor, state: DecodeState):
-    """token: (B, 1) ints → (logits (B, 1, vocab_size), state advanced by one)."""
+    """token: (B, 1) ints → (logits (B, 1, vocab_size), state advanced by
+    one).  KV caches and the hybrid's Mamba states are written in place;
+    xLSTM's states are replaced."""
     check_supported(cfg)
     params = _cast(params, cfg)
     h = _embed(params, cfg, token)
     length = state.length
-    for i, lp in enumerate(params.layers):
-        if state.kv_layers_k is not None:
-            kc, vc = state.kv_layers_k[i], state.kv_layers_v[i]
-        else:
-            kc, vc = state.kv_k[i], state.kv_v[i]
-        a, _, _ = attention_decode(rms_norm(h, lp.attn_norm, cfg.norm_eps), lp.attn, cfg,
-                                   kc, vc, length)
-        h = h + a
-        y, _ = _ffn(rms_norm(h, lp.mlp_norm, cfg.norm_eps), lp, cfg)
-        h = h + y
+    if cfg.block_pattern == "zamba_hybrid":
+        for gi, gp in enumerate(params.mamba_groups):
+            for i, lp in enumerate(gp):
+                h = _mamba_decode_into(h, lp, cfg, state.mamba_groups, (gi, i))
+            h = _attn_decode_layer(h, params.shared, cfg, state.shared_k[gi],
+                                   state.shared_v[gi], length)
+        for i, lp in enumerate(getattr(params, "mamba_tail", ())):
+            h = _mamba_decode_into(h, lp, cfg, state.mamba_tail, (i,))
+    elif cfg.block_pattern == "xlstm":
+        new_states = []
+        for i in range(cfg.n_layers):
+            step = xl.slstm_decode_step if _is_slstm(cfg, i) else xl.mlstm_decode_step
+            y, st = step(h, getattr(params.layers, _xlstm_name(cfg, i)), cfg, state.xlstm[i])
+            h = h + y
+            new_states.append(st)
+        state = state._replace(xlstm=tuple(new_states))
+    else:
+        for i, lp in enumerate(params.layers):
+            if state.kv_layers_k is not None:
+                kc, vc = state.kv_layers_k[i], state.kv_layers_v[i]
+            else:
+                kc, vc = state.kv_k[i], state.kv_v[i]
+            h = _attn_decode_layer(h, lp, cfg, kc, vc, length)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     logits = _logits(params, cfg, h)[..., : cfg.vocab_size]  # drop pad ids
     return logits, state._replace(length=length + 1)
@@ -381,7 +538,7 @@ def prefill(cfg: ModelConfig, params: Model, tokens: torch.Tensor, max_len: int)
     """Full-sequence prefill with reference attention (as the JAX package
     has it), returning the last position's logits (B, 1, vocab_size) and a
     primed stacked ``DecodeState``."""
-    check_supported(cfg)
+    check_prefill(cfg)
     params_c = _cast(params, cfg)
     b, s = tokens.shape
     if s > max_len:

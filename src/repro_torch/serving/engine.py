@@ -22,7 +22,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.preemption import PreemptAck
-from ..models.model import Model, _cast, check_supported, decode_step, prefill
+from ..models.model import Model, _cast, check_prefill, decode_step, prefill
 
 
 @dataclasses.dataclass
@@ -44,7 +44,7 @@ class ServingEngine:
     job_id = "serve"
 
     def __init__(self, cfg: ModelConfig, params: Model, scfg: ServeConfig):
-        check_supported(cfg)
+        check_prefill(cfg)
         self.cfg = cfg
         self.scfg = scfg
         self.params = params

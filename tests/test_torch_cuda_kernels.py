@@ -318,6 +318,52 @@ def test_flash_attention_refuses_grad(cuda_device):
     assert counts["flash_attention_dq"] == counts["flash_attention_dkv"] == 0
 
 
+#: head_dim 112 (zamba2-7b's shared attention, 32 heads, no grouping): the
+#: forward's hd-128 tiling over zero-padded rows; several key tiles, ragged
+#: tails, and grouping beside it
+HD112_SHAPES = [(2, 256, 32, 32, 112), (1, 1000, 8, 8, 112), (1, 77, 4, 2, 112),
+                (2, 300, 6, 3, 112)]
+
+
+@pytest.mark.parametrize("shape", HD112_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_forward_head_dim_112_matches_plain(cuda_device, shape, dtype, causal):
+    """The forward at head_dim 112 within the forward's tolerances of its
+    plain version, its columns past 112 never written (o's storage is
+    exactly B*S*H*112), and two calls the same bits."""
+    b, s, h, g, hd = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(s + hd)
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device).to(dtype)
+               for n in (h, g, g))
+    kernels.reset_launch_counts()
+    runs = [kernels.flash_attention_fwd(q, k, v, causal=causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts[FWD_KEY[dtype] + "_hd112"] == 2 and counts[FWD_KEY[dtype]] == 0
+    o, lse = runs[0]
+    po, plse = kernels.flash_attention_plain(q, k, v, causal=causal)
+    assert o.shape == q.shape and o.untyped_storage().nbytes() == q.numel() * q.element_size()
+    _close(o, po, FLASH_TOL[dtype])
+    _close(lse, plse, 1e-4)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(o.view(bits), runs[1][0].view(bits))
+    assert torch.equal(lse.view(torch.int32), runs[1][1].view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_backward_refuses_head_dim_112(cuda_device, dtype):
+    """The backward kernels have no hd-112 instantiation: a gradient at
+    head_dim 112 raises, naming the ROADMAP item, and launches nothing."""
+    q = torch.randn((1, 64, 2, 112), device=cuda_device, dtype=dtype, requires_grad=True)
+    kernels.reset_launch_counts()
+    o, _ = kernels.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="item 20"):
+        torch.autograd.grad(o.sum(), (q,))
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_dq"] == counts["flash_attention_dq_f32"] == 0
+
+
 #: the backward: f32 gradients differ by summation order (1e-4 over sums of
 #: up to S*H/G terms); bf16 gradients may round one bf16 ulp apart (2e-2)
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}

@@ -6,7 +6,8 @@ the dot, keys past a ragged Skv at weight 0 (the tile's missing rows are
 zeros, their scores -inf), causal scores above the diagonal -1e30, tiles
 wholly above the block's last row never visited; per tile the row max, p =
 exp(s - m_new), alpha = exp(m_old - m_new), l and O rescaled by alpha; at the
-end o = O / max(l, 1e-30) and lse = m + log(max(l, 1e-30)).  A plain f32
+end o = O / max(l, 1e-30) and lse = m + log(max(l, 1e-30)); at hd 112 the
+hd-128 tiling over rows zero padded past 112 (the scale that of 112).  A plain f32
 emulation of that schedule must stay within the card checks' f32 tolerances
 (``chip_smoke.py``: ``OUT_TOL`` elementwise and ``OUT_REL`` in norm for o,
 ``LSE_TOL`` for lse) of ``flash_attention_plain`` and of the JAX package's
@@ -42,11 +43,13 @@ def _forward_tiled(q, k, v, causal):
     _, sq, h, hd = q.shape
     skv, rep = k.shape[1], h // k.shape[2]
     tile = 32 if hd == 256 else 64
+    scale = 1.0 / math.sqrt(hd)
+    if hd == 112:
+        q, k, v = (torch.nn.functional.pad(t, (0, 16)) for t in (q, k, v))
     qf, kf, vf = _heads(q), _heads(k, rep), _heads(v, rep)
     # the streamed tiles' rows past Skv are zeros
     pad = (-skv) % tile
-    kf, vf = (torch.cat([t, t.new_zeros(t.shape[0], pad, hd)], dim=1) for t in (kf, vf))
-    scale = 1.0 / math.sqrt(hd)
+    kf, vf = (torch.cat([t, t.new_zeros(t.shape[0], pad, t.shape[2])], dim=1) for t in (kf, vf))
     o, lse = torch.empty_like(qf), torch.empty(qf.shape[:2])
     for q0 in range(0, sq, tile):
         qt = qf[:, q0:q0 + tile]
@@ -70,7 +73,7 @@ def _forward_tiled(q, k, v, causal):
         lc = torch.clamp(l, min=1e-30)
         o[:, q0:q0 + tile] = acc / lc[..., None]
         lse[:, q0:q0 + tile] = m + torch.log(lc)
-    return o, lse
+    return o[..., :hd], lse
 
 
 def _f64(x):
@@ -90,7 +93,7 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("h,g", [(4, 2), (8, 1)], ids=["h4g2", "h8g1"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 256])
 @pytest.mark.parametrize("s", [77, 130, 256])
 def test_f32_tiling_within_the_card_tolerance(s, hd, causal, h, g):
     rng = np.random.default_rng(1000 * s + hd)

@@ -198,14 +198,37 @@ def test_init_params_draws_the_jax_distributions(arch):
         tm.init_params(cfg, torch.Generator().manual_seed(0))   # the card by default
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m", "seamless-m4t-medium",
-                                  "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
 def test_unsupported_families_raise(arch):
     cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 15"):
         tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 15"):
         tm.init_decode_state(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m"])
+def test_hybrid_and_xlstm_families_run(arch):
+    """The two families that ``test_unsupported_families_raise`` once
+    listed run through every entry point on the CPU (the values against
+    JAX's are in tests/test_torch_ssm.py and tests/test_torch_xlstm.py):
+    ``init_params``, ``forward_logits``, ``init_decode_state``,
+    ``decode_step`` (its logits those of the forward's last position) and
+    ``forward_train``."""
+    cfg = reduced(get_config(arch))
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(_tokens(cfg))
+    full = tm.forward_logits(cfg, params, {"tokens": toks}, last_only=False)
+    assert full.shape == (B, S, cfg.vocab_padded) and torch.isfinite(full).all()
+    state = tm.init_decode_state(cfg, B, S + 1, dtype=torch.float32, device="cpu")
+    for t in range(S):
+        logits, state = tm.decode_step(cfg, params, toks[:, t:t + 1], state)
+    assert state.length == S
+    np.testing.assert_allclose(logits[:, 0].numpy(), full[:, -1, : cfg.vocab_size].numpy(),
+                               atol=2e-4, rtol=2e-4)
+    loss, _ = tm.forward_train(cfg, params, {"tokens": toks, "labels": toks})
+    loss.backward()
+    assert all(torch.isfinite(p.grad).all() for p in params.parameters())
 
 
 @pytest.mark.parametrize("arch", MOE)
