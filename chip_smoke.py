@@ -9,8 +9,8 @@ exits non-zero:
                versions;
 2. build     — compile every CUDA source of the port (one nvcc each, all
                started together): seconds per source, the flash kernels'
-               instantiations counted apart for the forward (head dims 32,
-               64, 112, 128, 256) and the backward (32, 64, 128, 256), and
+               instantiations counted apart for the forward and the
+               backward (head dims 32, 64, 112, 128, 256 each), and
                the count of HGMMA (wgmma) and UTMALDG (TMA load)
                instructions in the SASS of each tensor-core kernel, which
                must not be 0, and ptxas's
@@ -219,14 +219,18 @@ exits non-zero:
                ``flash_attention_bwd_plain`` on the same inputs at
                qwen2-1.5b's training shape (B=2, S=4,096, bf16), gemma-2b's
                (hd=256, MQA), a ragged (S=1,000), a full and three f32
-               cases (S=77; 1 x 2,048 at qwen2's heads; gemma-2b's), each
-               gap against a stated tolerance, two calls giving the same
-               bits, both reductions exactly equal to their plain versions;
-               kernel / plain / bound / library times (the reduction's
-               library: two torch.sum over the group axis, by the trace and
-               by CUDA events), the forward's too,
-               and the f32 route's dq, dk/dv and reduction at 1 x 2,048,
-               2 x 4,096 and phase 10's shape;
+               cases (S=77; 1 x 2,048 at qwen2's heads; gemma-2b's), and at
+               head_dim 112 zamba2-7b's training shape (4 x 1,024, 32 heads
+               on 32), ragged, full and the f32 route at S=77 and 1 x 1,024,
+               each gap against a stated tolerance, two calls giving the
+               same bits, both reductions exactly equal to their plain
+               versions; kernel / plain / bound / library times (the
+               reduction's library: two torch.sum over the group axis, by
+               the trace and by CUDA events), the forward's too, the f32
+               route's dq, dk/dv and reduction at 1 x 2,048, 2 x 4,096 and
+               phase 10's shape, and the hd-112 kernels' on both routes
+               with their SASS (HGMMA and UTMALDG in the bf16 ones, none in
+               the f32 ones) and ptxas registers and spills;
 10. train_parity — reduced qwen2-1.5b in f32, flash attention, full remat, the
                same weights on the card and on the CPU: three
                ``make_train_step`` steps agree, and one more under
@@ -247,12 +251,29 @@ exits non-zero:
                kernels, whose launches are counted against the path); one
                more step under ``remat="full"`` and one under ``"dots"``,
                each with its time and peak memory;
+11b. hybrid_train — the Mamba2 hybrid and xLSTM trained: reduced
+               zamba2-7b (hd 32 and 112) and xlstm-125m in f32, flash, full
+               remat, three ``make_train_step`` steps under Adafactor and
+               under AdamW, each from the CPU's state (chip_smoke_cpu.py's
+               run), losses and gradient norms within phase 10's bounds,
+               each update within bounds set by phase 10's rule (a few
+               times what an H100 reads); a ``Trainer`` on the reduced
+               hybrid at hd 112 under Adafactor, 4 steps against one
+               preempted after 2 and resumed, bitwise equal; full-width,
+               full-depth zamba2-7b (81 layers, 6.75 B bf16 parameters drawn
+               on the card, Adafactor, flash, full remat, 4 x 1,024 tokens a
+               step): the free memory and the reckoned peak, the first
+               step's loss and gradient norm against reference attention's,
+               three timed steps (step time, tokens/s, MFU, peak memory),
+               the busy share and device ms by kernel class of a fourth,
+               traced; full-width xlstm-125m (f32, AdamW) two steps; every
+               kernel's launches against what the path implies;
 12. every library time of a flash kernel's function by the trace and by
     CUDA events, marking any reading under its bound; the ``kernels`` line,
     then the card's name and power limit, then the result line.
 
 The CPU side of phases 4 to 5f's card-against-CPU simulator runs and of
-phase 8c's reduced models (chip_smoke_cpu.py, the scenarios and what is
+phases 8c's and 11b's reduced models (chip_smoke_cpu.py, the scenarios and what is
 compared) runs in a process of its own, started with the script on 2 CPU threads, while the card
 works; the ``cpu_refs`` line after phase 5f gives the seconds the script
 waited for each run, and every line's ``at_s`` its seconds since the start.
@@ -330,13 +351,14 @@ from repro_torch.serving import ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.core.preemption import PreemptAck, PreemptionController  # noqa: E402
 from repro_torch.core.types import TPU_SPEC, Instance  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
-from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.optim import adamw_init, make_optimizer  # noqa: E402
 from repro_torch.training import Trainer, TrainerConfig, TrainSettings, make_train_step  # noqa: E402
 from repro_torch.training.trainer import state_tensors  # noqa: E402
 from chip_smoke_cpu import (  # noqa: E402
     ADMISSION,
     COUNTERS,
     HYBRID_CASES,
+    HYBRID_TRAIN,
     MULT_ROWS,
     RELOC,
     RELOC_RATE,
@@ -352,6 +374,8 @@ from chip_smoke_cpu import (  # noqa: E402
     ragged_sim,
     hybrid_config,
     hybrid_tokens,
+    hybrid_train_config,
+    hybrid_train_data,
     ragged_view,
     rebuild_sim,
     rebuild_view,
@@ -588,7 +612,9 @@ GAPS = {"sched_screen_consts": 0.0, "sched_screen_topm": 0.0, "sched_screen": 0.
         "flash_attention_hd112": 0.0, "flash_attention_f32_hd112": 0.0,
         "flash_attention_dq": 0.0, "flash_attention_dq_f32": 0.0, "flash_attention_dkv": 0.0,
         "flash_attention_dkv_reduce": 0.0, "flash_attention_dkv_f32": 0.0,
-        "flash_attention_dkv_reduce_f32": 0.0}
+        "flash_attention_dkv_reduce_f32": 0.0, "flash_attention_dq_hd112": 0.0,
+        "flash_attention_dkv_hd112": 0.0, "flash_attention_dq_f32_hd112": 0.0,
+        "flash_attention_dkv_f32_hd112": 0.0}
 
 
 def same(a, b, what: str, kernel: str) -> None:
@@ -778,8 +804,17 @@ for src, tags, count, main in (
         max_stack=max(c["stack"] for c in found.values()),
         main_path={f: c for f, c in found.items() if all(m_ in f for m_ in main)})
     check(len(small_ptxas[src]["main_path"]) == 1, f"build: {main} not found in {src}.cu")
+# the backward's hd-112 instantiations (dq and dk/dv, each route): HGMMA
+# and UTMALDG in the bf16 ones, no tensor-core instruction in the f32 ones,
+# with ptxas's registers and spills
+bwd_hd112_sass = {f: dict(c, **(ptxas.get(f) or f32_ptxas.get(f) or {}))
+                  for f, c in {**sass_counts, **f32_sass}.items() if "flash_bwd" in f and "Li112E" in f}
+check(len(bwd_hd112_sass) == 4, f"backward hd 112: {len(bwd_hd112_sass)} instantiations in the SASS")
+for f, c in bwd_hd112_sass.items():
+    check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 if "wgmma" in f else c["HGMMA"] == 0 and c["HMMA"] == 0,
+          f"backward hd 112: {f} has {c} in its SASS")
 emit("build", seconds=build_s, seconds_by_source=dict(_build.BUILD_SECONDS),
-     flash_instantiations=instantiations,
+     flash_instantiations=instantiations, backward_hd112=bwd_hd112_sass,
      libraries=sorted(os.path.basename(p) for p in paths.values()),
      sass_hgmma_utmaldg=sass_counts, ptxas_registers_spills=ptxas,
      sass_f32_hmma_hgmma_ffma=f32_sass, ptxas_f32=f32_ptxas,
@@ -3525,12 +3560,31 @@ bwd_cases = [  # name, B, S, H, G, hd, dtype, causal
     ("f32 S=77", 2, 77, 4, 2, 64, F32, True),
     ("f32 1x2048", 1, 2048, 12, 2, 128, F32, True),
     ("f32 gemma-2b", 1, 1024, 8, 1, 256, F32, True),
+    # head_dim 112 (the hd-128 tiling over rows zero padded past 112):
+    # zamba2-7b's shared block in training (32 heads, no grouping), ragged,
+    # full, and the f32 route at S=77 and 1 x 1,024
+    ("hd 112 zamba2-7b train 4 x 1,024", 4, 1024, 32, 32, 112, BF16, True),
+    ("hd 112 ragged S=1000", 2, 1000, 32, 32, 112, BF16, True),
+    ("hd 112 full", 2, 512, 32, 32, 112, BF16, False),
+    ("hd 112 f32 S=77", 2, 77, 32, 32, 112, F32, True),
+    ("hd 112 f32 1 x 1,024", 1, 1024, 32, 32, 112, F32, True),
 ]
 #: the dq and dk/dv kernels (and the reduction over grouped heads) each type
-#: routes to: bf16 the tensor cores, f32 the CUDA cores
+#: routes to: bf16 the tensor cores, f32 the CUDA cores; dq's and dk/dv's
+#: hd-112 instantiations count under their own keys (``bwd_route``)
 DQ_ROUTE = {BF16: "flash_attention_dq", F32: "flash_attention_dq_f32"}
 DKV_ROUTE = {BF16: ("flash_attention_dkv", "flash_attention_dkv_reduce"),
              F32: ("flash_attention_dkv_f32", "flash_attention_dkv_reduce_f32")}
+
+
+def bwd_route(dt, hd_):
+    """(dq, dk/dv, reduction) counters of the backward of type ``dt`` at
+    head_dim ``hd_``."""
+    tag = "_hd112" if hd_ == 112 else ""
+    return (DQ_ROUTE[dt] + tag, DKV_ROUTE[dt][0] + tag, DKV_ROUTE[dt][1])
+
+
+BWD_KEYS = sorted({key for t_ in (BF16, F32) for hd_ in (112, 128) for key in bwd_route(t_, hd_)})
 bwd_rows = {}
 for name, b_, s_, h_, g_, hd_, dt, causal in bwd_cases:
     q, k, v, do = (torch.randn((b_, s_, n_, hd_), generator=gen, device=DEV).to(dt)
@@ -3539,9 +3593,9 @@ for name, b_, s_, h_, g_, hd_, dt, causal in bwd_cases:
     kernels.reset_launch_counts()
     got = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     counts = kernels.launch_counts()
-    route, other = ((DQ_ROUTE[t_],) + DKV_ROUTE[t_] for t_ in (dt, F32 if dt == BF16 else BF16))
-    check(all(counts[key] == 1 for key in route) and all(counts[key] == 0 for key in other),
-          f"backward {name}: not the route {route}")
+    route = bwd_route(dt, hd_)
+    check(all(counts[key] == (1 if key in route else 0) for key in BWD_KEYS),
+          f"backward {name}: not the route {route}: {[(key, counts[key]) for key in BWD_KEYS]}")
     want = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     row = {}
     # no atomics: a second call gives the same bits
@@ -3551,8 +3605,7 @@ for name, b_, s_, h_, g_, hd_, dt, causal in bwd_cases:
           f"backward {name}: two calls differ")
     row["two_calls_bitwise_equal"] = True
     del again
-    for grad, kname, g_k, g_p in zip(("dq", "dk", "dv"), (DQ_ROUTE[dt],) + (DKV_ROUTE[dt][0],) * 2,
-                                     got, want):
+    for grad, kname, g_k, g_p in zip(("dq", "dk", "dv"), route[:1] + route[1:2] * 2, got, want):
         check(g_k.dtype == dt and g_k.shape == g_p.shape, f"backward {name} {grad}: type or shape")
         gap = within(g_k, g_p, BWD_TOL[dt], f"backward {name} {grad}", kname)
         k64, p64 = g_k.double(), g_p.double()
@@ -3710,6 +3763,60 @@ emit("train_kernel_times_f32", card=smi,
             "scaled_dot_product_attention, TF32 off); the reduction's own plain version, and two "
             "torch.sum calls (dk, dv) over the same partials",
      **f32_times)
+torch.cuda.empty_cache()
+
+# head_dim 112 at zamba2-7b's training shape (bf16, 4 x 1,024, H = G = 32,
+# causal) and on the f32 route at 1 x 1,024: dq and dk/dv by their spans
+# (trace) and launches (CUDA events), the plain backward, the library's
+# backward (scaled_dot_product_attention through autograd, by the trace and
+# by CUDA events), each kernel's bound; the reduction (a cast at H = G)
+# against its plain version, exactly, and timed.  Phase 2's SASS and ptxas
+# readings of the hd-112 instantiations stand beside them
+hd112_bwd_times = {}
+for dt, b_, route_name in ((BF16, 4, "bf16"), (F32, 1, "f32")):
+    q, k, v, do = (torch.randn((b_, 1024, 32, 112), generator=gen, device=DEV).to(dt) for _ in range(4))
+    o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
+    names = BWD_NAMES if dt == BF16 else F32_BWD_NAMES
+    call = lambda: kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True)  # noqa: E731
+    ms = kernel_ms(call, {key: names[key] for key in ("dq", "dkv")})
+    ev_ms = launch_event_ms(call, {key: names[key][1] for key in ("dq", "dkv")}, reps=10)
+    plain_ms = device_ms(lambda: kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
+                         reps=10)
+    parts = kernels.flash_attention_dkv_partials_plain(q, k, v, o, lse, do, causal=True)
+    red = kernels.flash_attention_dkv_reduce(*parts, b_ * 32, dt)
+    for a_, w_, what in zip(red, kernels.flash_attention_dkv_reduce_plain(*parts, b_ * 32, dt), ("dk", "dv")):
+        same(a_, w_, f"hd 112 {route_name} dk/dv reduction {what}", DKV_ROUTE[dt][1])
+    red_ms = device_ms(lambda: kernels.flash_attention_dkv_reduce(*parts, b_ * 32, dt), reps=10)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    sdpa_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    pairs_ = b_ * 32 * 1024 * 1025 // 2             # (query, key) pairs the causal mask keeps
+    size = q.element_size()
+    io_ = size * q.numel()                          # one (B, S, 32, 112) tensor
+    rows_ = 2 * 4 * b_ * 32 * 1024                  # lse and delta
+    peak = BF16_FLOPS if dt == BF16 else None
+    lib_ms = library_time(
+        f"backward {route_name} hd 112, {b_} x 1,024 (dq, dk, dv)",
+        lambda: torch.autograd.grad(sdpa_o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+        bound_of(8 * io_ + rows_ // 2, 10 * 112 * pairs_, peak)[0], reps=10)
+    # (bytes, operations): dq reads q, k, v, dO, lse, delta and writes dq;
+    # dk/dv reads the same and writes the two f32 partials; the reduction
+    # reads the partials and writes dk, dv
+    work = {"dq": (5 * io_ + rows_, 6 * 112 * pairs_),
+            "dkv": (4 * io_ + rows_ + 2 * 4 * q.numel(), 8 * 112 * pairs_),
+            "reduce": (2 * 4 * q.numel() + 2 * io_, 0)}
+    row = {key: dict(ms=(ms[key] if key in ms else red_ms),
+                     events_ms=ev_ms.get(key), bound_ms=bound_of(*work[key], peak)[0],
+                     bound_by=bound_of(*work[key], peak)[1]) for key in work}
+    hd112_bwd_times[f"{route_name}, B={b_}, S=1,024, H=G=32, hd=112, causal"] = dict(
+        row, plain_ms_dq_dk_dv=plain_ms, library_ms_dq_dk_dv=lib_ms)
+    for key, name in (("dq", bwd_route(dt, 112)[0]), ("dkv", bwd_route(dt, 112)[1])):
+        record(name, "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+               "src/repro/kernels/flash_attention.py:" + ("152" if key == "dq" else "191"),
+               ms[key], plain_ms, *work[key], flops=peak, library_ms=lib_ms)
+    del q, k, v, do, o, lse, qt, kt, vt, sdpa_o, parts, red
+emit("train_kernel_times_hd112", card=smi, sass_ptxas=bwd_hd112_sass,
+     method="ms: the kernel's span (trace), median of 10; events_ms: its launch by CUDA events; "
+            "plain_ms and library_ms compute dq, dk and dv together", **hd112_bwd_times)
 torch.cuda.empty_cache()
 
 # ---------------------------------------------------------------------------
@@ -4100,6 +4207,294 @@ for remat in ("full", "dots"):
 emit("train_remat", card=smi, batch=f"{GB} x {SEQ} tokens, {N_MB} microbatches", steps=remat_steps)
 del second_t
 shutil.rmtree(ttmp, ignore_errors=True)
+
+# ---------------------------------------------------------------------------
+# 11b. hybrid_train: the Mamba2 hybrid (zamba2-7b) and xLSTM (xlstm-125m) trained
+# ---------------------------------------------------------------------------
+t_htrain = time.perf_counter()
+gc.collect()
+torch.cuda.empty_cache()
+#: a parameter whose gradient is zero in exact arithmetic holds f32 rounding
+#: noise (xlstm-125m's sLSTM input-gate bias: its stabilized exponential
+#: gate cancels a shift of the bias).  Both optimizers move it by
+#: normalized noise, so its card and CPU moves may differ by twice the
+#: largest move one element can take, 2 lr sqrt(size) (Adafactor's RMS
+#: clip; AdamW's first moves are +-lr); such a tensor (the CPU's second
+#: moment under NOISE² everywhere) is held to that, the card's second
+#: moment to NOISE² too, and every other tensor to HYBRID_UPDATE_TOL
+NOISE = 1e-8
+#: the card's update of each step against the CPU's (phase 10's measure),
+#: with bounds set by phase 10's rule, a few times what an H100 reads: the
+#: hybrid's AdamW updates read over phase 10's bounds (params 1.73e-2 at the
+#: embedding, whose rows seen for the first time move by about +-lr
+#: whatever their gradients' size, so an element within rounding of 0 moves
+#: 2 lr apart; mu 3.03e-3 at a Mamba layer's dt_bias, nu 6.23e-3 at its
+#: a_log, whose gradients sum long chains of decays); an update the card got
+#: wrong reads 1 or more.  Losses and gradient norms keep PARITY_TOL
+HYBRID_UPDATE_TOL = {"params": 5e-2, "mu": 1e-2, "nu": 2e-2}
+
+
+def train_implied(cfg_, steps_):
+    """Each kernel's launches in ``steps_`` train steps of one microbatch: per
+    group of the hybrid under remat "full" the shared block's flash forward
+    twice (the forward, then its recomputation in the backward) and the
+    backward kernels once; RMSNorm 2 a Mamba layer (norm, gate norm) and 2
+    a shared block, twice in the groups, once in the tail, and the final
+    norm (its backward is plain PyTorch); xLSTM's blocks are not
+    rematerialized (as in the JAX package): one pass of ``rms_per_pass``."""
+    if cfg_.block_pattern != "zamba_hybrid":
+        return {"rmsnorm": steps_ * rms_per_pass(cfg_)}
+    groups, tail = divmod(cfg_.n_layers, cfg_.shared_attn_every)
+    assert cfg_.remat == "full"
+    dt = tm.torch_dtype(cfg_.dtype)
+    dq, dkv, red = bwd_route(dt, cfg_.resolved_head_dim)
+    return {flash_key(cfg_): steps_ * 2 * groups, dq: steps_ * groups, dkv: steps_ * groups,
+            red: steps_ * groups,
+            "rmsnorm": steps_ * (2 * (2 * groups * cfg_.shared_attn_every + 2 * groups) + 2 * tail + 1)}
+
+
+def load_state(params_, opt_state_, arrays):
+    """Copy ``state_tensors``-named numpy arrays into a model and its
+    optimizer state on the card."""
+    with torch.no_grad():
+        for key, t in state_tensors(params_, opt_state_).items():
+            t.copy_(torch.from_numpy(arrays[key]))
+
+
+# reduced zamba2-7b (hd 32 and 112) and xlstm-125m, f32, flash, remat full,
+# under Adafactor and AdamW: 3 steps on the card, each from the CPU's state
+# before that step (chip_smoke_cpu.py's run), against the CPU's step: loss
+# and gradient norm within phase 10's PARITY_TOL, the update of params, mu
+# and nu within HYBRID_UPDATE_TOL (relative, per tensor), noise tensors as above
+htrain_rows = {}
+kernels.reset_launch_counts()
+htrain_implied = {}
+for name, arch, over, seed in HYBRID_CASES:
+    for opt_name in HYBRID_TRAIN["optimizers"]:
+        ref = cpu_ref(f"hybrid train {name} {opt_name}")
+        cfg_ = hybrid_train_config(arch, over, opt_name)
+        gp = tm.Model(cfg_, device=DEV)
+        opt_ = make_optimizer(opt_name, weight_decay=HYBRID_TRAIN["settings"].weight_decay)
+        gs = opt_.init(dict(gp.named_parameters()))
+        step_fn = make_train_step(cfg_, HYBRID_TRAIN["settings"], opt_)
+        data_ = hybrid_train_data(cfg_, seed)
+        rows = []
+        for i, (before, after, met_cpu) in enumerate(zip(ref["states"], ref["states"][1:], ref["metrics"])):
+            load_state(gp, gs, before)
+            gp, gs, met = step_fn(gp, gs, data_.batch_at(i))
+            got = {key: t.detach().cpu().double() for key, t in state_tensors(gp, gs).items()}
+            check(int(got["opt.step"]) == int(after["opt.step"]) == i + 1, f"hybrid train {name}: step count")
+            lr_ = float(met["lr"])
+            noise = {key.split(".", 2)[2].rsplit(".", 1)[0] if key.endswith((".row", ".col"))
+                     else key.split(".", 2)[2] for key, a_ in after.items()
+                     if key.startswith("opt.nu.") and float(np.max(a_)) < NOISE ** 2}
+            row = {"card": {key: float(met[key]) for key in PARITY_TOL}, "cpu": met_cpu,
+                   "update_rel_gap": dict.fromkeys(("params", "mu", "nu"), 0.0),
+                   "widest": dict.fromkeys(("params", "mu", "nu"), None), "noise": sorted(noise)}
+            for key, old in before.items():
+                if key == "opt.step":
+                    continue
+                grp = "params" if key.startswith("params.") else key.split(".")[1]
+                leaf = key.split(".", 1)[1] if grp == "params" else key.split(".", 2)[2]
+                d_cpu = torch.from_numpy(after[key]).double() - torch.from_numpy(old).double()
+                d_gpu = got[key] - torch.from_numpy(old).double()
+                if any(leaf == n_ or leaf.startswith(n_ + ".") for n_ in noise):
+                    # mu, where kept, is (1 - b1) x the noise itself
+                    ok = (float((d_gpu - d_cpu).abs().max()) <= 2 * lr_ * math.sqrt(old.size) + 1e-6
+                          if grp == "params" else grp == "mu" or float(got[key].max()) < NOISE ** 2)
+                    check(ok, f"hybrid train {name} {opt_name}: step {i} noise tensor {key} beyond its bound")
+                    continue
+                diff = float(torch.linalg.vector_norm(d_gpu - d_cpu))
+                ref_n = float(torch.linalg.vector_norm(d_cpu))
+                gap = diff / ref_n if ref_n > 0 else (0.0 if diff == 0 else math.inf)
+                if gap > row["update_rel_gap"][grp]:
+                    row["update_rel_gap"][grp], row["widest"][grp] = gap, key
+            for key, tol in PARITY_TOL.items():
+                a_, c_ = row["card"][key], met_cpu[key]
+                check(abs(a_ - c_) <= tol * (1 + abs(c_)),
+                      f"hybrid train {name} {opt_name}: step {i} {key} card {a_} vs CPU {c_} (tol {tol})")
+            for grp, tol in HYBRID_UPDATE_TOL.items():
+                check(row["update_rel_gap"][grp] <= tol,
+                      f"hybrid train {name} {opt_name}: step {i} the card's {grp} update "
+                      f"{row['update_rel_gap'][grp]} from the CPU's at {row['widest'][grp]} (tol {tol})")
+            rows.append(row)
+        for key, n_ in train_implied(cfg_, len(rows)).items():
+            htrain_implied[key] = htrain_implied.get(key, 0) + n_
+        htrain_rows[f"{name} {opt_name}"] = dict(steps=rows, cpu_seconds=ref["seconds"])
+        del gp, gs
+count_launches(kernels.launch_counts(), htrain_implied, "hybrid train parity")
+emit("hybrid_train_parity", configs="zamba2-7b reduced (8 layers, d=128, cadence 3, hd 32 and 112), "
+     "xlstm-125m reduced (4 layers, d=128); f32, flash, remat full; 3 steps of 4 x 64 tokens, each "
+     "from the CPU's state", tolerance=PARITY_TOL, update_tolerance=HYBRID_UPDATE_TOL,
+     noise_bound="a tensor whose CPU second moment is under 1e-16 everywhere: its move within "
+                 "2 lr sqrt(size) of the CPU's, its second moment under 1e-16",
+     launches=htrain_implied, **htrain_rows)
+
+# preemption: a Trainer on reduced zamba2-7b at head_dim 112 under Adafactor,
+# 4 steps, against one preempted after 2 and resumed by a fresh Trainer; the
+# two end bitwise equal (the stacks' factor pairs go through the checkpoint)
+htmp = tempfile.mkdtemp(prefix="chip_smoke_hybrid_")
+hcfg = hybrid_train_config("zamba2-7b", {"head_dim": 112}, "adafactor")
+
+
+def hybrid_trainer(sub):
+    return Trainer(hcfg, HYBRID_TRAIN["settings"],
+                   TrainerConfig(ckpt_dir=os.path.join(htmp, sub), ckpt_every=1000, log_every=1,
+                                 seed=37),
+                   data=hybrid_train_data(hcfg, 37), device=DEV)
+
+
+kernels.reset_launch_counts()
+href = hybrid_trainer("ref")
+href.run(4)
+hpre = hybrid_trainer("pre")
+hpre.run(2)
+check(hpre.on_preempt(now=0.0, deadline=60.0) is PreemptAck.DRAINED, "hybrid train: drain not DRAINED")
+hres = hybrid_trainer("pre")
+hres.init_or_restore()
+check(hres.step == 2, f"hybrid train: resumed at step {hres.step}")
+hres.run(until_step=4)
+count_launches(kernels.launch_counts(), train_implied(hcfg, 8), "hybrid train resume")
+hwant, hgot = state_tensors(href.params, href.opt_state), state_tensors(hres.params, hres.opt_state)
+check(sorted(hwant) == sorted(hgot) and "opt.nu.mamba_groups.in_proj.row" in hwant,
+      "hybrid train: state names differ, or no stacked factors")
+unequal = [key for key in hwant if not torch.equal(hwant[key], hgot[key])]
+check(not unequal, f"hybrid train: resumed state differs from the uninterrupted run at {unequal[:5]}")
+emit("hybrid_train_resume", config="zamba2-7b reduced, hd 112, f32, flash, Adafactor",
+     uninterrupted_steps=4, preempted_after=2, tensors=len(hwant), bitwise_equal=True,
+     losses=[h_["loss"] for h_ in href.history])
+del href, hpre, hres, hwant, hgot
+shutil.rmtree(htmp, ignore_errors=True)
+
+# full-width zamba2-7b at full depth (81 layers, 6.75 B parameters) trained:
+# bf16 parameters drawn on the card, Adafactor, flash attention, remat
+# "full", 4 x 1,024 tokens a step in one microbatch
+gc.collect()
+torch.cuda.empty_cache()
+free_gib("zamba2-7b training, 81 layers, bf16, Adafactor", "hybrid_train_memory")
+ztcfg = dataclasses.replace(ZAMBA, params_dtype="bfloat16", optimizer="adafactor", attention_impl="flash")
+check(ztcfg.remat == "full", "hybrid train: zamba2-7b is expected with full remat")
+ZT_GROUPS = ztcfg.n_layers // ztcfg.shared_attn_every
+ztsettings = TrainSettings(learning_rate=3e-4, warmup_steps=2, total_steps=1000)
+ztdata = SyntheticLMDataset(DataConfig(vocab_size=ztcfg.vocab_size, seq_len=1024, global_batch=4, seed=38))
+t0 = time.perf_counter()
+ztp = tm.init_params(ztcfg, torch.Generator(device=DEV).manual_seed(38), device=DEV)
+ztopt = make_optimizer("adafactor", weight_decay=ztsettings.weight_decay)
+zts = ztopt.init(dict(ztp.named_parameters()))
+torch.cuda.synchronize()
+ztinit_s = time.perf_counter() - t0
+ztcount = sum(p_.numel() for p_ in ztp.parameters())
+check(ztcount == 6_751_130_832, f"hybrid train: zamba2-7b has {ztcount} parameters")
+factor_gib = sum(x.numel() * 4 for t in zts.nu.values() for x in (t if isinstance(t, tuple) else (t,))) / 2**30
+param_gib = 2 * ztcount / 2**30
+# the peak reckoned: parameters, their gradients and the clip's copy of them
+# (the gradients freed once the clip returns), then the deltas beside the
+# clipped gradients; the factors; one group's activations recomputed in the
+# backward (6 Mamba layers: the chunks' (B, Q, Q, H) f32 tensors and the
+# projections, about 1.3 GiB a layer at 4 x 1,024) and a few entries' f32
+# temporaries of the optimizer
+reckoned_gib = 3 * param_gib + factor_gib + 6 * 1.3 + 1.0
+emit("hybrid_train_memory", resident_gib=torch.cuda.memory_allocated() / 2**30, parameters=ztcount,
+     parameters_gib=param_gib, factors_gib=factor_gib, reckoned_peak_gib=reckoned_gib,
+     free_gib=torch.cuda.mem_get_info()[0] / 2**30)
+# the first step's loss and gradient norm with reference attention on the
+# batch of the first step (the flash step's own come from the train step
+# below); both finite, their gaps printed (with these random weights the
+# two bf16 paths decorrelate at this depth: phase 8c's 81-layer forwards)
+zb0 = {key: torch.from_numpy(val).to(DEV) for key, val in ztdata.batch_at(0).items()}
+zref_cfg = dataclasses.replace(ztcfg, attention_impl="reference")
+zloss, _ = tm.forward_train(zref_cfg, ztp, zb0)
+zgrads = torch.autograd.grad(zloss, list(ztp.parameters()))
+zref = (float(zloss.detach()), float(torch.sqrt(sum(torch.sum(torch.square(g_.float())) for g_ in zgrads))))
+del zloss, zgrads
+torch.cuda.empty_cache()
+zstep = make_train_step(ztcfg, ztsettings, ztopt)
+torch.cuda.reset_peak_memory_stats()
+kernels.reset_launch_counts()
+zstep_s, zhist = [], []
+for i in range(3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ztp, zts, met = zstep(ztp, zts, ztdata.batch_at(i))
+    torch.cuda.synchronize()
+    zstep_s.append(time.perf_counter() - t0)
+    zhist.append({key: float(met[key]) for key in ("loss", "grad_norm", "lr")})
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ztp, zts, met = zstep(ztp, zts, ztdata.batch_at(3))
+    torch.cuda.synchronize()
+    ztraced_s = time.perf_counter() - t0
+zhist.append({key: float(met[key]) for key in ("loss", "grad_norm", "lr")})
+zpeak_gib = torch.cuda.max_memory_allocated() / 2**30
+ztrain_counts = kernels.launch_counts()
+count_launches(ztrain_counts, train_implied(ztcfg, 4), "hybrid train: zamba2-7b")
+for h_ in zhist:
+    check(np.isfinite(h_["loss"]) and np.isfinite(h_["grad_norm"]), f"hybrid train: zamba2-7b step {h_}")
+check(all(np.isfinite(zref)), f"hybrid train: zamba2-7b reference first step {zref}")
+zbusy = busy_us(prof)
+zby_class = {}
+for a, b_, name in device_spans(prof):
+    key = ("flash_fwd" if "flash_fwd" in name else "flash_bwd_dq" if "flash_bwd_dq" in name
+           else "flash_bwd_dkv_reduce" if "flash_bwd_dkv_reduce" in name
+           else "flash_bwd_dkv" if "flash_bwd_dkv" in name else "rmsnorm" if "rmsnorm" in name
+           else "gemm" if any(t in name for t in ("gemm", "nvjet", "sm90", "cutlass", "Kernel2"))
+           else "other ops")
+    zby_class[key] = zby_class.get(key, 0.0) + (b_ - a)
+del prof
+ztokens = 4 * 1024
+zflops = ztokens * (6 * ztcount + 6 * ZT_GROUPS * ztcfg.n_heads * ztcfg.resolved_head_dim * 1024)
+zp50 = float(np.median(zstep_s))
+emit("hybrid_train", config="zamba2-7b full width and depth: 81 Mamba2 layers, d=3584, the shared "
+     "attention block every 6 (32 heads, hd 112); bf16 parameters (seed 38), Adafactor, flash "
+     "attention, remat full", card=smi, batch="4 x 1,024 tokens a step, one microbatch",
+     init_seconds=ztinit_s, first_step={"flash": zhist[0]["loss"], "flash_grad_norm": zhist[0]["grad_norm"],
+                                        "reference": zref[0], "reference_grad_norm": zref[1],
+                                        "loss_rel_gap": abs(zhist[0]["loss"] - zref[0]) / abs(zref[0]),
+                                        "grad_norm_rel_gap": abs(zhist[0]["grad_norm"] - zref[1]) / zref[1]},
+     step_seconds=zstep_s, step_p50_s=zp50, tokens_per_s=ztokens / zp50, model_flops_per_step=zflops,
+     mfu_vs_989_tflops=zflops / zp50 / BF16_FLOPS, peak_device_gib=zpeak_gib,
+     reckoned_peak_gib=reckoned_gib, history=zhist, traced_step_s=ztraced_s,
+     device_busy_s=zbusy / 1e6,
+     device_busy_share=(zbusy / 1e6) / ztraced_s if zbusy else "not measured (empty trace)",
+     device_ms_per_step_by_class={key: v_ / 1e3 for key, v_ in sorted(zby_class.items())},
+     launches={key: ztrain_counts[key] for key in train_implied(ztcfg, 4)},
+     launches_implied=train_implied(ztcfg, 4))
+del ztp, zts, zb0, zstep, ztopt
+gc.collect()
+torch.cuda.empty_cache()
+
+# full-width xlstm-125m under its own config (f32 parameters, AdamW, no
+# attention): two steps at 4 x 1,024 tokens
+xtcfg = XLSTM
+xtdata = SyntheticLMDataset(DataConfig(vocab_size=xtcfg.vocab_size, seq_len=1024, global_batch=4, seed=39))
+xtp = tm.init_params(xtcfg, torch.Generator(device=DEV).manual_seed(39), device=DEV)
+xtopt = make_optimizer(xtcfg.optimizer, weight_decay=ztsettings.weight_decay)
+xts = xtopt.init(dict(xtp.named_parameters()))
+xstep = make_train_step(xtcfg, ztsettings, xtopt)
+kernels.reset_launch_counts()
+torch.cuda.reset_peak_memory_stats()
+xstep_s, xhist = [], []
+for i in range(2):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xtp, xts, met = xstep(xtp, xts, xtdata.batch_at(i))
+    torch.cuda.synchronize()
+    xstep_s.append(time.perf_counter() - t0)
+    xhist.append({key: float(met[key]) for key in ("loss", "grad_norm", "lr")})
+    check(np.isfinite(xhist[-1]["loss"]) and np.isfinite(xhist[-1]["grad_norm"]),
+          f"hybrid train: xlstm-125m step {xhist[-1]}")
+count_launches(kernels.launch_counts(), train_implied(xtcfg, 2), "hybrid train: xlstm-125m")
+emit("hybrid_train_xlstm", config="xlstm-125m full width: 12 blocks (sLSTM every 4th), d=768, "
+     f"{xtcfg.params_dtype} parameters, {xtcfg.optimizer}, remat {xtcfg.remat} (the blocks are "
+     "not rematerialized, as in the JAX package)", card=smi, batch="4 x 1,024 tokens a step",
+     parameters=sum(p_.numel() for p_ in xtp.parameters()), step_seconds=xstep_s,
+     tokens_per_s=4 * 1024 / float(np.median(xstep_s)), history=xhist,
+     peak_device_gib=torch.cuda.max_memory_allocated() / 2**30)
+del xtp, xts, xstep, xtopt
+gc.collect()
+torch.cuda.empty_cache()
+emit("hybrid_train_phase", seconds=time.perf_counter() - t_htrain)
 
 # ---------------------------------------------------------------------------
 # 12. the kernels line, the card, the result

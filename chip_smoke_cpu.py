@@ -1,6 +1,6 @@
 """The CPU side of ``chip_smoke.py``'s card-against-CPU checks: the
 simulators' (phases 4 to 5f) and the reduced hybrid and xLSTM models'
-(phase 8c).
+(phase 8c) and their training (phase 11b).
 
     python3 chip_smoke_cpu.py OUT_DIR
 
@@ -42,7 +42,11 @@ from repro_torch.core.soa_fleet import SoAFleet  # noqa: E402
 from repro_torch.core.torch_scheduler import TorchPreemptibleScheduler  # noqa: E402
 from repro_torch.core.types import Host  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
+from repro_torch.optim import make_optimizer  # noqa: E402
+from repro_torch.training import TrainSettings, make_train_step  # noqa: E402
+from repro_torch.training.trainer import state_tensors  # noqa: E402
 
 MEDIUM = fleets.SIZES["medium"]
 COUNTERS = ("failures_normal", "failures_preemptible", "placed_normal",
@@ -338,12 +342,55 @@ def _hybrid(arch, overrides, seed):
                 logits=logits.numpy(), exact=exact.numpy(), seconds=sec)
 
 
+#: phase 11b trains the same reduced models (f32, flash, remat full) under
+#: each optimizer: 3 ``make_train_step`` steps of 4 x 64 tokens, with phase
+#: 10's settings (the first step's learning rate 0: AdamW's first move is
+#: +-lr whatever the gradient's size)
+HYBRID_TRAIN = dict(optimizers=("adafactor", "adamw"), steps=3,
+                    settings=TrainSettings(total_steps=50, warmup_steps=2, learning_rate=1e-3))
+
+
+def hybrid_train_config(arch, overrides, optimizer):
+    return dataclasses.replace(hybrid_config(arch, overrides), optimizer=optimizer, remat="full")
+
+
+def hybrid_train_data(cfg, seed):
+    return SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+                                         seed=seed))
+
+
+def _state(params, opt_state):
+    return {k: t.detach().numpy().copy() for k, t in state_tensors(params, opt_state).items()}
+
+
+def _hybrid_train(arch, overrides, seed, optimizer):
+    """The reduced model's training on the CPU: its state (``state_tensors``
+    as numpy) before the first step and after each, and each step's loss
+    and gradient norm."""
+    cfg = hybrid_train_config(arch, overrides, optimizer)
+    settings = HYBRID_TRAIN["settings"]
+    params = tm.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    opt = make_optimizer(optimizer, weight_decay=settings.weight_decay)
+    opt_state = opt.init(dict(params.named_parameters()))
+    step = make_train_step(cfg, settings, opt)
+    data = hybrid_train_data(cfg, seed)
+    states, metrics = [_state(params, opt_state)], []
+    t = time.perf_counter()
+    for i in range(HYBRID_TRAIN["steps"]):
+        params, opt_state, met = step(params, opt_state, data.batch_at(i))
+        states.append(_state(params, opt_state))
+        metrics.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+    return dict(states=states, metrics=metrics, seconds=time.perf_counter() - t)
+
+
 JOBS = (("parity", _parity), ("rebuild", _rebuild), ("admission", _admission),
         ("reloc_direct", lambda: _reloc(False)), ("reloc_streaming", lambda: _reloc(True)),
         ("scan_direct", lambda: _scan("direct")), ("scan_streaming", lambda: _scan("streaming")),
         ("scan_mult", _mult), ("ragged", _ragged)) + tuple(
     (f"hybrid {name}", lambda a=arch, o=over, sd=seed: _hybrid(a, o, sd))
-    for name, arch, over, seed in HYBRID_CASES)
+    for name, arch, over, seed in HYBRID_CASES) + tuple(
+    (f"hybrid train {name} {opt}", lambda a=arch, o=over, sd=seed, op=opt: _hybrid_train(a, o, sd, op))
+    for name, arch, over, seed in HYBRID_CASES for opt in HYBRID_TRAIN["optimizers"])
 
 
 #: CPU threads of this process: it runs beside chip_smoke.py's host loop on

@@ -108,6 +108,14 @@
 //   * Each block writes f32 partials of its q head; the reduce kernel sums
 //     the rep heads of a group in head order and casts to k's type.
 //
+// Head dims 32, 64, 112, 128 and 256.  hd 112 (zamba2-7b's shared attention)
+// runs the hd-128 tiling of either route over rows of 112 values, as the
+// forward does: the bf16 route's tensor maps of q, k, v and dO are 112
+// columns wide, so TMA fills the tiles' columns 112-127 with zeros; the f32
+// route's cp.async loads zero-fill them.  Every product adds exact zeros
+// there, and dq and the dk/dv partials store 112 columns.  The scale is the
+// caller's, 1/sqrt(112).
+//
 // C interface (loaded with ctypes); each entry returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,7 +140,7 @@ constexpr int dkv_smem_bytes() {
     return static_cast<int>(sizeof(float)) * (6 * C::T + 2 * C::B * C::B + 4 * C::B);
 }
 
-template <int HD>
+template <int HD, int GHD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
@@ -155,16 +163,16 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     // (k0 is a multiple of the q tile's height)
     const int q_begin = causal ? k0 : 0;
     const int n_qt = q_begin < sq ? (sq - q_begin + B - 1) / B : 0;
-    const float* qh = q + static_cast<size_t>(bh) * sq * HD;
-    const float* doh = dout + static_cast<size_t>(bh) * sq * HD;
-    const size_t kvoff = (static_cast<size_t>(bh / rep) * skv + k0) * HD;
+    const float* qh = q + static_cast<size_t>(bh) * sq * GHD;
+    const float* doh = dout + static_cast<size_t>(bh) * sq * GHD;
+    const size_t kvoff = (static_cast<size_t>(bh / rep) * skv + k0) * GHD;
 
-    load_tile<HD>(ks, k + kvoff, skv - k0);
-    load_tile<HD>(vs, v + kvoff, skv - k0);
+    load_tile<HD, GHD>(ks, k + kvoff, skv - k0);
+    load_tile<HD, GHD>(vs, v + kvoff, skv - k0);
     auto load_q = [&](int it) {
         const int st = it & 1, q0 = q_begin + it * B;
-        load_tile<HD>(qdo + 2 * st * T, qh + static_cast<size_t>(q0) * HD, sq - q0);
-        load_tile<HD>(qdo + (2 * st + 1) * T, doh + static_cast<size_t>(q0) * HD, sq - q0);
+        load_tile<HD, GHD>(qdo + 2 * st * T, qh + static_cast<size_t>(q0) * GHD, sq - q0);
+        load_tile<HD, GHD>(qdo + (2 * st + 1) * T, doh + static_cast<size_t>(q0) * GHD, sq - q0);
         for (int i = threadIdx.x; i < 2 * B; i += kThreads) {
             const int r = i % B;
             const bool in = q0 + r < sq;
@@ -214,9 +222,9 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
     cp_async_wait<0>();
 
-    const size_t out = (static_cast<size_t>(bh) * skv + k0) * HD;
-    store_rows<HD>(dk_part + out, dk, r0, cg, skv - k0);
-    store_rows<HD>(dv_part + out, dv, r0, cg, skv - k0);
+    const size_t out = (static_cast<size_t>(bh) * skv + k0) * GHD;
+    store_rows<HD, GHD>(dk_part + out, dk, r0, cg, skv - k0);
+    store_rows<HD, GHD>(dv_part + out, dv, r0, cg, skv - k0);
 }
 
 // dq: Q, dO [B][HD]; per stage K, V [B][HD]; dS^T by key row [B][B]
@@ -226,7 +234,7 @@ constexpr int dq_smem_bytes() {
     return static_cast<int>(sizeof(float)) * (6 * C::T + C::B * C::B);
 }
 
-template <int HD>
+template <int HD, int GHD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
@@ -244,16 +252,16 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     const int q0 = (gridDim.y - 1 - blockIdx.y) * B;  // the last (heaviest, when causal) tiles first
     const int kv_end = causal ? min(skv, q0 + B) : skv;  // keys the block's rows see
     const int n_kt = (kv_end + B - 1) / B;
-    const size_t qoff = (static_cast<size_t>(bh) * sq + q0) * HD;
-    const float* kh = k + static_cast<size_t>(bh / rep) * skv * HD;
-    const float* vh = v + static_cast<size_t>(bh / rep) * skv * HD;
+    const size_t qoff = (static_cast<size_t>(bh) * sq + q0) * GHD;
+    const float* kh = k + static_cast<size_t>(bh / rep) * skv * GHD;
+    const float* vh = v + static_cast<size_t>(bh / rep) * skv * GHD;
 
-    load_tile<HD>(qs, q + qoff, sq - q0);
-    load_tile<HD>(dos, dout + qoff, sq - q0);
+    load_tile<HD, GHD>(qs, q + qoff, sq - q0);
+    load_tile<HD, GHD>(dos, dout + qoff, sq - q0);
     auto load_kv = [&](int it) {
         const int st = it & 1, kv0 = it * B;
-        load_tile<HD>(kvs + 2 * st * T, kh + static_cast<size_t>(kv0) * HD, skv - kv0);
-        load_tile<HD>(kvs + (2 * st + 1) * T, vh + static_cast<size_t>(kv0) * HD, skv - kv0);
+        load_tile<HD, GHD>(kvs + 2 * st * T, kh + static_cast<size_t>(kv0) * GHD, skv - kv0);
+        load_tile<HD, GHD>(kvs + (2 * st + 1) * T, vh + static_cast<size_t>(kv0) * GHD, skv - kv0);
     };
     if (n_kt > 0) load_kv(0);
     cp_async_commit();
@@ -303,33 +311,35 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
         cp_async_commit();
     }
     cp_async_wait<0>();
-    store_rows<HD>(dq + qoff, acc, r0, cg, sq - q0);
+    store_rows<HD, GHD>(dq + qoff, acc, r0, cg, sq - q0);
 }
 
-template <int HD>
+// HD the tile's columns, GHD a row's in global memory (GHD < HD: the loads
+// zero-fill the columns past GHD, and only GHD are stored)
+template <int HD, int GHD = HD>
 int launch_dq(const float* q, const float* k, const float* v, const float* dout, const float* lse,
               const float* delta, float* dq, int bh, int bg, int sq, int skv, int causal,
               float scale, cudaStream_t stream) {
     constexpr int bytes = dq_smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<HD, GHD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(bh, (sq + Cfg<HD>::B - 1) / Cfg<HD>::B);
-    flash_bwd_dq_f32_kernel<HD><<<grid, kThreads, bytes, stream>>>(q, k, v, dout, lse, delta, dq,
-                                                                   bh / bg, sq, skv, causal, scale);
+    flash_bwd_dq_f32_kernel<HD, GHD><<<grid, kThreads, bytes, stream>>>(
+        q, k, v, dout, lse, delta, dq, bh / bg, sq, skv, causal, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, int GHD = HD>
 int launch_dkv(const float* q, const float* k, const float* v, const float* dout, const float* lse,
                const float* delta, float* dk_part, float* dv_part, int bh, int bg, int sq, int skv,
                int causal, float scale, cudaStream_t stream) {
     constexpr int bytes = dkv_smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<HD, GHD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(bh, (skv + Cfg<HD>::B - 1) / Cfg<HD>::B);
-    flash_bwd_dkv_f32_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+    flash_bwd_dkv_f32_kernel<HD, GHD><<<grid, kThreads, bytes, stream>>>(
         q, k, v, dout, lse, delta, dk_part, dv_part, bh / bg, sq, skv, causal, scale);
     return static_cast<int>(cudaGetLastError());
 }
@@ -364,7 +374,7 @@ struct Cfg {
     static constexpr int SMEM = ROWS_OFF + 2 * STAGES * BM * 4 + 64 + 1024;
 };
 
-template <int HD>
+template <int HD, int GHD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -511,9 +521,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int h = 0; h < 2; ++h) {
         const int key = kfirst + r_lo + 8 * h;
         if (key >= skv) continue;
-        const size_t at = (static_cast<size_t>(bh) * skv + key) * HD + coff + c_lo;
+        const size_t at = (static_cast<size_t>(bh) * skv + key) * GHD + coff + c_lo;
 #pragma unroll
         for (int j = 0; j < C::NC / 8; ++j) {
+            if (GHD < HD && coff + 8 * j >= GHD) continue;  // the tile's zero padding
             *reinterpret_cast<float2*>(dk_part + at + 8 * j) = make_float2(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
             *reinterpret_cast<float2*>(dv_part + at + 8 * j) = make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
         }
@@ -540,7 +551,7 @@ struct DqCfg {
     static constexpr int SMEM = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 64 + 1024;
 };
 
-template <int HD>
+template <int HD, int GHD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -677,46 +688,55 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int h = 0; h < 2; ++h) {
         const int row = row0 + r_lo + 8 * h;
         if (row >= sq) continue;
-        __nv_bfloat16* out = dq + (static_cast<size_t>(bh) * sq + row) * HD + coff;
+        __nv_bfloat16* out = dq + (static_cast<size_t>(bh) * sq + row) * GHD + coff;
 #pragma unroll
-        for (int j = 0; j < C::NC / 8; ++j)
+        for (int j = 0; j < C::NC / 8; ++j) {
+            if (GHD < HD && coff + 8 * j >= GHD) continue;  // the tile's zero padding
             *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + c_lo) =
                 __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
     }
 }
 
-template <int HD>
+// HD the tile's columns, GHD a row's in global memory: with GHD < HD the
+// tensor maps have GHD columns, so TMA fills the tiles' columns past GHD
+// with zeros (the box still counts its full bytes), the products add exact
+// zeros there, and only GHD columns are stored
+template <int HD, int GHD = HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, __nv_bfloat16* dq, int bh, int bg, int sq, int skv, int causal,
               float scale, cudaStream_t stream) {
     using C = DqCfg<HD>;
+    static_assert(GHD <= HD && GHD % 8 == 0, "a row of GHD bf16 values, 16-byte strides");
     CUtensorMap tq, tk, tv, tdo;
-    if (!encode_3d(&tq, q, HD, sq, bh, C::SW, C::BM) || !encode_3d(&tdo, dout, HD, sq, bh, C::SW, C::BM) ||
-        !encode_3d(&tk, k, HD, skv, bg, C::SW, C::BN) || !encode_3d(&tv, v, HD, skv, bg, C::SW, C::BN))
+    if (!encode_3d(&tq, q, GHD, sq, bh, C::SW, C::BM) || !encode_3d(&tdo, dout, GHD, sq, bh, C::SW, C::BM) ||
+        !encode_3d(&tk, k, GHD, skv, bg, C::SW, C::BN) || !encode_3d(&tv, v, GHD, skv, bg, C::SW, C::BN))
         return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<HD, GHD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(bh, (sq + C::BM - 1) / C::BM);
-    flash_bwd_dq_wgmma_kernel<HD><<<grid, kThreads, C::SMEM, stream>>>(
+    flash_bwd_dq_wgmma_kernel<HD, GHD><<<grid, kThreads, C::SMEM, stream>>>(
         tq, tk, tv, tdo, lse, delta, dq, bh / bg, sq, skv, causal, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+// GHD as in launch_dq; the f32 partials are GHD wide
+template <int HD, int GHD = HD>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, float* dk_part, float* dv_part, int bh, int bg, int sq, int skv,
            int causal, float scale, cudaStream_t stream) {
     using C = Cfg<HD>;
+    static_assert(GHD <= HD && GHD % 8 == 0, "a row of GHD bf16 values, 16-byte strides");
     CUtensorMap tq, tk, tv, tdo;
-    if (!encode_3d(&tq, q, HD, sq, bh, C::SW, C::BM) || !encode_3d(&tdo, dout, HD, sq, bh, C::SW, C::BM) ||
-        !encode_3d(&tk, k, HD, skv, bg, C::SW, C::BN) || !encode_3d(&tv, v, HD, skv, bg, C::SW, C::BN))
+    if (!encode_3d(&tq, q, GHD, sq, bh, C::SW, C::BM) || !encode_3d(&tdo, dout, GHD, sq, bh, C::SW, C::BM) ||
+        !encode_3d(&tk, k, GHD, skv, bg, C::SW, C::BN) || !encode_3d(&tv, v, GHD, skv, bg, C::SW, C::BN))
         return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<HD, GHD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(bh, (skv + C::BN - 1) / C::BN);
-    flash_bwd_dkv_wgmma_kernel<HD><<<grid, kThreads, C::SMEM, stream>>>(
+    flash_bwd_dkv_wgmma_kernel<HD, GHD><<<grid, kThreads, C::SMEM, stream>>>(
         tq, tk, tv, tdo, lse, delta, dk_part, dv_part, bh / bg, sq, skv, causal, scale);
     return static_cast<int>(cudaGetLastError());
 }
@@ -800,6 +820,7 @@ extern "C" int flash_attention_dq_f32_launch(const void* q, const void* k, const
     switch (hd) {
         case 32: return f32::launch_dq<32>(fq, fk, fv, fd, l, d, o, bh, bg, sq, skv, causal, scale, s);
         case 64: return f32::launch_dq<64>(fq, fk, fv, fd, l, d, o, bh, bg, sq, skv, causal, scale, s);
+        case 112: return f32::launch_dq<128, 112>(fq, fk, fv, fd, l, d, o, bh, bg, sq, skv, causal, scale, s);
         case 128: return f32::launch_dq<128>(fq, fk, fv, fd, l, d, o, bh, bg, sq, skv, causal, scale, s);
         case 256: return f32::launch_dq<256>(fq, fk, fv, fd, l, d, o, bh, bg, sq, skv, causal, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
@@ -818,6 +839,7 @@ extern "C" int flash_attention_dq_bf16_launch(const void* q, const void* k, cons
     switch (hd) {
         case 32: return wg::launch_dq<32>(q, k, v, dout, l, d, o, bh, bg, sq, skv, causal, scale, s);
         case 64: return wg::launch_dq<64>(q, k, v, dout, l, d, o, bh, bg, sq, skv, causal, scale, s);
+        case 112: return wg::launch_dq<128, 112>(q, k, v, dout, l, d, o, bh, bg, sq, skv, causal, scale, s);
         case 128: return wg::launch_dq<128>(q, k, v, dout, l, d, o, bh, bg, sq, skv, causal, scale, s);
         case 256: return wg::launch_dq<256>(q, k, v, dout, l, d, o, bh, bg, sq, skv, causal, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
@@ -840,6 +862,7 @@ extern "C" int flash_attention_dkv_f32_launch(const void* q, const void* k, cons
     switch (hd) {
         case 32: return f32::launch_dkv<32>(fq, fk, fv, fd, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
         case 64: return f32::launch_dkv<64>(fq, fk, fv, fd, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
+        case 112: return f32::launch_dkv<128, 112>(fq, fk, fv, fd, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
         case 128: return f32::launch_dkv<128>(fq, fk, fv, fd, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
         case 256: return f32::launch_dkv<256>(fq, fk, fv, fd, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
@@ -859,6 +882,7 @@ extern "C" int flash_attention_dkv_bf16_launch(const void* q, const void* k, con
     switch (hd) {
         case 32: return wg::launch<32>(q, k, v, dout, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
         case 64: return wg::launch<64>(q, k, v, dout, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
+        case 112: return wg::launch<128, 112>(q, k, v, dout, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
         case 128: return wg::launch<128>(q, k, v, dout, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
         case 256: return wg::launch<256>(q, k, v, dout, l, d, pk, pv, bh, bg, sq, skv, causal, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);

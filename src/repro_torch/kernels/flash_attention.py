@@ -32,18 +32,21 @@ from . import _build
 
 #: launches of the CUDA kernels: the bf16 forward, dq and dk/dv (tensor
 #: cores) and the dk/dv reduction over grouped heads, and their f32 routes;
-#: the forward's hd-112 instantiations (zamba2-7b's) count apart.
+#: the forward's, dq's and dk/dv's hd-112 instantiations (zamba2-7b's) count
+#: apart, under the key with ``_hd112`` appended.
 LAUNCHES = {"flash_attention": 0, "flash_attention_f32": 0, "flash_attention_hd112": 0,
             "flash_attention_f32_hd112": 0, "flash_attention_dq": 0,
-            "flash_attention_dq_f32": 0, "flash_attention_dkv": 0,
-            "flash_attention_dkv_reduce": 0, "flash_attention_dkv_f32": 0,
+            "flash_attention_dq_f32": 0, "flash_attention_dq_hd112": 0,
+            "flash_attention_dq_f32_hd112": 0, "flash_attention_dkv": 0,
+            "flash_attention_dkv_f32": 0, "flash_attention_dkv_hd112": 0,
+            "flash_attention_dkv_f32_hd112": 0, "flash_attention_dkv_reduce": 0,
             "flash_attention_dkv_reduce_f32": 0}
 
 NEG_INF = -1e30
-#: the head dims of the forward kernels (112, zamba2-7b's, through the
-#: hd-128 tiling zero padded) and of the backward kernels
+#: the head dims of the forward kernels and of the backward kernels (112,
+#: zamba2-7b's, through the hd-128 tiling zero padded, on both)
 FWD_HEAD_DIMS = (32, 64, 112, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 112, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 #: ``flash_attention_fwd_{bf16,f32}_launch``: q, k, v, o, lse, bh, bg, sq,
 #: skv, hd, causal, scale, stream
@@ -122,10 +125,7 @@ def _check_cuda(q, k, v, head_dims=FWD_HEAD_DIMS):
     _check_shapes(q, k, v)
     hd = q.shape[3]
     if hd not in head_dims:
-        more = (" (the backward at head_dim 112 is ROADMAP §1 item 20)"
-                if hd in FWD_HEAD_DIMS else "")
-        raise ValueError(f"flash_attention: the kernel takes head_dim in {head_dims}, got {hd}"
-                         + more)
+        raise ValueError(f"flash_attention: the kernel takes head_dim in {head_dims}, got {hd}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype or t.dtype not in _DTYPES:
             raise ValueError(f"flash_attention: q, k, v must share float32 or bfloat16; "
@@ -254,6 +254,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal):
         route = "bf16" if q.dtype == torch.bfloat16 else "f32"
         dq_key, dkv_key = (("flash_attention_dq", "flash_attention_dkv") if route == "bf16" else
                            ("flash_attention_dq_f32", "flash_attention_dkv_f32"))
+        if hd == 112:
+            dq_key, dkv_key = dq_key + "_hd112", dkv_key + "_hd112"
         fn_dq = _build.entry("flash_attention_bwd", f"flash_attention_dq_{route}_launch",
                              _DQ_ARGTYPES)
         fn_dkv = _build.entry("flash_attention_bwd", f"flash_attention_dkv_{route}_launch",

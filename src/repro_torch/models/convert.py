@@ -10,8 +10,10 @@ d, F); the hybrid's ``mamba_groups/in_proj`` (groups, every, d, ·) and
 AdamW's moments by the same names (``model.stacks`` says which subtrees
 are stacked; xLSTM's unrolled ``layers.mlstm_<i>`` are not).  Adafactor's
 second moment stays stacked in the port too (its ``(row, col)`` factors
-belong to the whole ``(L, ...)`` leaf), keyed ``layers.<rest>``.  Every
-direction copies the values exactly.
+belong to the whole stacked leaf), keyed by the JAX leaf's name:
+``layers.<rest>``, ``mamba_groups.<rest>``, ``mamba_tail.<rest>``, and
+xLSTM's ``layers.mlstm_<i>.<rest>`` as they are.  Every direction copies
+the values exactly.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ def _flat_from_tree(cfg: ModelConfig, tree: Dict[str, Any], device) -> Dict[str,
 
 def _nu_from_tree(tree: Dict[str, Any], device) -> Dict[str, Any]:
     """Adafactor's second-moment tree as the port keeps it: one entry per
-    JAX leaf (layers still stacked), a ``(row, col)`` pair where factored."""
+    JAX leaf (stacks kept whole), a ``(row, col)`` pair where factored."""
     return {name: tuple(_to_tensor(x, device) for x in a) if isinstance(a, tuple)
             else _to_tensor(a, device) for name, a in _leaves(tree)}
 

@@ -100,19 +100,29 @@ def _xlstm_name(cfg: ModelConfig, i: int) -> str:
     return f"{'slstm' if _is_slstm(cfg, i) else 'mlstm'}_{i}"
 
 
+#: every subtree any JAX tree stacks, by prefix, and the number of leading
+#: axes its stack adds (``stacks`` gives a config's own); a port name
+#: ``<prefix>.<i>[.<j>].<rest>`` is entry (i[, j]) of the stacked leaf
+#: ``<prefix>.<rest>``.  xLSTM's ``layers`` holds ``mlstm_<i>`` / ``slstm_<i>``
+#: subtrees, which the JAX tree keeps unstacked.
+STACK_DEPTH = {"layers": 1, "mamba_groups": 2, "mamba_tail": 1}
+
+
 def stacks(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
     """The JAX tree's stacked subtrees: prefix → (its leading stack shape,
     the fan-in the JAX package's init gives a normal leaf there: the outer
     stack count, ``d.shape[0]`` of the stacked definition)."""
     if cfg.block_pattern == "attention":
-        return {"layers": ((cfg.n_layers,), cfg.n_layers)}
-    if cfg.block_pattern == "zamba_hybrid":
+        out = {"layers": ((cfg.n_layers,), cfg.n_layers)}
+    elif cfg.block_pattern == "zamba_hybrid":
         groups, tail = divmod(cfg.n_layers, cfg.shared_attn_every)
         out = {"mamba_groups": ((groups, cfg.shared_attn_every), groups)}
         if tail:
             out["mamba_tail"] = ((tail,), tail)
-        return out
-    return {}
+    else:
+        out = {}
+    assert all(len(lead) == STACK_DEPTH[prefix] for prefix, (lead, _) in out.items())
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -7,13 +7,20 @@ returns the parameter deltas and the new ``OptState``.  Differences:
 * AdamW updates its moments ``mu`` and ``nu`` in place (the returned state
   holds the same tensors), where the JAX package returns new trees; the
   arithmetic is the same, operation for operation, so the values are too.
-* The JAX package stacks the L decoder layers into one leaf; here each
-  layer's tensor is its own entry (``layers.<i>.<rest>``).  AdamW is
-  elementwise, so that changes nothing.  Adafactor is not: it groups the
-  entries of every ``<rest>`` and runs on their ``(L, ...)`` stack in layer
-  order, so its factors (keyed ``layers.<rest>``), its row mean and its RMS
-  clip are the JAX leaf's, and a ``(L, d)`` stack is factored; the deltas
-  come back per layer.
+* The JAX package stacks scanned layers into one leaf; here each layer's
+  tensor is its own entry: ``layers.<i>.<rest>`` for the (L, ...) stack,
+  ``mamba_groups.<g>.<i>.<rest>`` for the hybrid's (groups, every, ...)
+  and ``mamba_tail.<i>.<rest>`` for its (tail, ...); xLSTM's
+  ``layers.mlstm_<i>.*`` are whole leaves in the JAX tree too
+  (``models.model.STACK_DEPTH`` names the stacks; a name that is neither
+  raises).  AdamW is elementwise, so that changes nothing.  Adafactor is
+  not: it keys its factors by the stacked leaf (``layers.<rest>``,
+  ``mamba_groups.<rest>``), factors over the stacked leaf's last two axes
+  (so a ``(L, d)`` norm stack is factored, and a ``(groups, every, d)`` one
+  over ``(every, d)`` in each group) and clips by the RMS of the whole
+  stacked leaf's update.  Entries of two or more axes run entry by entry in
+  two passes, so that no f32 temporary spans a stack (zamba2-7b's
+  ``in_proj`` stack is 4.07e9 values); the deltas come back per entry.
 * ``state_specs`` (shardings) has no counterpart on one card.
 
 Scalars that JAX computes in f32 (``b1 ** step``, the learning rate, the
@@ -23,10 +30,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+
+from ..models.model import STACK_DEPTH
 
 Tree = Dict[str, torch.Tensor]
 F32 = torch.float32
@@ -113,22 +123,44 @@ def _factored(shape) -> bool:
     return len(shape) >= 2
 
 
+def _place(name: str):
+    """``(stack key, index)`` of an entry of a stacked JAX leaf
+    (``layers.<i>.<rest>`` → ``("layers.<rest>", (i,))``,
+    ``mamba_groups.<g>.<i>.<rest>`` → ``("mamba_groups.<rest>", (g, i))``),
+    or None for a leaf the JAX tree keeps whole (``embed``, ``shared.*``,
+    xLSTM's ``layers.mlstm_<i>.*``: no part of the name is an integer)."""
+    parts = name.split(".")
+    depth = STACK_DEPTH.get(parts[0], 0)
+    index, rest = parts[1:1 + depth], parts[1 + depth:]
+    if depth and rest and all(p.isdigit() for p in index) and not any(p.isdigit() for p in rest):
+        return ".".join((parts[0], *rest)), tuple(map(int, index))
+    if not any(p.isdigit() for p in parts):
+        return None
+    raise ValueError(f"adafactor: {name} is neither a whole leaf nor an entry of a stack "
+                     f"{sorted(STACK_DEPTH)} (depths {STACK_DEPTH})")
+
+
 def _stacks(tree: Tree) -> Tuple[Dict[str, torch.Tensor], Dict[str, list]]:
-    """``(plain, groups)``: the entries without the ``layers.`` prefix, and
-    the layer entries grouped by ``layers.<rest>``, each group a list of
-    ``(i, name)`` in layer order."""
+    """``(plain, groups)``: the entries the JAX tree keeps as whole leaves,
+    and the entries of its stacked leaves grouped by stack key, each group a
+    list of ``(index, name)`` in the stack's order (row-major)."""
     plain, groups = {}, {}
     for k, t in tree.items():
-        if k.startswith("layers."):
-            _, i, rest = k.split(".", 2)
-            groups.setdefault(f"layers.{rest}", []).append((int(i), k))
-        else:
+        placed = _place(k)
+        if placed is None:
             plain[k] = t
+        else:
+            groups.setdefault(placed[0], []).append((placed[1], k))
     for key, items in groups.items():
         items.sort()
-        if [i for i, _ in items] != list(range(len(items))):
-            raise ValueError(f"{key}: layers {[i for i, _ in items]} are not 0..L-1")
+        if [i for i, _ in items] != list(itertools.product(*map(range, _lead(items)))):
+            raise ValueError(f"{key}: stack indices {[i for i, _ in items]} are not a full grid")
     return plain, groups
+
+
+def _lead(items) -> Tuple[int, ...]:
+    """The stack's leading shape, from its sorted ``(index, name)`` list."""
+    return tuple(n + 1 for n in items[-1][0])
 
 
 def _nu_zeros(shape, device):
@@ -143,8 +175,13 @@ def adafactor_init(params: Tree) -> OptState:
     nu = {k: _nu_zeros(tuple(p.shape), p.device) for k, p in plain.items()}
     for key, items in groups.items():
         p = params[items[0][1]]
-        nu[key] = _nu_zeros((len(items),) + tuple(p.shape), p.device)
+        nu[key] = _nu_zeros(_lead(items) + tuple(p.shape), p.device)
     return OptState(step=_step0(params), mu=None, nu=nu)
+
+
+def _vhat(row, col):
+    row_mean = torch.mean(row, dim=-1, keepdim=True)
+    return (row / row_mean)[..., None] * col[..., None, :]
 
 
 def _adafactor_leaf(g, nu, beta, eps, clip_threshold):
@@ -155,8 +192,7 @@ def _adafactor_leaf(g, nu, beta, eps, clip_threshold):
         row, col = nu
         row = beta * row + (1 - beta) * torch.mean(g2, dim=-1)
         col = beta * col + (1 - beta) * torch.mean(g2, dim=-2)
-        row_mean = torch.mean(row, dim=-1, keepdim=True)
-        vhat = (row / row_mean)[..., None] * col[..., None, :]
+        vhat = _vhat(row, col)
         new_nu = (row, col)
     else:
         vhat = beta * nu + (1 - beta) * g2
@@ -164,6 +200,40 @@ def _adafactor_leaf(g, nu, beta, eps, clip_threshold):
     update = g * torch.rsqrt(vhat + eps)
     rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-12)
     return new_nu, update / torch.clamp(rms / clip_threshold, min=1.0)
+
+
+def _adafactor_stack(grads: Tree, items, nu, beta, eps, clip_threshold):
+    """``_adafactor_leaf`` on a stacked leaf whose entries are at least 2-D,
+    entry by entry, so that no f32 tensor spans the stack: an entry's factors
+    (the means over its last axis and over its second-to-last, and the row
+    factor's mean) are its own, and only the clip's mean of ``update²``
+    spans the stack.  Pass 1 updates each entry's factors and adds up its
+    sum of ``update²`` in f32; pass 2 yields ``(name, clipped update)`` for
+    each entry in turn, the update recomputed from the new factors.  The
+    arithmetic is the stacked leaf's, operation for operation, but for the
+    order of that one cross-stack sum.  Returns the new ``(row, col)`` and
+    pass 2."""
+    row, col = nu
+    new_row, new_col = torch.empty_like(row), torch.empty_like(col)
+    ssq = torch.zeros((), dtype=F32, device=row.device)
+    numel = 0
+    for idx, name in items:
+        g = grads[name].to(F32)
+        g2 = torch.square(g) + eps
+        new_row[idx] = beta * row[idx] + (1 - beta) * torch.mean(g2, dim=-1)
+        new_col[idx] = beta * col[idx] + (1 - beta) * torch.mean(g2, dim=-2)
+        del g2
+        ssq += torch.sum(torch.square(g * torch.rsqrt(_vhat(new_row[idx], new_col[idx]) + eps)))
+        numel += g.numel()
+    rms = torch.sqrt(ssq / numel + 1e-12)
+    clip = torch.clamp(rms / clip_threshold, min=1.0)
+
+    def updates():
+        for idx, name in items:
+            g = grads[name].to(F32)
+            yield name, g * torch.rsqrt(_vhat(new_row[idx], new_col[idx]) + eps) / clip
+
+    return (new_row, new_col), updates()
 
 
 @torch.no_grad()
@@ -174,19 +244,30 @@ def adafactor_update(grads: Tree, state: OptState, params: Tree, lr: torch.Tenso
     beta = 1.0 - (step.to(F32) + 1.0) ** (-decay)
     plain, groups = _stacks(grads)
     delta, new_nu = {}, {}
+
+    def put(name, update):
+        p = params[name]
+        if weight_decay:
+            update = update + weight_decay * p.to(F32)
+        delta[name] = (-lr * update).to(p.dtype)
+
     for k, g in plain.items():
         new_nu[k], update = _adafactor_leaf(g.to(F32), state.nu[k], beta, eps, clip_threshold)
-        if weight_decay:
-            update = update + weight_decay * params[k].to(F32)
-        delta[k] = (-lr * update).to(params[k].dtype)
+        put(k, update)
     for key, items in groups.items():
-        g = torch.stack([grads[name].to(F32) for _, name in items])
+        if _factored(grads[items[0][1]].shape):
+            new_nu[key], updates = _adafactor_stack(grads, items, state.nu[key], beta, eps,
+                                                    clip_threshold)
+            for name, update in updates:
+                put(name, update)
+            continue
+        # entries of fewer than 2 axes: factored (or not) across the stack,
+        # as the JAX leaf is; the stack holds a vector or scalar a layer
+        g = torch.stack([grads[name].to(F32) for _, name in items]).reshape(
+            _lead(items) + tuple(grads[items[0][1]].shape))
         new_nu[key], update = _adafactor_leaf(g, state.nu[key], beta, eps, clip_threshold)
-        del g
-        for i, name in items:
-            p = params[name]
-            u = update[i] + weight_decay * p.to(F32) if weight_decay else update[i]
-            delta[name] = (-lr * u).to(p.dtype)
+        for idx, name in items:
+            put(name, update[idx])
     return delta, OptState(step=step, mu=None, nu=new_nu)
 
 

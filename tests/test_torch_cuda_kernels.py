@@ -319,8 +319,8 @@ def test_flash_attention_refuses_grad(cuda_device):
 
 
 #: head_dim 112 (zamba2-7b's shared attention, 32 heads, no grouping): the
-#: forward's hd-128 tiling over zero-padded rows; several key tiles, ragged
-#: tails, and grouping beside it
+#: hd-128 tiling of the forward, dq and dk/dv over zero-padded rows; several
+#: key tiles, ragged tails, and grouping beside it
 HD112_SHAPES = [(2, 256, 32, 32, 112), (1, 1000, 8, 8, 112), (1, 77, 4, 2, 112),
                 (2, 300, 6, 3, 112)]
 
@@ -349,19 +349,6 @@ def test_flash_forward_head_dim_112_matches_plain(cuda_device, shape, dtype, cau
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(o.view(bits), runs[1][0].view(bits))
     assert torch.equal(lse.view(torch.int32), runs[1][1].view(torch.int32))
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_flash_backward_refuses_head_dim_112(cuda_device, dtype):
-    """The backward kernels have no hd-112 instantiation: a gradient at
-    head_dim 112 raises, naming the ROADMAP item, and launches nothing."""
-    q = torch.randn((1, 64, 2, 112), device=cuda_device, dtype=dtype, requires_grad=True)
-    kernels.reset_launch_counts()
-    o, _ = kernels.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="item 20"):
-        torch.autograd.grad(o.sum(), (q,))
-    counts = kernels.launch_counts()
-    assert counts["flash_attention_dq"] == counts["flash_attention_dq_f32"] == 0
 
 
 #: the backward: f32 gradients differ by summation order (1e-4 over sums of
@@ -404,6 +391,52 @@ def _assert_backward_close(got, want, dtype):
         a64, w64 = a.double(), w.double()
         rel = float(torch.linalg.vector_norm(a64 - w64) / torch.linalg.vector_norm(w64))
         assert rel <= BWD_REL[dtype], (name, rel)
+
+
+@pytest.mark.parametrize("shape", HD112_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_backward_head_dim_112_matches_plain(cuda_device, shape, dtype, causal):
+    """dq and dk/dv at head_dim 112 (the hd-128 tiling over zero-padded
+    rows) within the backward's tolerances of the plain backward, counted
+    under their own keys; dq's, dk's and dv's storage exactly 112 wide; two
+    calls the same bits."""
+    b, s, h, g, hd = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(5 * s + hd)
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device).to(dtype)
+                   for n in (h, g, g, h))
+    o, lse = kernels.flash_attention_plain(q, k, v, causal=causal)
+    kernels.reset_launch_counts()
+    runs = [kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    dkv, reduce = DKV_KEYS[dtype]
+    assert (counts[DQ_KEY[dtype] + "_hd112"], counts[dkv + "_hd112"], counts[reduce]) == (2, 2, 2)
+    assert counts[DQ_KEY[dtype]] == counts[dkv] == 0
+    got = runs[0]
+    for t, ref in zip(got, (q, k, v)):
+        assert t.untyped_storage().nbytes() == ref.numel() * ref.element_size()
+    _assert_backward_close(got, kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal),
+                           dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for a, b_ in zip(*runs):
+        assert torch.equal(a.view(bits), b_.view(bits))
+
+
+def test_flash_gradient_at_head_dim_112_runs_the_kernels(cuda_device):
+    """A gradient through ``flash_attention`` at head_dim 112 (zamba2-7b's
+    shared block, bf16) runs the hd-112 forward, dq and dk/dv once each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(112)
+    q, k, v = (torch.randn((1, 256, 8, 112), generator=gen, device=cuda_device)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    kernels.reset_launch_counts()
+    o, _ = kernels.flash_attention(q, k, v)
+    grads = torch.autograd.grad(o.float().square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["flash_attention_hd112"], counts["flash_attention_dq_hd112"],
+            counts["flash_attention_dkv_hd112"], counts["flash_attention_dkv_reduce"]) == (1, 1, 1, 1)
+    assert all(bool(torch.isfinite(g_.float()).all()) for g_ in grads)
 
 
 #: the f32 route at the shapes it is timed at: qwen2-1.5b's heads at

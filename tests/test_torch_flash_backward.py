@@ -35,6 +35,11 @@ CASES = [
     (1, 128, 6, 2, 32, True),     # GQA, rep 3
     (2, 100, 4, 2, 64, True),     # ragged: no power-of-two tile divides 100
     (1, 128, 4, 2, 64, False),
+    # head_dim 112 (zamba2-7b's shared block: heads ungrouped), ragged and
+    # grouped, and without the mask
+    (1, 128, 4, 4, 112, True),
+    (2, 100, 4, 2, 112, True),
+    (1, 96, 2, 2, 112, False),
 ]
 
 
