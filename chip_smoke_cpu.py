@@ -1,6 +1,7 @@
 """The CPU side of ``chip_smoke.py``'s card-against-CPU checks: the
-simulators' (phases 4 to 5f) and the reduced hybrid and xLSTM models'
-(phase 8c) and their training (phase 11b).
+simulators' (phases 4 to 5f), the reduced hybrid and xLSTM models'
+(phase 8c), the reduced encoder-decoder and vision stub (phase 8d) and the
+hybrid's training (phase 11b).
 
     python3 chip_smoke_cpu.py OUT_DIR
 
@@ -342,6 +343,62 @@ def _hybrid(arch, overrides, seed):
                 logits=logits.numpy(), exact=exact.numpy(), seconds=sec)
 
 
+#: phase 8d's reduced models in f32, flash attention: (arch, weight and
+#: input seed)
+ENCDEC_CASES = (("seamless-m4t-medium", 41), ("internvl2-26b", 42))
+#: their inputs: 3 sequences of 64 text tokens; seamless's 48 frame
+#: embeddings (internvl2's patch embeddings are its reduced n_prefix_tokens, 16)
+ENCDEC_SHAPE = (3, 64, 48)
+
+
+def encdec_config(arch, remat="none"):
+    return dataclasses.replace(reduced(get_config(arch)), attention_impl="flash", remat=remat)
+
+
+def encdec_batch(cfg, seed):
+    """Tokens, labels (the next tokens) and the family's embeddings (N(0, 1),
+    f32), on the CPU."""
+    rng = np.random.default_rng(seed)
+    b, s, s_enc = ENCDEC_SHAPE
+    toks = rng.integers(2, cfg.vocab_size, (b, s + 1))
+    out = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    key, n = (("frame_embeds", s_enc) if cfg.encoder_decoder else
+              ("patch_embeds", cfg.n_prefix_tokens))
+    out[key] = torch.from_numpy(rng.standard_normal((b, n, cfg.d_model)).astype(np.float32))
+    return out
+
+
+def _encdec(arch, seed):
+    """The reduced model's weights (drawn here, sent to the card), its f32
+    ``forward_logits`` and, as the exact reference, the same weights' f64
+    forward (reference attention); then ``forward_train`` under remat
+    "full": the f32 loss, gradient norm and gradients, and the f64 ones."""
+    cfg = encdec_config(arch)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    batch = encdec_batch(cfg, seed)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    t = time.perf_counter()
+    logits = tm.forward_logits(cfg, params, inputs, last_only=False)
+    sec = time.perf_counter() - t
+    c64 = dataclasses.replace(cfg, dtype="float64", attention_impl="reference")
+    p64 = tm.Model(c64, device="meta")
+    p64.load_state_dict({k: v.double() for k, v in params.state_dict().items()}, assign=True)
+    b64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    exact = tm.forward_logits(c64, p64, {k: v for k, v in b64.items() if k != "labels"},
+                              last_only=False)
+    out = dict(state={k: v.numpy() for k, v in params.state_dict().items()},
+               logits=logits.numpy(), exact=exact.numpy(), seconds=sec)
+    for tag, c_, p_, b_ in (("", encdec_config(arch, remat="full"), params, batch),
+                            ("64", c64, p64, b64)):
+        loss, _ = tm.forward_train(c_, p_, b_)
+        names, leaves = zip(*p_.named_parameters())
+        grads = torch.autograd.grad(loss, leaves)
+        out[f"loss{tag}"] = float(loss.detach())
+        out[f"grad_norm{tag}"] = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads)))
+        out[f"grads{tag}"] = {n: g.numpy() for n, g in zip(names, grads)}
+    return out
+
+
 #: phase 11b trains the same reduced models (f32, flash, remat full) under
 #: each optimizer: 3 ``make_train_step`` steps of 4 x 64 tokens, with phase
 #: 10's settings (the first step's learning rate 0: AdamW's first move is
@@ -389,6 +446,7 @@ JOBS = (("parity", _parity), ("rebuild", _rebuild), ("admission", _admission),
         ("scan_mult", _mult), ("ragged", _ragged)) + tuple(
     (f"hybrid {name}", lambda a=arch, o=over, sd=seed: _hybrid(a, o, sd))
     for name, arch, over, seed in HYBRID_CASES) + tuple(
+    (f"encdec {arch}", lambda a=arch, sd=seed: _encdec(a, sd)) for arch, seed in ENCDEC_CASES) + tuple(
     (f"hybrid train {name} {opt}", lambda a=arch, o=over, sd=seed, op=opt: _hybrid_train(a, o, sd, op))
     for name, arch, over, seed in HYBRID_CASES for opt in HYBRID_TRAIN["optimizers"])
 

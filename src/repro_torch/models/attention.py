@@ -1,13 +1,16 @@
-"""GQA/MQA attention with RoPE, a KV cache and the flash-kernel path (port of
-``repro.models.attention``, self-attention only).
+"""GQA/MQA attention with RoPE, a KV cache, cross-attention and the
+flash-kernel path (port of ``repro.models.attention``).
 
 The reference math is plain PyTorch and differentiable as it stands;
 ``attention`` with ``cfg.attention_impl == "flash"`` runs flash attention
 through its ``torch.autograd.Function`` (the forward and backward kernels on
 a CUDA tensor, their plain versions on a CPU tensor); ``"blocked"`` runs
 ``_sdpa_blocked``, the flash algorithm in plain PyTorch on both devices, as
-the JAX package has it in jnp.  Cross-attention waits for the
-encoder-decoder family.
+the JAX package has it in jnp.  Flash runs only causal attention, as in
+the JAX package: the encoder-decoder's encoder (non-causal) takes the
+reference attention under ``"flash"``.  Cross-attention (``cross_attention``
+over the keys and values ``encode_cross_kv`` projects from the encoder's
+output) has no RoPE and no mask and always runs the reference attention.
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ class KVCache(NamedTuple):
     length: int
 
 
-def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+def attn_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamDef]:
+    """The projections' shapes; ``cross`` (a decoder layer's cross-attention)
+    has no q/k/v biases."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     defs = {
@@ -43,7 +48,7 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
         "wv": ParamDef((d, nkv)),
         "wo": ParamDef((nq, d)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         defs["bq"] = ParamDef((nq,), init="zeros")
         defs["bk"] = ParamDef((nkv,), init="zeros")
         defs["bv"] = ParamDef((nkv,), init="zeros")
@@ -173,6 +178,28 @@ def attention_decode(x: torch.Tensor, p, cfg: ModelConfig, k_cache: torch.Tensor
     v_cache[:, length:length + 1] = v.to(v_cache.dtype)
     out = _sdpa_reference(q, k_cache, v_cache, causal=False, kv_len=length + 1)
     return out.reshape(b, 1, -1) @ p.wo, k_cache, v_cache
+
+
+def cross_attention(x: torch.Tensor, p, cfg: ModelConfig, enc_k: torch.Tensor,
+                    enc_v: torch.Tensor) -> torch.Tensor:
+    """Attention of the decoder's positions over the encoder's, all of them:
+    q without RoPE, no mask.  enc_k/enc_v: (B, S_enc, G, hd), from
+    ``encode_cross_kv``."""
+    b, s, _ = x.shape
+    q = (x @ p.wq).reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+    out = _sdpa_reference(q, enc_k, enc_v, causal=False)
+    return out.reshape(b, s, -1) @ p.wo
+
+
+def encode_cross_kv(enc_out: torch.Tensor, p, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross-attention keys and values from the encoder's
+    output (B, S_enc, d) → two (B, S_enc, G, hd)."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = (enc_out @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (enc_out @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
+    return k, v
 
 
 def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,

@@ -3,17 +3,20 @@ port's modules and dicts, and back.
 
 The JAX tree nests dicts and stacks scanned layers on leading axes
 (``layers/attn/wq`` is (L, d, H*hd), an expert leaf ``layers/moe/wg`` (L, E,
-d, F); the hybrid's ``mamba_groups/in_proj`` (groups, every, d, ·) and
-``mamba_tail/in_proj`` (tail, d, ·)); the port keeps one module per layer
-(``layers.<i>.attn.wq`` is (d, H*hd), ``layers.<i>.moe.wg`` (E, d, F),
+d, F); the encoder-decoder's ``encoder/layers/attn/wq`` (L_enc, d, H*hd)
+beside its unstacked ``encoder/final_norm``; the hybrid's
+``mamba_groups/in_proj`` (groups, every, d, ·) and ``mamba_tail/in_proj``
+(tail, d, ·)); the port keeps one module per layer (``layers.<i>.attn.wq``
+is (d, H*hd), ``layers.<i>.moe.wg`` (E, d, F), ``encoder.layers.<i>.attn.wq``,
 ``mamba_groups.<g>.<i>.in_proj``, ``mamba_tail.<i>.in_proj``) and keys
 AdamW's moments by the same names (``model.stacks`` says which subtrees
-are stacked; xLSTM's unrolled ``layers.mlstm_<i>`` are not).  Adafactor's
-second moment stays stacked in the port too (its ``(row, col)`` factors
-belong to the whole stacked leaf), keyed by the JAX leaf's name:
-``layers.<rest>``, ``mamba_groups.<rest>``, ``mamba_tail.<rest>``, and
-xLSTM's ``layers.mlstm_<i>.<rest>`` as they are.  Every direction copies
-the values exactly.
+are stacked, ``model.stack_prefix`` finds a name's; xLSTM's unrolled
+``layers.mlstm_<i>`` are not).  Adafactor's second moment stays stacked in
+the port too (its ``(row, col)`` factors belong to the whole stacked
+leaf), keyed by the JAX leaf's name: ``layers.<rest>``,
+``encoder.layers.<rest>``, ``mamba_groups.<rest>``, ``mamba_tail.<rest>``,
+and xLSTM's ``layers.mlstm_<i>.<rest>`` as they are.  Every direction
+copies the values exactly.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.torch_scheduler import resolve_device
 from ..optim.optimizers import OptState
-from .model import Model, _leaves, stacks
+from .model import Model, _leaves, stack_prefix, stacks
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -40,10 +43,11 @@ def _flat_from_tree(cfg: ModelConfig, tree: Dict[str, Any], device) -> Dict[str,
     port's parameter names."""
     flat, stacked = {}, stacks(cfg)
     for name, a in _leaves(tree):
-        prefix, _, rest = name.partition(".")
-        if prefix not in stacked:
+        prefix = stack_prefix(name, stacked)
+        if prefix is None:
             flat[name] = _to_tensor(a, device)
             continue
+        rest = name[len(prefix) + 1:]
         lead = stacked[prefix][0]
         if np.shape(a)[:len(lead)] != lead:
             raise ValueError(f"{name}: stacked {np.shape(a)[:len(lead)]}, config has {lead}")
@@ -129,7 +133,7 @@ def opt_state_from_numpy(cfg: ModelConfig, state, device=None) -> OptState:
     if mu is None:
         stacked = stacks(cfg)
         for name, a in _leaves(nu):
-            lead = stacked.get(name.partition(".")[0], ((),))[0]
+            lead = stacked.get(stack_prefix(name, stacked), ((),))[0]
             n = np.shape(a[0] if isinstance(a, tuple) else a)[:len(lead)]
             if n != lead:
                 raise ValueError(f"{name}: stacked {n}, config has {lead}")

@@ -5,18 +5,28 @@ family (dense, or experts: ``moe``, plus ``dense_mlp`` where
 ``shared_attn_every`` Mamba layers, each group followed by ONE shared
 attention + MLP block, then a tail of Mamba layers) and xLSTM (``xlstm``:
 an sLSTM block every ``slstm_every``-th layer, mLSTM blocks elsewhere).
-The encoder-decoder and the vision/audio stubs raise
-``NotImplementedError`` naming their ROADMAP item.
+
+Two attention-family variants take extra inputs in the batch.  The vision
+stub (``modality="vision_stub"``) puts ``batch["patch_embeds"]`` (B,
+``n_prefix_tokens``, d) in front of the text embeddings, attends causally
+over both and keeps the text positions after the final norm.  The
+encoder-decoder (``encoder_decoder``) encodes ``batch["frame_embeds"]`` (B,
+S_enc, d) by a non-causal stack (``_encoder_stack``) and gives each decoder
+layer a cross-attention between its self-attention and its MLP.  In decode
+the cross-attention reads ``DecodeState.cross_k`` / ``cross_v``, which a
+caller primes from ``_encoder_stack`` and ``encode_cross_kv``, as the JAX
+package's tests do; the vision stub decodes text only.
 
 Parameters are ``nn.Module``s holding ``nn.Parameter``s named and oriented
 as in the JAX parameter tree, with an ``nn.ModuleList`` where JAX scans
 stacked parameters: ``layers.<i>`` for the L attention layers,
-``mamba_groups.<g>.<i>`` for the hybrid's (groups, every) stack and
-``mamba_tail.<i>`` for its tail; xLSTM's ``layers`` is an ``nn.ModuleDict``
-keyed ``mlstm_<i>`` / ``slstm_<i>``, as in the JAX tree.  ``prefill`` and
-the serving engine take the attention family only, as in the JAX package;
-the other two serve by ``forward_logits`` and token-by-token
-``decode_step``.
+``encoder.layers.<i>`` for the encoder's, ``mamba_groups.<g>.<i>`` for the
+hybrid's (groups, every) stack and ``mamba_tail.<i>`` for its tail; xLSTM's
+``layers`` is an ``nn.ModuleDict`` keyed ``mlstm_<i>`` / ``slstm_<i>``, as
+in the JAX tree.  ``prefill`` and the serving engine take the attention
+family but the encoder-decoder, as in the JAX package (the vision stub as
+text only); the hybrid and xLSTM serve by ``forward_logits`` and
+token-by-token ``decode_step``.
 
 ``forward_train`` is differentiable in the parameters: it casts them to the
 compute dtype through autograd (``_cast_tree``), rematerializes each layer
@@ -50,6 +60,8 @@ from .attention import (
     attention,
     attention_decode,
     attn_defs,
+    cross_attention,
+    encode_cross_kv,
 )
 from .layers import (
     ParamDef,
@@ -75,21 +87,23 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run yet."""
+    """Raise ``ValueError`` for a block pattern the JAX package does not have."""
     if cfg.block_pattern not in ("attention", "zamba_hybrid", "xlstm"):
         raise ValueError(cfg.block_pattern)
-    if cfg.encoder_decoder or cfg.modality != "text":
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder and the vision/audio stubs "
-                                  "are not ported yet (ROADMAP §1 item 15)")
 
 
 def check_prefill(cfg: ModelConfig) -> None:
-    """``prefill`` and the serving engine take the attention family only
-    (the JAX package asserts as much)."""
+    """``prefill`` and the serving engine take the attention family but the
+    encoder-decoder (the JAX package asserts ``block_pattern == "attention"
+    and not cfg.encoder_decoder`` in both)."""
     check_supported(cfg)
     if cfg.block_pattern != "attention":
         raise ValueError(f"{cfg.name}: prefill and the serving engine take the attention "
                          f"family; {cfg.block_pattern} serves by forward_logits and decode_step")
+    if cfg.encoder_decoder:
+        raise ValueError(f"{cfg.name}: prefill and the serving engine do not take the "
+                         "encoder-decoder (its decoder needs the encoder's output); it serves "
+                         "by decode_step with primed cross caches")
 
 
 def _is_slstm(cfg: ModelConfig, i: int) -> bool:
@@ -103,9 +117,18 @@ def _xlstm_name(cfg: ModelConfig, i: int) -> str:
 #: every subtree any JAX tree stacks, by prefix, and the number of leading
 #: axes its stack adds (``stacks`` gives a config's own); a port name
 #: ``<prefix>.<i>[.<j>].<rest>`` is entry (i[, j]) of the stacked leaf
-#: ``<prefix>.<rest>``.  xLSTM's ``layers`` holds ``mlstm_<i>`` / ``slstm_<i>``
-#: subtrees, which the JAX tree keeps unstacked.
-STACK_DEPTH = {"layers": 1, "mamba_groups": 2, "mamba_tail": 1}
+#: ``<prefix>.<rest>``.  A prefix may have several parts (``encoder.layers``),
+#: so a name is matched by ``stack_prefix``, never split at its first dot.
+#: xLSTM's ``layers`` holds ``mlstm_<i>`` / ``slstm_<i>`` subtrees, which
+#: the JAX tree keeps unstacked.
+STACK_DEPTH = {"layers": 1, "encoder.layers": 1, "mamba_groups": 2, "mamba_tail": 1}
+
+
+def stack_prefix(name: str, prefixes) -> Optional[str]:
+    """The longest of ``prefixes`` that ``name`` begins with, whole parts
+    followed by a dot (``encoder.layers.3.attn.wq`` → ``encoder.layers``,
+    ``layers.3.attn.wq`` → ``layers``), or None."""
+    return max((p for p in prefixes if name.startswith(p + ".")), key=len, default=None)
 
 
 def stacks(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
@@ -114,6 +137,8 @@ def stacks(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
     stack count, ``d.shape[0]`` of the stacked definition)."""
     if cfg.block_pattern == "attention":
         out = {"layers": ((cfg.n_layers,), cfg.n_layers)}
+        if cfg.encoder_decoder:
+            out["encoder.layers"] = ((cfg.n_encoder_layers,), cfg.n_encoder_layers)
     elif cfg.block_pattern == "zamba_hybrid":
         groups, tail = divmod(cfg.n_layers, cfg.shared_attn_every)
         out = {"mamba_groups": ((groups, cfg.shared_attn_every), groups)}
@@ -141,11 +166,17 @@ class ParamGroup(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
+    """One transformer block; ``cross`` adds the encoder-decoder's
+    ``cross_norm`` and ``cross`` (its cross-attention, no biases)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32, cross: bool = False):
         super().__init__()
         d = cfg.d_model
         self.attn_norm = nn.Parameter(torch.empty(d, device=device, dtype=dtype))
         self.attn = ParamGroup(attn_defs(cfg), device, dtype)
+        if cross:
+            self.cross_norm = nn.Parameter(torch.empty(d, device=device, dtype=dtype))
+            self.cross = ParamGroup(attn_defs(cfg, cross=True), device, dtype)
         self.mlp_norm = nn.Parameter(torch.empty(d, device=device, dtype=dtype))
         if cfg.is_moe:
             self.moe = ParamGroup(moe_defs(cfg), device, dtype)
@@ -155,10 +186,33 @@ class DecoderLayer(nn.Module):
             self.mlp = ParamGroup(mlp_defs(d, cfg.d_ff), device, dtype)
 
 
+class EncoderLayer(nn.Module):
+    """One layer of the encoder-decoder's encoder: attention and an MLP."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        d = cfg.d_model
+        self.attn_norm = nn.Parameter(torch.empty(d, device=device, dtype=dtype))
+        self.attn = ParamGroup(attn_defs(cfg), device, dtype)
+        self.mlp_norm = nn.Parameter(torch.empty(d, device=device, dtype=dtype))
+        self.mlp = ParamGroup(mlp_defs(d, cfg.d_ff), device, dtype)
+
+
+class Encoder(nn.Module):
+    """The encoder-decoder's encoder: ``layers`` and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.layers = nn.ModuleList(EncoderLayer(cfg, device, dtype)
+                                    for _ in range(cfg.n_encoder_layers))
+        self.final_norm = nn.Parameter(torch.empty(cfg.d_model, device=device, dtype=dtype))
+
+
 class Model(nn.Module):
     """The parameters of one model: ``embed``, ``final_norm``, ``lm_head``
-    (untied only) and ``layers``, uninitialized (``device=None`` is the
-    card; ``"meta"`` allocates nothing)."""
+    (untied only), ``layers`` and, for the encoder-decoder, ``encoder``,
+    uninitialized (``device=None`` is the card; ``"meta"`` allocates
+    nothing)."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
         super().__init__()
@@ -171,8 +225,10 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty((d, v), device=device, dtype=dtype))
         if cfg.block_pattern == "attention":
-            self.layers = nn.ModuleList(DecoderLayer(cfg, device, dtype)
+            self.layers = nn.ModuleList(DecoderLayer(cfg, device, dtype, cross=cfg.encoder_decoder)
                                         for _ in range(cfg.n_layers))
+            if cfg.encoder_decoder:
+                self.encoder = Encoder(cfg, device, dtype)
         elif cfg.block_pattern == "zamba_hybrid":
             groups, tail = divmod(cfg.n_layers, cfg.shared_attn_every)
             mamba = lambda: ParamGroup(mamba_defs(cfg), device, dtype)  # noqa: E731
@@ -214,6 +270,11 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
         defs["layers"] = {_xlstm_name(cfg, i): xl.slstm_defs(cfg) if _is_slstm(cfg, i)
                           else xl.mlstm_defs(cfg) for i in range(cfg.n_layers)}
     else:
+        if cfg.encoder_decoder:
+            defs["encoder"] = {"layers": {**block, "mlp": mlp_defs(d, cfg.d_ff)},
+                               "final_norm": norm_defs(d)}
+            block["cross_norm"] = norm_defs(d)
+            block["cross"] = attn_defs(cfg, cross=True)
         if cfg.is_moe:
             block["moe"] = moe_defs(cfg)
             if cfg.moe_dense_residual:
@@ -244,9 +305,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Mo
     params = dict(model.named_parameters())
     stacked = stacks(cfg)
     for name, d in _leaves(model_defs(cfg)):
-        prefix, _, rest = name.partition(".")
-        if prefix in stacked:
+        prefix = stack_prefix(name, stacked)
+        if prefix is not None:
             # JAX draws a scanned stack at once: its fan-in is the outer count
+            rest = name[len(prefix) + 1:]
             shape, fan_in = stacked[prefix]
             for index in itertools.product(*map(range, shape)):
                 key = ".".join((prefix, *map(str, index), rest))
@@ -319,11 +381,17 @@ def _ffn(hn, lp, cfg: ModelConfig):
     return torch.zeros_like(hn), aux
 
 
-def _attn_layer(h, lp: DecoderLayer, cfg: ModelConfig, positions, causal: bool = True):
-    """One transformer block → (h, the experts' auxiliary loss)."""
+def _attn_layer(h, lp: DecoderLayer, cfg: ModelConfig, positions, causal: bool = True,
+                enc_out=None):
+    """One transformer block → (h, the experts' auxiliary loss); with
+    ``enc_out`` (the encoder's output), the cross-attention over it between
+    the self-attention and the MLP."""
     a = attention(rms_norm(h, lp.attn_norm, cfg.norm_eps), lp.attn, cfg, positions,
                   causal=causal)
     h = h + a
+    if enc_out is not None:
+        ek, ev = encode_cross_kv(enc_out, lp.cross, cfg)
+        h = h + cross_attention(rms_norm(h, lp.cross_norm, cfg.norm_eps), lp.cross, cfg, ek, ev)
     y, aux = _ffn(rms_norm(h, lp.mlp_norm, cfg.norm_eps), lp, cfg)
     return h + y, aux
 
@@ -353,14 +421,28 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def _decoder_stack(h, params, cfg: ModelConfig, positions):
-    """The layers in turn → (h, the auxiliary loss summed over them)."""
+def _decoder_stack(h, params, cfg: ModelConfig, positions, enc_out=None):
+    """The layers in turn (each attending over ``enc_out`` too, where given)
+    → (h, the auxiliary loss summed over them)."""
     layer = _maybe_remat(_attn_layer, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in params.layers:
-        h, a = layer(h, lp, cfg, positions)
+        h, a = layer(h, lp, cfg, positions, True, enc_out)
         aux = aux + a
     return h, aux
+
+
+def _encoder_stack(enc_in, params, cfg: ModelConfig):
+    """The encoder-decoder's encoder on ``enc_in`` (B, S_enc, d): its layers
+    non-causal over positions 0..S_enc-1 (each rematerialized as
+    ``cfg.remat`` says), then ``encoder.final_norm``."""
+    b, s = enc_in.shape[:2]
+    positions = torch.arange(s, device=enc_in.device).expand(b, s)
+    layer = _maybe_remat(_attn_layer, cfg)
+    h = enc_in
+    for lp in params.encoder.layers:
+        h, _ = layer(h, lp, cfg, positions, False)
+    return rms_norm(h, params.encoder.final_norm, cfg.norm_eps)
 
 
 def _zamba_group(h, gp, shared, cfg: ModelConfig, positions):
@@ -390,19 +472,30 @@ def _xlstm_stack(h, params, cfg: ModelConfig):
 
 
 def _forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
-    """Embeddings → block stack → final norm → (h, auxiliary loss)."""
+    """Embeddings (the vision stub's ``patch_embeds`` in front) → block stack
+    (over the encoded ``frame_embeds`` for the encoder-decoder) → final norm
+    → (h over the text positions, auxiliary loss)."""
     check_supported(cfg)
     tokens = batch["tokens"]
-    b, s = tokens.shape
+    b, s_text = tokens.shape
     h = _embed(params, cfg, tokens)
+    enc_out = None
+    if cfg.modality == "vision_stub":
+        h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
+    if cfg.encoder_decoder:
+        enc_out = _encoder_stack(batch["frame_embeds"].to(h.dtype), params, cfg)
+    s = h.shape[1]
     positions = torch.arange(s, device=h.device).expand(b, s)
     if cfg.block_pattern == "zamba_hybrid":
         h, aux = _zamba_stack(h, params, cfg, positions)
     elif cfg.block_pattern == "xlstm":
         h, aux = _xlstm_stack(h, params, cfg)
     else:
-        h, aux = _decoder_stack(h, params, cfg, positions)
-    return rms_norm(h, params.final_norm, cfg.norm_eps), aux
+        h, aux = _decoder_stack(h, params, cfg, positions, enc_out)
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    if cfg.modality == "vision_stub":       # the text positions only
+        h = h[:, -s_text:]
+    return h, aux
 
 
 def forward_train(cfg: ModelConfig, params: Model, batch: Dict[str, torch.Tensor]):
@@ -410,7 +503,8 @@ def forward_train(cfg: ModelConfig, params: Model, batch: Dict[str, torch.Tensor
     (token mean, f32, z-loss 1e-4) plus ``AUX_LOSS_WEIGHT`` times the
     experts' load-balance loss → ``(loss, {"lm_loss", "aux_loss"})``;
     differentiable in ``params``.  ``aux_loss`` is the weighted term (0
-    without experts)."""
+    without experts).  The vision stub also takes ``patch_embeds``, the
+    encoder-decoder ``frame_embeds``; the labels cover the text positions."""
     check_supported(cfg)
     pc = _cast_tree(params, torch_dtype(cfg.dtype))
     h, aux = _forward_hidden(cfg, pc, batch)
@@ -423,7 +517,8 @@ def forward_train(cfg: ModelConfig, params: Model, batch: Dict[str, torch.Tensor
 def forward_logits(cfg: ModelConfig, params: Model, batch: Dict[str, torch.Tensor],
                    last_only: bool = True) -> torch.Tensor:
     """Prefill-style forward: logits (last position by default), over the
-    padded vocabulary, no loss."""
+    padded vocabulary, no loss; the text positions only (``batch`` as for
+    ``forward_train``, without labels)."""
     params = _cast(params, cfg)
     h, _ = _forward_hidden(cfg, params, batch)
     if last_only:
@@ -451,13 +546,19 @@ class DecodeState(NamedTuple):
     shared_v: Optional[torch.Tensor] = None
     #: xLSTM: an ``MLSTMState`` or ``SLSTMState`` a layer
     xlstm: Optional[Tuple] = None
+    #: the encoder-decoder's cross-attention keys and values, in both
+    #: layouts: (L,B,S_enc,G,hd)
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                      device=None) -> DecodeState:
+                      device=None, enc_len: int = 0) -> DecodeState:
     """An empty decode state.  ``dtype`` is the KV caches' type; the
     recurrent states are f32 (the Mamba conv window too), as in the JAX
-    package."""
+    package.  The encoder-decoder's ``cross_k`` / ``cross_v`` hold
+    ``enc_len`` positions (``max_len`` where 0) and start as zeros, for the
+    caller to prime from ``_encoder_stack`` and ``encode_cross_kv``."""
     check_supported(cfg)
     device = resolve_device(device)
     g, hd = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -477,23 +578,32 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bf
             else xl.mlstm_init_state(cfg, batch, device=device) for i in range(cfg.n_layers)))
     if cfg.decode_cache_layout == "per_layer":
         per = (batch, max_len, g, hd)
-        return DecodeState(
+        state = DecodeState(
             length=0,
             kv_layers_k=tuple(torch.zeros(per, dtype=dtype, device=device)
                               for _ in range(cfg.n_layers)),
             kv_layers_v=tuple(torch.zeros(per, dtype=dtype, device=device)
                               for _ in range(cfg.n_layers)),
         )
-    kv = (cfg.n_layers, batch, max_len, g, hd)
-    return DecodeState(length=0, kv_k=torch.zeros(kv, dtype=dtype, device=device),
-                       kv_v=torch.zeros(kv, dtype=dtype, device=device))
+    else:
+        kv = (cfg.n_layers, batch, max_len, g, hd)
+        state = DecodeState(length=0, kv_k=torch.zeros(kv, dtype=dtype, device=device),
+                            kv_v=torch.zeros(kv, dtype=dtype, device=device))
+    if cfg.encoder_decoder:
+        ck = (cfg.n_layers, batch, enc_len or max_len, g, hd)
+        state = state._replace(cross_k=torch.zeros(ck, dtype=dtype, device=device),
+                               cross_v=torch.zeros(ck, dtype=dtype, device=device))
+    return state
 
 
-def _attn_decode_layer(h, lp, cfg: ModelConfig, kc, vc, length: int):
-    """One transformer block on one token, its K/V written into kc/vc."""
+def _attn_decode_layer(h, lp, cfg: ModelConfig, kc, vc, length: int, cross=None):
+    """One transformer block on one token, its K/V written into kc/vc;
+    ``cross``, the layer's (cross_k, cross_v), for the encoder-decoder."""
     a, _, _ = attention_decode(rms_norm(h, lp.attn_norm, cfg.norm_eps), lp.attn, cfg,
                                kc, vc, length)
     h = h + a
+    if cross is not None:
+        h = h + cross_attention(rms_norm(h, lp.cross_norm, cfg.norm_eps), lp.cross, cfg, *cross)
     y, _ = _ffn(rms_norm(h, lp.mlp_norm, cfg.norm_eps), lp, cfg)
     return h + y
 
@@ -537,17 +647,21 @@ def decode_step(cfg: ModelConfig, params: Model, token: torch.Tensor, state: Dec
                 kc, vc = state.kv_layers_k[i], state.kv_layers_v[i]
             else:
                 kc, vc = state.kv_k[i], state.kv_v[i]
-            h = _attn_decode_layer(h, lp, cfg, kc, vc, length)
+            cross = (state.cross_k[i], state.cross_v[i]) if cfg.encoder_decoder else None
+            h = _attn_decode_layer(h, lp, cfg, kc, vc, length, cross)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     logits = _logits(params, cfg, h)[..., : cfg.vocab_size]  # drop pad ids
     return logits, state._replace(length=length + 1)
 
 
 @torch.no_grad()
-def prefill(cfg: ModelConfig, params: Model, tokens: torch.Tensor, max_len: int):
+def prefill(cfg: ModelConfig, params: Model, tokens: torch.Tensor, max_len: int,
+            extras: Optional[Dict[str, torch.Tensor]] = None):
     """Full-sequence prefill with reference attention (as the JAX package
     has it), returning the last position's logits (B, 1, vocab_size) and a
-    primed stacked ``DecodeState``."""
+    primed stacked ``DecodeState``.  ``extras`` is accepted and ignored, as
+    in the JAX package: the vision stub is prefilled as text only, without
+    its patch prefix.  The encoder-decoder is refused (``check_prefill``)."""
     check_prefill(cfg)
     params_c = _cast(params, cfg)
     b, s = tokens.shape

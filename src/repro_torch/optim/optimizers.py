@@ -9,13 +9,14 @@ returns the parameter deltas and the new ``OptState``.  Differences:
   arithmetic is the same, operation for operation, so the values are too.
 * The JAX package stacks scanned layers into one leaf; here each layer's
   tensor is its own entry: ``layers.<i>.<rest>`` for the (L, ...) stack,
+  ``encoder.layers.<i>.<rest>`` for the encoder-decoder's encoder,
   ``mamba_groups.<g>.<i>.<rest>`` for the hybrid's (groups, every, ...)
   and ``mamba_tail.<i>.<rest>`` for its (tail, ...); xLSTM's
   ``layers.mlstm_<i>.*`` are whole leaves in the JAX tree too
   (``models.model.STACK_DEPTH`` names the stacks; a name that is neither
   raises).  AdamW is elementwise, so that changes nothing.  Adafactor is
   not: it keys its factors by the stacked leaf (``layers.<rest>``,
-  ``mamba_groups.<rest>``), factors over the stacked leaf's last two axes
+  ``encoder.layers.<rest>``, ``mamba_groups.<rest>``), factors over the stacked leaf's last two axes
   (so a ``(L, d)`` norm stack is factored, and a ``(groups, every, d)`` one
   over ``(every, d)`` in each group) and clips by the RMS of the whole
   stacked leaf's update.  Entries of two or more axes run entry by entry in
@@ -36,7 +37,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ..models.model import STACK_DEPTH
+from ..models.model import STACK_DEPTH, stack_prefix
 
 Tree = Dict[str, torch.Tensor]
 F32 = torch.float32
@@ -126,15 +127,20 @@ def _factored(shape) -> bool:
 def _place(name: str):
     """``(stack key, index)`` of an entry of a stacked JAX leaf
     (``layers.<i>.<rest>`` → ``("layers.<rest>", (i,))``,
-    ``mamba_groups.<g>.<i>.<rest>`` → ``("mamba_groups.<rest>", (g, i))``),
-    or None for a leaf the JAX tree keeps whole (``embed``, ``shared.*``,
-    xLSTM's ``layers.mlstm_<i>.*``: no part of the name is an integer)."""
-    parts = name.split(".")
-    depth = STACK_DEPTH.get(parts[0], 0)
-    index, rest = parts[1:1 + depth], parts[1 + depth:]
-    if depth and rest and all(p.isdigit() for p in index) and not any(p.isdigit() for p in rest):
-        return ".".join((parts[0], *rest)), tuple(map(int, index))
-    if not any(p.isdigit() for p in parts):
+    ``encoder.layers.<i>.<rest>`` → ``("encoder.layers.<rest>", (i,))``,
+    ``mamba_groups.<g>.<i>.<rest>`` → ``("mamba_groups.<rest>", (g, i))``;
+    the stack's prefix matched by ``stack_prefix``, the longest first), or
+    None for a leaf the JAX tree keeps whole (``embed``, ``shared.*``,
+    ``encoder.final_norm``, xLSTM's ``layers.mlstm_<i>.*``: no part of the
+    name is an integer)."""
+    prefix = stack_prefix(name, STACK_DEPTH)
+    if prefix is not None:
+        parts = name[len(prefix) + 1:].split(".")
+        depth = STACK_DEPTH[prefix]
+        index, rest = parts[:depth], parts[depth:]
+        if rest and all(p.isdigit() for p in index) and not any(p.isdigit() for p in rest):
+            return ".".join((prefix, *rest)), tuple(map(int, index))
+    if not any(p.isdigit() for p in name.split(".")):
         return None
     raise ValueError(f"adafactor: {name} is neither a whole leaf nor an entry of a stack "
                      f"{sorted(STACK_DEPTH)} (depths {STACK_DEPTH})")

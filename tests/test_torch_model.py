@@ -199,18 +199,56 @@ def test_init_params_draws_the_jax_distributions(arch):
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
-def test_unsupported_families_raise(arch):
+def test_encdec_and_vision_families_run(arch):
+    """The encoder-decoder and the vision stub run through every entry point
+    on the CPU (the values against JAX's are in tests/test_torch_encdec.py
+    and tests/test_torch_encdec_training.py): ``init_params``,
+    ``forward_logits`` (the batch carrying ``frame_embeds`` or
+    ``patch_embeds``), ``init_decode_state``, ``decode_step`` and
+    ``forward_train``.  seamless decodes over cross caches primed from
+    ``_encoder_stack`` and ``encode_cross_kv``, its logits those of the
+    forward's last position; internvl2 decodes text only, as ``prefill``
+    reads it, its logits those of ``prefill`` over the same tokens."""
+    from repro_torch.models.attention import encode_cross_kv
+
     cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 15"):
-        tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 15"):
-        tm.init_decode_state(cfg, 1, 8, device="cpu")
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(_tokens(cfg))
+    rng = np.random.default_rng(2)
+    batch = {"tokens": toks}
+    if cfg.encoder_decoder:
+        batch["frame_embeds"] = torch.from_numpy(rng.standard_normal((B, 10, cfg.d_model)).astype(np.float32))
+    else:
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32))
+    full = tm.forward_logits(cfg, params, batch, last_only=False)
+    assert full.shape == (B, S, cfg.vocab_padded) and torch.isfinite(full).all()
+    state = tm.init_decode_state(cfg, B, S + 1, dtype=torch.float32, device="cpu", enc_len=10)
+    if cfg.encoder_decoder:
+        assert tuple(state.cross_k.shape) == (cfg.n_layers, B, 10, cfg.n_kv_heads, cfg.resolved_head_dim)
+        with torch.no_grad():
+            enc_out = tm._encoder_stack(batch["frame_embeds"], params, cfg)
+            for i, lp in enumerate(params.layers):
+                k, v = encode_cross_kv(enc_out, lp.cross, cfg)
+                state.cross_k[i].copy_(k)
+                state.cross_v[i].copy_(v)
+        want = full[:, -1, : cfg.vocab_size]
+    else:
+        assert state.cross_k is None
+        want = tm.prefill(cfg, params, toks, S + 1, extras={"patch_embeds": batch["patch_embeds"]}
+                          )[0][:, 0]
+    for t in range(S):
+        logits, state = tm.decode_step(cfg, params, toks[:, t:t + 1], state)
+    assert state.length == S
+    np.testing.assert_allclose(logits[:, 0].numpy(), want.numpy(), atol=2e-4, rtol=2e-4)
+    loss, _ = tm.forward_train(cfg, params, {**batch, "labels": toks})
+    loss.backward()
+    assert all(torch.isfinite(p.grad).all() for p in params.parameters())
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m"])
 def test_hybrid_and_xlstm_families_run(arch):
-    """The two families that ``test_unsupported_families_raise`` once
-    listed run through every entry point on the CPU (the values against
+    """The hybrid and xLSTM run through every entry point on the CPU (the values against
     JAX's are in tests/test_torch_ssm.py and tests/test_torch_xlstm.py):
     ``init_params``, ``forward_logits``, ``init_decode_state``,
     ``decode_step`` (its logits those of the forward's last position) and
