@@ -1,7 +1,8 @@
 """The CPU side of ``chip_smoke.py``'s card-against-CPU checks: the
 simulators' (phases 4 to 5f), the reduced hybrid and xLSTM models'
-(phase 8c), the reduced encoder-decoder and vision stub (phase 8d) and the
-hybrid's training (phase 11b).
+(phase 8c), the reduced encoder-decoder and vision stub (phase 8d), the
+hybrid's training (phase 11b) and the training of the mixture-of-experts,
+encoder-decoder and vision-stub models (phase 11c).
 
     python3 chip_smoke_cpu.py OUT_DIR
 
@@ -420,24 +421,78 @@ def _state(params, opt_state):
     return {k: t.detach().numpy().copy() for k, t in state_tensors(params, opt_state).items()}
 
 
-def _hybrid_train(arch, overrides, seed, optimizer):
-    """The reduced model's training on the CPU: its state (``state_tensors``
-    as numpy) before the first step and after each, and each step's loss
-    and gradient norm."""
-    cfg = hybrid_train_config(arch, overrides, optimizer)
+def _exact(cfg, params, batch):
+    """The loss and gradient norm of ``params`` on ``batch`` in f64
+    (reference attention: the flash plain version computes in f32)."""
+    c64 = dataclasses.replace(cfg, dtype="float64", attention_impl="reference")
+    p64 = tm.Model(c64, device="meta")
+    p64.load_state_dict({k: v.double() for k, v in params.state_dict().items()}, assign=True)
+    b64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in ((k, torch.from_numpy(np.asarray(v))) for k, v in batch.items())}
+    loss, _ = tm.forward_train(c64, p64, b64)
+    grads = torch.autograd.grad(loss, list(p64.parameters()))
+    return float(loss.detach()), float(torch.sqrt(sum(torch.sum(g * g) for g in grads)))
+
+
+def _train_run(cfg, seed, batch_at, exact=False):
+    """A reduced model's training on the CPU under ``cfg.optimizer``: its
+    state (``state_tensors`` as numpy) before the first step and after each,
+    and each step's loss and gradient norm (with ``exact``, also those of
+    the state before the step in f64, ``loss64`` and ``grad_norm64``)."""
     settings = HYBRID_TRAIN["settings"]
     params = tm.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
-    opt = make_optimizer(optimizer, weight_decay=settings.weight_decay)
+    opt = make_optimizer(cfg.optimizer, weight_decay=settings.weight_decay)
     opt_state = opt.init(dict(params.named_parameters()))
     step = make_train_step(cfg, settings, opt)
-    data = hybrid_train_data(cfg, seed)
     states, metrics = [_state(params, opt_state)], []
     t = time.perf_counter()
     for i in range(HYBRID_TRAIN["steps"]):
-        params, opt_state, met = step(params, opt_state, data.batch_at(i))
+        f64 = _exact(cfg, params, batch_at(i)) if exact else None
+        params, opt_state, met = step(params, opt_state, batch_at(i))
         states.append(_state(params, opt_state))
         metrics.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+        if f64:
+            metrics[-1].update(loss64=f64[0], grad_norm64=f64[1])
     return dict(states=states, metrics=metrics, seconds=time.perf_counter() - t)
+
+
+def _hybrid_train(arch, overrides, seed, optimizer):
+    cfg = hybrid_train_config(arch, overrides, optimizer)
+    return _train_run(cfg, seed, hybrid_train_data(cfg, seed).batch_at)
+
+
+#: phase 11c trains the reduced mixture-of-experts, encoder-decoder and
+#: vision-stub models (f32, flash, remat full) as 11b trains the hybrid,
+#: under each optimizer: (arch, weight and data seed)
+TRAIN_CASES = (("moonshot-v1-16b-a3b", 51), ("arctic-480b", 52), ("seamless-m4t-medium", 53),
+               ("internvl2-26b", 54))
+
+
+def train_config(arch, optimizer):
+    return dataclasses.replace(reduced(get_config(arch)), attention_impl="flash", remat="full",
+                               optimizer=optimizer)
+
+
+def train_batch_at(cfg, seed):
+    """Step i's batch: 4 x 64 tokens of the synthetic stream and, for the
+    encoder-decoder and the vision stub, the step's 48 frame or 16 patch
+    embeddings (N(0, 1), f32, drawn from the seed and i)."""
+    data = hybrid_train_data(cfg, seed)
+
+    def batch_at(i):
+        batch = data.batch_at(i)
+        if cfg.encoder_decoder or cfg.modality == "vision_stub":
+            key, n = (("frame_embeds", ENCDEC_SHAPE[2]) if cfg.encoder_decoder else
+                      ("patch_embeds", cfg.n_prefix_tokens))
+            rng = np.random.default_rng((seed, i))
+            batch[key] = rng.standard_normal((4, n, cfg.d_model)).astype(np.float32)
+        return batch
+    return batch_at
+
+
+def _train(arch, seed, optimizer):
+    cfg = train_config(arch, optimizer)
+    return _train_run(cfg, seed, train_batch_at(cfg, seed), exact=True)
 
 
 JOBS = (("parity", _parity), ("rebuild", _rebuild), ("admission", _admission),
@@ -448,7 +503,9 @@ JOBS = (("parity", _parity), ("rebuild", _rebuild), ("admission", _admission),
     for name, arch, over, seed in HYBRID_CASES) + tuple(
     (f"encdec {arch}", lambda a=arch, sd=seed: _encdec(a, sd)) for arch, seed in ENCDEC_CASES) + tuple(
     (f"hybrid train {name} {opt}", lambda a=arch, o=over, sd=seed, op=opt: _hybrid_train(a, o, sd, op))
-    for name, arch, over, seed in HYBRID_CASES for opt in HYBRID_TRAIN["optimizers"])
+    for name, arch, over, seed in HYBRID_CASES for opt in HYBRID_TRAIN["optimizers"]) + tuple(
+    (f"train {arch} {opt}", lambda a=arch, sd=seed, op=opt: _train(a, sd, op))
+    for arch, seed in TRAIN_CASES for opt in HYBRID_TRAIN["optimizers"])
 
 
 #: CPU threads of this process: it runs beside chip_smoke.py's host loop on

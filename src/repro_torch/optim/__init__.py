@@ -3,8 +3,10 @@ tensors keyed by parameter name."""
 from .optimizers import (
     OptState,
     Optimizer,
+    adafactor_apply,
     adafactor_init,
     adafactor_update,
+    adamw_apply,
     adamw_init,
     adamw_update,
     apply_updates,
@@ -17,8 +19,10 @@ from .optimizers import (
 __all__ = [
     "OptState",
     "Optimizer",
+    "adafactor_apply",
     "adafactor_init",
     "adafactor_update",
+    "adamw_apply",
     "adamw_init",
     "adamw_update",
     "apply_updates",

@@ -23,6 +23,15 @@ returns the parameter deltas and the new ``OptState``.  Differences:
   two passes, so that no f32 temporary spans a stack (zamba2-7b's
   ``in_proj`` stack is 4.07e9 values); the deltas come back per entry.
 * ``state_specs`` (shardings) has no counterpart on one card.
+* A step's memory: ``clip_by_global_norm`` scales the gradients in place,
+  and ``Optimizer.apply`` (``adamw_apply``, ``adafactor_apply``) adds each
+  delta to its parameter as soon as it is made, so that no tree of deltas
+  is held; ``update`` returns the deltas as the JAX package does.  The
+  bits are the same either way.  A leaf of more than ``SLICE_BYTES`` in
+  f32 is taken in slices along its leading axes by the global norm (the
+  order of its one f32 sum of squares changes) and, as a stack's entry,
+  by Adafactor (its factors are per slice; the order of the clip's sum of
+  ``update²`` changes), so that no f32 temporary is larger than a slice.
 
 Scalars that JAX computes in f32 (``b1 ** step``, the learning rate, the
 Adafactor decay) are f32 tensors here as well.
@@ -33,7 +42,7 @@ import dataclasses
 import functools
 import itertools
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -54,17 +63,47 @@ class OptState(NamedTuple):
 class Optimizer:
     name: str
     init: Callable[[Tree], OptState]
+    #: the deltas as a tree and the new state (the JAX package's ``update``)
     update: Callable[[Tree, OptState, Tree, torch.Tensor], Tuple[Tree, OptState]]
+    #: the same deltas added to the parameters in place as each is made;
+    #: returns the new state
+    apply: Callable[[Tree, OptState, Tree, torch.Tensor], OptState]
+
+
+#: the f32 bytes of one slice of a large leaf: no f32 temporary of the
+#: global norm or of Adafactor's update of a stack entry is larger
+#: (arctic-480b's expert stacks hold 4.46e9 values a layer, 17.8 GB in f32)
+SLICE_BYTES = 1 << 28
+
+
+def _rows_per_slice(shape) -> int:
+    """Rows of the leading axis a slice of a ``shape`` leaf takes: as many
+    as ``SLICE_BYTES`` of f32 hold, at least 1."""
+    return max(1, SLICE_BYTES // (4 * math.prod(shape[1:])))
+
+
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ x² in f32; a leaf over ``SLICE_BYTES`` in f32 summed slice by
+    slice along its leading axis."""
+    if x.dim() == 0 or 4 * x.numel() <= SLICE_BYTES:
+        return torch.sum(torch.square(x.to(F32)))
+    parts = (torch.sum(torch.square(part.to(F32)))
+             for part in torch.split(x, _rows_per_slice(x.shape)))
+    return functools.reduce(torch.add, parts)
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32))) for x in tree.values()))
+    return torch.sqrt(sum(_square_sum(x) for x in tree.values()))
 
 
 def clip_by_global_norm(tree: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
+    """The gradients scaled in place (``g.mul_(scale)``: the bits of
+    ``g * scale``) and their global norm; returns ``tree`` itself."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return {k: g * scale for k, g in tree.items()}, norm
+    for g in tree.values():
+        g.mul_(scale)
+    return tree, norm
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,
@@ -95,15 +134,44 @@ def adamw_init(params: Tree) -> OptState:
     return OptState(step=_step0(params), mu=zeros(), nu=zeros())
 
 
-@torch.no_grad()
-def adamw_update(grads: Tree, state: OptState, params: Tree, lr: torch.Tensor,
-                 b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1) -> Tuple[Tree, OptState]:
+#: where an update's deltas go: ``put(name, part, delta)``, ``delta`` of
+#: parameter ``name`` whole (``part`` None) or of the slice ``part`` of its
+#: leading axes (``_part``)
+Put = Callable[[str, Optional[slice], torch.Tensor], None]
+
+
+def _part(t: torch.Tensor, part: Optional[slice]) -> torch.Tensor:
+    """``t`` whole, or the slice ``part`` of its leading axes flattened (a
+    view of ``t``: its last two axes kept)."""
+    return t if part is None else t.view(-1, *t.shape[-2:])[part]
+
+
+def _collect(delta: Tree, params: Tree) -> Put:
+    """A ``Put`` that builds the tree of deltas."""
+    def put(name, part, d):
+        if part is None:
+            delta[name] = d
+        else:
+            if name not in delta:
+                delta[name] = torch.empty_like(params[name])
+            _part(delta[name], part).copy_(d)
+    return put
+
+
+def _adder(params: Tree) -> Put:
+    """A ``Put`` that adds each delta to its parameter as it comes
+    (``apply_updates``'s ``p + d`` in p's type, one leaf or slice at a time)."""
+    def put(name, part, d):
+        _part(params[name], part).add_(d)
+    return put
+
+
+def _adamw(grads: Tree, state: OptState, params: Tree, lr: torch.Tensor, put: Put,
+           b1: float, b2: float, eps: float, weight_decay: float) -> OptState:
     step = state.step + 1
     stepf = step.to(F32)
     bc1 = 1 - torch.tensor(b1, dtype=F32, device=stepf.device) ** stepf
     bc2 = 1 - torch.tensor(b2, dtype=F32, device=stepf.device) ** stepf
-    delta = {}
     for k, g in grads.items():
         g = g.to(F32)
         m, v, p = state.mu[k], state.nu[k], params[k]
@@ -111,8 +179,25 @@ def adamw_update(grads: Tree, state: OptState, params: Tree, lr: torch.Tensor,
         v.mul_(b2).add_((1 - b2) * torch.square(g))
         update = (m / bc1) / (torch.sqrt(v / bc2) + eps)
         update = update + weight_decay * p.to(F32)
-        delta[k] = (-lr * update).to(p.dtype)
-    return delta, OptState(step=step, mu=state.mu, nu=state.nu)
+        put(k, None, (-lr * update).to(p.dtype))
+    return OptState(step=step, mu=state.mu, nu=state.nu)
+
+
+@torch.no_grad()
+def adamw_update(grads: Tree, state: OptState, params: Tree, lr: torch.Tensor,
+                 b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1) -> Tuple[Tree, OptState]:
+    delta = {}
+    state = _adamw(grads, state, params, lr, _collect(delta, params), b1, b2, eps, weight_decay)
+    return delta, state
+
+
+@torch.no_grad()
+def adamw_apply(grads: Tree, state: OptState, params: Tree, lr: torch.Tensor,
+                b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                weight_decay: float = 0.1) -> OptState:
+    """``adamw_update`` with each delta added to its parameter as made."""
+    return _adamw(grads, state, params, lr, _adder(params), b1, b2, eps, weight_decay)
 
 
 # ---------------------------------------------------------------------------
@@ -192,80 +277,112 @@ def _vhat(row, col):
 
 def _adafactor_leaf(g, nu, beta, eps, clip_threshold):
     """The JAX package's ``upd`` on one leaf (f32 ``g``): the new second
-    moment and the clipped update."""
-    g2 = torch.square(g) + eps
+    moment and the clipped update.  Temporaries are updated in place where
+    that gives the same bits (``r.mul_(g)`` for ``g * r``), so that at most
+    three tensors of the leaf's size are alive at once beside ``g``."""
+    g2 = torch.square(g).add_(eps)
     if _factored(g.shape):
         row, col = nu
         row = beta * row + (1 - beta) * torch.mean(g2, dim=-1)
         col = beta * col + (1 - beta) * torch.mean(g2, dim=-2)
-        vhat = _vhat(row, col)
+        del g2
+        update = _vhat(row, col).add_(eps).rsqrt_().mul_(g)
         new_nu = (row, col)
     else:
         vhat = beta * nu + (1 - beta) * g2
+        del g2
+        update = torch.rsqrt(vhat + eps).mul_(g)
         new_nu = vhat
-    update = g * torch.rsqrt(vhat + eps)
     rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-12)
-    return new_nu, update / torch.clamp(rms / clip_threshold, min=1.0)
+    return new_nu, update.div_(torch.clamp(rms / clip_threshold, min=1.0))
+
+
+def _entry_slices(shape):
+    """The slices along an entry's leading axes, flattened (``_part``), that
+    ``_adafactor_stack`` takes in turn: each at most ``SLICE_BYTES`` of f32
+    but one (d, f) matrix at least."""
+    lead = math.prod(shape[:-2])
+    n = _rows_per_slice((lead,) + tuple(shape[-2:]))
+    return [slice(a, a + n) for a in range(0, lead, n)]
 
 
 def _adafactor_stack(grads: Tree, items, nu, beta, eps, clip_threshold):
     """``_adafactor_leaf`` on a stacked leaf whose entries are at least 2-D,
-    entry by entry, so that no f32 tensor spans the stack: an entry's factors
-    (the means over its last axis and over its second-to-last, and the row
-    factor's mean) are its own, and only the clip's mean of ``update²``
-    spans the stack.  Pass 1 updates each entry's factors and adds up its
-    sum of ``update²`` in f32; pass 2 yields ``(name, clipped update)`` for
-    each entry in turn, the update recomputed from the new factors.  The
-    arithmetic is the stacked leaf's, operation for operation, but for the
-    order of that one cross-stack sum.  Returns the new ``(row, col)`` and
-    pass 2."""
+    entry by entry and, within an entry, slice by slice along its leading
+    axes (an (E, d, f) expert stack in slices of experts), so that no f32
+    tensor is larger than ``SLICE_BYTES`` or one (d, f) matrix: a matrix's
+    factors (the means over its last axis and over its second-to-last, and
+    the row factor's mean) are its own, and only the clip's mean of
+    ``update²`` spans the stack.  Pass 1 updates each slice's factors and
+    adds up its sum of ``update²`` in f32; pass 2 yields ``(name, part,
+    clipped update)`` for each slice in turn (``part`` None for a 2-D
+    entry), the update recomputed from the new factors.  The arithmetic is
+    the stacked leaf's, operation for operation, but for the order of that
+    one cross-stack sum.  Returns the new ``(row, col)`` and pass 2."""
     row, col = nu
     new_row, new_col = torch.empty_like(row), torch.empty_like(col)
     ssq = torch.zeros((), dtype=F32, device=row.device)
     numel = 0
-    for idx, name in items:
-        g = grads[name].to(F32)
+
+    def slices() -> Iterator:
+        """(name, part, g, old row, old col, new row, new col) of each slice:
+        a 2-D entry whole (``part`` None), a larger one by ``_part``."""
+        for idx, name in items:
+            g = grads[name]
+            factors = (row[idx], col[idx], new_row[idx], new_col[idx])
+            if g.dim() == 2:
+                yield (name, None, g) + factors
+                continue
+            g3 = g.reshape(-1, *g.shape[-2:])
+            factors = tuple(t.view(-1, t.shape[-1]) for t in factors)
+            for part in _entry_slices(g.shape):
+                yield (name, part, g3[part]) + tuple(t[part] for t in factors)
+
+    for _, _, g, r0, c0, r1, c1 in slices():
+        g = g.to(F32)
         g2 = torch.square(g) + eps
-        new_row[idx] = beta * row[idx] + (1 - beta) * torch.mean(g2, dim=-1)
-        new_col[idx] = beta * col[idx] + (1 - beta) * torch.mean(g2, dim=-2)
+        r1.copy_(beta * r0 + (1 - beta) * torch.mean(g2, dim=-1))
+        c1.copy_(beta * c0 + (1 - beta) * torch.mean(g2, dim=-2))
         del g2
-        ssq += torch.sum(torch.square(g * torch.rsqrt(_vhat(new_row[idx], new_col[idx]) + eps)))
+        ssq += torch.sum(torch.square(g * torch.rsqrt(_vhat(r1, c1) + eps)))
         numel += g.numel()
     rms = torch.sqrt(ssq / numel + 1e-12)
     clip = torch.clamp(rms / clip_threshold, min=1.0)
 
     def updates():
-        for idx, name in items:
-            g = grads[name].to(F32)
-            yield name, g * torch.rsqrt(_vhat(new_row[idx], new_col[idx]) + eps) / clip
+        for name, part, g, _, _, r1, c1 in slices():
+            g = g.to(F32)
+            yield name, part, g * torch.rsqrt(_vhat(r1, c1) + eps) / clip
 
     return (new_row, new_col), updates()
 
 
-@torch.no_grad()
-def adafactor_update(grads: Tree, state: OptState, params: Tree, lr: torch.Tensor,
-                     decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.0,
-                     weight_decay: float = 0.0) -> Tuple[Tree, OptState]:
+def _adafactor(grads: Tree, state: OptState, params: Tree, lr: torch.Tensor, put: Put,
+               decay: float, eps: float, clip_threshold: float,
+               weight_decay: float) -> OptState:
     step = state.step + 1
     beta = 1.0 - (step.to(F32) + 1.0) ** (-decay)
     plain, groups = _stacks(grads)
-    delta, new_nu = {}, {}
+    new_nu = {}
 
-    def put(name, update):
-        p = params[name]
+    def put_update(name, part, update):
+        """``-lr (update + weight_decay p)`` in p's type, in place on the
+        fresh ``update`` (the bits of the out-of-place formula)."""
+        p = _part(params[name], part)
         if weight_decay:
-            update = update + weight_decay * p.to(F32)
-        delta[name] = (-lr * update).to(p.dtype)
+            update.add_(p.to(F32, copy=True).mul_(weight_decay))
+        put(name, part, update.mul_(-lr).to(p.dtype))
 
     for k, g in plain.items():
         new_nu[k], update = _adafactor_leaf(g.to(F32), state.nu[k], beta, eps, clip_threshold)
-        put(k, update)
+        put_update(k, None, update)
+        del update
     for key, items in groups.items():
         if _factored(grads[items[0][1]].shape):
             new_nu[key], updates = _adafactor_stack(grads, items, state.nu[key], beta, eps,
                                                     clip_threshold)
-            for name, update in updates:
-                put(name, update)
+            for name, part, update in updates:
+                put_update(name, part, update)
             continue
         # entries of fewer than 2 axes: factored (or not) across the stack,
         # as the JAX leaf is; the stack holds a vector or scalar a layer
@@ -273,8 +390,28 @@ def adafactor_update(grads: Tree, state: OptState, params: Tree, lr: torch.Tenso
             _lead(items) + tuple(grads[items[0][1]].shape))
         new_nu[key], update = _adafactor_leaf(g, state.nu[key], beta, eps, clip_threshold)
         for idx, name in items:
-            put(name, update[idx])
-    return delta, OptState(step=step, mu=None, nu=new_nu)
+            put_update(name, None, update[idx])
+    return OptState(step=step, mu=None, nu=new_nu)
+
+
+@torch.no_grad()
+def adafactor_update(grads: Tree, state: OptState, params: Tree, lr: torch.Tensor,
+                     decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.0,
+                     weight_decay: float = 0.0) -> Tuple[Tree, OptState]:
+    delta = {}
+    state = _adafactor(grads, state, params, lr, _collect(delta, params), decay, eps,
+                       clip_threshold, weight_decay)
+    return delta, state
+
+
+@torch.no_grad()
+def adafactor_apply(grads: Tree, state: OptState, params: Tree, lr: torch.Tensor,
+                    decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.0,
+                    weight_decay: float = 0.0) -> OptState:
+    """``adafactor_update`` with each delta (of a leaf, or of a slice of a
+    stack's entry) added to its parameter as made."""
+    return _adafactor(grads, state, params, lr, _adder(params), decay, eps, clip_threshold,
+                      weight_decay)
 
 
 @torch.no_grad()
@@ -292,7 +429,9 @@ def apply_updates(params: Tree, delta: Tree) -> Tree:
 
 def make_optimizer(name: str, **kw) -> Optimizer:
     if name == "adamw":
-        return Optimizer("adamw", adamw_init, functools.partial(adamw_update, **kw))
+        return Optimizer("adamw", adamw_init, functools.partial(adamw_update, **kw),
+                         functools.partial(adamw_apply, **kw))
     if name == "adafactor":
-        return Optimizer("adafactor", adafactor_init, functools.partial(adafactor_update, **kw))
+        return Optimizer("adafactor", adafactor_init, functools.partial(adafactor_update, **kw),
+                         functools.partial(adafactor_apply, **kw))
     raise ValueError(name)

@@ -6,8 +6,11 @@ clip, optional int8 gradient compression, optimizer update (port of
 ``(params, opt_state, metrics)``, as in the JAX package.  ``params`` is a
 ``Model``; the step updates its parameters and the optimizer's moments in
 place under ``torch.no_grad()`` (the JAX package donates them to jit) and
-returns the same objects.  The batch may hold numpy arrays or tensors; it
-moves to the parameters' device.
+returns the same objects: the clip scales the gradients in place and
+``Optimizer.apply`` adds each delta as it is made, so no tree of scaled
+gradients or of deltas is held (the bits of the JAX package's formulas).
+The batch may hold numpy arrays or tensors; it moves to the parameters'
+device.
 """
 from __future__ import annotations
 
@@ -21,7 +24,6 @@ from ..configs.base import ModelConfig
 from ..models.model import Model, forward_train, torch_dtype
 from ..optim.optimizers import (
     Optimizer,
-    apply_updates,
     clip_by_global_norm,
     cosine_schedule,
     make_optimizer,
@@ -84,19 +86,22 @@ def make_train_step(cfg: ModelConfig, settings: TrainSettings,
                 del g
                 losses.append(loss_i)
                 ms.append(m_i)
-            grads = {n: (a / n_mb).to(torch.float32) for n, a in acc.items()}
+            # the mean in place (the bits of ``a / n_mb``)
+            grads = {n: a.div_(n_mb).to(torch.float32) for n, a in acc.items()}
             del acc
             loss = torch.mean(torch.stack(losses))
             metrics = {k: torch.mean(torch.stack([m[k] for m in ms])) for k in ms[0]}
         if settings.grad_compression == "int8":
             grads = {n: _compress_int8(g) for n, g in grads.items()}
+        # the clip scales the gradients in place, and the optimizer adds
+        # each delta to its parameter as it makes it: beside the parameters
+        # and their gradients a step holds only one leaf's (or one slice's)
+        # temporaries
         grads, gnorm = clip_by_global_norm(grads, settings.clip_norm)
         lr = schedule(opt_state.step)
         with torch.no_grad():
-            pdict = dict(params.named_parameters())
-            delta, opt_state = optimizer.update(grads, opt_state, pdict, lr)
-            del grads
-            apply_updates(pdict, delta)
+            opt_state = optimizer.apply(grads, opt_state, dict(params.named_parameters()), lr)
+        del grads
         metrics = dict(metrics)
         metrics.update(loss=loss, grad_norm=gnorm, lr=lr)
         return params, opt_state, metrics

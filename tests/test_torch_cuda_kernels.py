@@ -439,6 +439,41 @@ def test_flash_gradient_at_head_dim_112_runs_the_kernels(cuda_device):
     assert all(bool(torch.isfinite(g_.float()).all()) for g_ in grads)
 
 
+#: the head layouts of the four models trained at full width (chip_smoke
+#: phase 11c), at small S: seamless-m4t-medium (16 on 16, hd 64),
+#: moonshot-v1-16b-a3b (16 on 16, hd 128), arctic-480b (56 on 8: groups of
+#: 7) and internvl2-26b (48 on 8), ragged tails against the 128-row tiles
+TRAIN_LAYOUTS = [(4, 256, 16, 16, 64), (2, 320, 16, 16, 128), (2, 256, 56, 8, 128),
+                 (1, 333, 48, 8, 128)]
+
+
+@pytest.mark.parametrize("shape", TRAIN_LAYOUTS, ids=str)
+def test_flash_bf16_backward_at_training_layouts(cuda_device, shape):
+    """dq, dk and dv in bf16 within the backward's tolerances of the plain
+    backward, one launch each of dq, dk/dv and the reduction; two calls the
+    same bits; the reduction of dk/dv's f32 partials over each group exactly
+    its plain version's sums."""
+    b, s, h, g, hd = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(7 * s + h)
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device)
+                   .to(torch.bfloat16) for n in (h, g, g, h))
+    o, lse = kernels.flash_attention_fwd(q, k, v, causal=True)
+    kernels.reset_launch_counts()
+    runs = [kernels.flash_attention_bwd(q, k, v, o, lse, do, causal=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    dkv, reduce = DKV_KEYS[torch.bfloat16]
+    assert (counts[DQ_KEY[torch.bfloat16]], counts[dkv], counts[reduce]) == (2, 2, 2)
+    _assert_backward_close(runs[0], kernels.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                                      causal=True), torch.bfloat16)
+    for a, b_ in zip(*runs):
+        assert torch.equal(a.view(torch.int16), b_.view(torch.int16))
+    parts = [torch.randn((b * h, s, hd), generator=gen, device=cuda_device) for _ in range(2)]
+    for got, want in zip(kernels.flash_attention_dkv_reduce(*parts, b * g),
+                         kernels.flash_attention_dkv_reduce_plain(*parts, b * g)):
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 #: the f32 route at the shapes it is timed at: qwen2-1.5b's heads at
 #: 1 x 2,048, and gemma-2b's hd 256 MQA at 1 x 1,024
 F32_PATH_SHAPES = [(1, 2048, 12, 2, 128), (1, 1024, 8, 1, 256)]
